@@ -1,0 +1,40 @@
+"""PyTorch + CUDA port of ``paddle_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package (``paddle_tpu``) stays the reference; this package keeps
+its module paths and names so each counterpart is easy to find
+(``models/gpt.py``, ``models/generation.py``, ``inference/engine.py``,
+``ops/cuda/paged_attention.py`` beside ``ops/pallas/paged_attention.py``).
+
+What is ported so far: the serving path — ``inference.
+ContinuousBatchingEngine`` over ``models.GPTForCausalLM`` — whose one
+kernel, ragged paged attention, is hand-written CUDA for ``sm_90a``
+(``ops/cuda/csrc/paged_attention.cu``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card and without ``device=`` they raise (:func:`resolve_device`).
+On CPU tensors every kernel wrapper runs its plain PyTorch version; on
+CUDA tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default, which
+    must exist; any explicit ``device`` (``"cpu"``, ``"cuda:1"``, a
+    ``torch.device``) is taken as given, a CUDA one checked for a card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "paddle_tpu_torch runs on a CUDA card by default and none "
+                "is available (torch.cuda.is_available() is False); pass "
+                "device='cpu' to run the plain PyTorch versions on the CPU")
+        if dev.index is None:    # "cuda" means the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
