@@ -5,7 +5,6 @@ from __future__ import annotations
 import os
 
 _FLAGS: dict[str, object] = {}
-_FLAG_TYPES: dict[str, type] = {}
 
 
 def define_flag(name: str, default):
@@ -17,20 +16,12 @@ def define_flag(name: str, default):
             val = env.lower() in ("1", "true", "yes")
         else:
             val = ftype(env)
-    _FLAG_TYPES[name] = ftype
     _FLAGS[name] = val
     return val
 
 
 def get_flag(name: str):
     return _FLAGS[name]
-
-
-def set_flags(flags: dict):
-    for k, v in flags.items():
-        if k not in _FLAG_TYPES:
-            raise KeyError(f"unknown flag {k!r}")
-        _FLAGS[k] = _FLAG_TYPES[k](v)
 
 
 # bounded admission queue; 0 = unbounded

@@ -199,6 +199,12 @@ class ContinuousBatchingEngine:
                       "slice")
         _parse_switch("spec_decode", spec_decode,
                       "speculative decoding comes with a later slice")
+        if spec_seed or any(v is not None for v in (
+                spec_k, spec_proposer, spec_temperature,
+                spec_rejection_sampling)):
+            raise NotImplementedError(
+                "speculative decoding (spec_*) is not ported yet: it "
+                "comes with a later slice")
         if mesh is not None or tp_axis is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh/tp_axis) is not ported "
@@ -256,7 +262,6 @@ class ContinuousBatchingEngine:
             if dispatch_retries is None else dispatch_retries)
         self._clock = time.monotonic if clock is None else clock
         self._guard = DecodeGuard(self.max_slots)
-        self.kv_quant = False
 
         n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
         shape = (n_kv, self.total_pages, self.page_size, cfg.head_dim)
@@ -271,9 +276,8 @@ class ContinuousBatchingEngine:
               if prefix_cache is None else prefix_cache)
         if isinstance(pc, str):
             pc = pc.lower() not in _state.PREFIX_CACHE_OFF_SPELLINGS
-        self.prefix_cache_enabled = bool(pc)
         self._cache = PrefixCache(self.page_size, self._free_pages,
-                                  enabled=self.prefix_cache_enabled,
+                                  enabled=bool(pc),
                                   total_pages=self.total_pages)
         self._bt = np.zeros((self.max_slots, self.np_per_seq), np.int32)
         self._slots = [_Slot() for _ in range(self.max_slots)]
@@ -302,7 +306,7 @@ class ContinuousBatchingEngine:
         d["pages_in_use"] = self._pages_in_use()
         d["pages_free"] = len(self._free_pages)
         d["queue_depth"] = len(self._queue)
-        d["kv_quant"] = self.kv_quant
+        d["kv_quant"] = False
         d["kv_page_bytes"] = self._page_bytes
         d["kv_bytes_in_use"] = d["pages_in_use"] * self._page_bytes
         d["spec_proposed"] = 0
@@ -313,7 +317,7 @@ class ContinuousBatchingEngine:
         return d
 
     def add_request(self, prompt, max_new_tokens, eos_token_id=None,
-                    request_id=None, deadline_ms=None, requeue=False):
+                    request_id=None, deadline_ms=None):
         if isinstance(prompt, torch.Tensor):
             prompt = prompt.detach().cpu().numpy()
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -360,13 +364,9 @@ class ContinuousBatchingEngine:
         dl_ms = (self.default_deadline_ms
                  if deadline_ms is None else float(deadline_ms))
         deadline = (self._clock() + dl_ms / 1e3) if dl_ms else None
-        req = _Request(
+        self._queue.append(_Request(
             rid, prompt, max_new_tokens,
-            -1 if eos_token_id is None else int(eos_token_id), deadline)
-        # requeue=True: a coordinator re-submitting a request it already
-        # counted — its demand is already in prefill_tokens_requested
-        req.requested_counted = bool(requeue)
-        self._queue.append(req)
+            -1 if eos_token_id is None else int(eos_token_id), deadline))
         return rid
 
     def cancel(self, rid) -> bool:
@@ -393,14 +393,6 @@ class ContinuousBatchingEngine:
         out = [s.req.rid for s in self._slots if s.req is not None]
         out.extend(r.rid for r in self._queue)
         return out
-
-    def cached_prefix_tokens(self, ids) -> int:
-        """Longest page-aligned prefix of ``ids`` already indexed in the
-        prefix cache, in tokens (0 with caching off)."""
-        if isinstance(ids, torch.Tensor):
-            ids = ids.detach().cpu().numpy()
-        ids = np.asarray(ids, np.int32).reshape(-1)
-        return len(self._cache.match(ids)) * self.page_size
 
     @property
     def has_work(self):

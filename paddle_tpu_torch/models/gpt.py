@@ -70,9 +70,6 @@ class GPTAttention(nn.Module):
         self.qkv = nn.Linear(h, 3 * h)
         self.proj = nn.Linear(h, h)
 
-    def forward(self, x):
-        raise NotImplementedError(_TRAINING_SLICE)
-
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
@@ -92,9 +89,6 @@ class GPTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = GPTMLP(cfg)
 
-    def forward(self, x):
-        raise NotImplementedError(_TRAINING_SLICE)
-
 
 class GPTModel(nn.Module):
     """Embeddings + transformer stack + final norm."""
@@ -107,9 +101,6 @@ class GPTModel(nn.Module):
         self.blocks = nn.ModuleList(GPTBlock(cfg)
                                     for _ in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-
-    def forward(self, input_ids):
-        raise NotImplementedError(_TRAINING_SLICE)
 
 
 class GPTForCausalLM(nn.Module):

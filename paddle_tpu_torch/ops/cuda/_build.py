@@ -60,10 +60,6 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _command(nvcc: str, name: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
-
-
 def build_all(names=None) -> dict[str, Path]:
     """Compile every listed source (default: all) that has no current
     library yet, one ``nvcc`` process per source, started together.
@@ -80,7 +76,7 @@ def build_all(names=None) -> dict[str, Path]:
         # compile to a private name, then rename: a concurrent build of
         # the same source never loads a half-written library
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = _command(nvcc, n, tmp)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failures = []

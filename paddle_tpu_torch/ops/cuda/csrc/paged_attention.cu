@@ -13,13 +13,15 @@
 // The design spends nothing else on device memory: one CTA per (kv head,
 // q block) stages the q block's rows of all `rep` query heads of its kv
 // head once, walks the sequence's pages only up to the causal bound of
-// its q block (never a token at or past kv_len), stages 64 tokens of K
-// and V at a time in shared memory with 16-byte coalesced loads, and
-// keeps scores, softmax state and the output accumulator in shared
-// memory. The grid comes from static shapes only (kv heads x q blocks of
-// the padded token budget): the CTA finds its sequence from q_lens
-// itself, so the host never reads a device length. No tensor cores,
-// no TMA, no split-KV yet: those are later work.
+// its q block (never a token at or past kv_len), and keeps scores,
+// softmax state and the output accumulator in shared memory. K and V
+// move in 64-token chunks with 16-byte cp.async copies into two
+// shared-memory buffers, so the next chunk's bytes are in flight while
+// the current one is scored: the loop waits on memory once per chunk,
+// not once per load. The grid comes from static shapes only (kv heads x
+// q blocks of the padded token budget): the CTA finds its sequence from
+// q_lens itself, so the host never reads a device length. No tensor
+// cores, no TMA, no split-KV yet: those are later work.
 //
 // Plain C interface (bound with ctypes); the wrapper in
 // paged_attention.py checks shapes, types and contiguity and allocates
@@ -46,14 +48,33 @@ struct Params {
   float scale;
 };
 
+// floats of one K+V chunk buffer (K rows padded by 4 floats)
+__host__ __device__ inline size_t chunk_floats(int d) {
+  return (size_t)kChunk * (d + 4) + (size_t)kChunk * d;
+}
+
 // shared-memory floats for R = q_block * rep rows of width D
 __host__ __device__ inline size_t smem_floats(int rows, int d) {
   return (size_t)rows * d            // q rows, pre-scaled
-         + (size_t)kChunk * (d + 4)  // K chunk, rows padded by 4 floats
-         + (size_t)kChunk * d        // V chunk
+         + 2 * chunk_floats(d)       // two K/V chunk buffers
          + (size_t)rows * kChunk     // scores, then probabilities
          + (size_t)rows * d          // output accumulator
          + 3 * (size_t)rows;         // running max, running sum, rescale
+}
+
+// 16-byte global -> shared copy that does not wait for the data
+__device__ inline void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ inline float warp_max(float v) {
@@ -66,6 +87,24 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
+// Start copying K/V of tokens [c0, c0 + n) of one sequence's kv head into
+// a chunk buffer (K rows at stride D + 4, V rows at stride D); all tokens
+// are below kv_len, so never stale or unwritten pool memory.
+__device__ inline void stage_chunk(const Params& p, const int* bt, int kvh,
+                                   int c0, int n, float* ks, float* vs) {
+  const int D = p.D, D4 = D >> 2, KS = D + 4;
+  for (int e = threadIdx.x; e < n * D4; e += kThreads) {
+    const int j = e / D4, d4 = e - j * D4;
+    const int pos = c0 + j;
+    const int page = __ldg(bt + pos / p.page_size);
+    const size_t off =
+        (((size_t)kvh * p.P + page) * p.page_size + pos % p.page_size) * D + 4 * d4;
+    cp_async16(ks + j * KS + 4 * d4, p.k_pages + off);
+    cp_async16(vs + j * D + 4 * d4, p.v_pages + off);
+  }
+  cp_async_commit();
+}
+
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -74,9 +113,8 @@ ragged_paged_attention_kernel(Params p) {
   const int KS = D + 4;  // K row stride: keeps float4 alignment, spreads banks
   const int R = p.q_block * p.rep;
   float* qs = smem;                       // [R][D]
-  float* ks = qs + (size_t)R * D;         // [kChunk][KS]
-  float* vs = ks + (size_t)kChunk * KS;   // [kChunk][D]
-  float* sc = vs + (size_t)kChunk * D;    // [R][kChunk]
+  float* buf = qs + (size_t)R * D;        // 2 x ([kChunk][KS] K, [kChunk][D] V)
+  float* sc = buf + 2 * chunk_floats(D);  // [R][kChunk]
   float* acc = sc + (size_t)R * kChunk;   // [R][D]
   float* m_s = acc + (size_t)R * D;       // [R]
   float* l_s = m_s + R;                   // [R]
@@ -114,6 +152,8 @@ ragged_paged_attention_kernel(Params p) {
   const int base = kv_len - p.q_lens[b] + qb * p.q_block;  // q_pos of row token 0
   const int kv_need = min(kv_len, base + p.q_block);       // causal truncation
   const int* bt = p.block_tables + (size_t)b * p.NP;
+  // the first chunk's copies fly while the q rows are staged
+  if (kv_need > 0) stage_chunk(p, bt, kvh, 0, min(kChunk, kv_need), buf, buf + kChunk * KS);
 
   // Row r is token r / rep of the q block, query head kvh * rep + r % rep.
   for (int e = tid; e < R * D; e += kThreads) {
@@ -130,21 +170,21 @@ ragged_paged_attention_kernel(Params p) {
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
-  for (int c0 = 0; c0 < kv_need; c0 += kChunk) {
+  for (int c0 = 0, it = 0; c0 < kv_need; c0 += kChunk, ++it) {
     const int n = min(kChunk, kv_need - c0);
+    float* ks = buf + (it & 1) * chunk_floats(D);
+    float* vs = ks + kChunk * KS;
 
-    // 1. stage K/V of tokens [c0, c0 + n): all below kv_len, so never
-    //    stale or unwritten pool memory
-    for (int e = tid; e < n * D4; e += kThreads) {
-      const int j = e / D4, d4 = e - j * D4;
-      const int pos = c0 + j;
-      const int page = bt[pos / p.page_size];
-      const size_t off =
-          (((size_t)kvh * p.P + page) * p.page_size + pos % p.page_size) * D + 4 * d4;
-      const float4 kk = *reinterpret_cast<const float4*>(p.k_pages + off);
-      const float4 vv = *reinterpret_cast<const float4*>(p.v_pages + off);
-      *reinterpret_cast<float4*>(ks + j * KS + 4 * d4) = kk;
-      *reinterpret_cast<float4*>(vs + j * D + 4 * d4) = vv;
+    // 1. start the next chunk's copies into the other buffer (its last
+    //    reader finished before the barrier that ended the previous
+    //    iteration), then wait for this chunk's
+    const int c1 = c0 + kChunk;
+    if (c1 < kv_need) {
+      float* ks1 = buf + ((it + 1) & 1) * chunk_floats(D);
+      stage_chunk(p, bt, kvh, c1, min(kChunk, kv_need - c1), ks1, ks1 + kChunk * KS);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
 
@@ -189,13 +229,27 @@ ragged_paged_attention_kernel(Params p) {
     }
     __syncthreads();
 
-    // 4. acc = acc * alpha + P V
-    for (int e = tid; e < R * D; e += kThreads) {
-      const int r = e / D, d = e - r * D;
+    // 4. acc = acc * alpha + P V, four columns per thread
+    for (int e = tid; e < R * D4; e += kThreads) {
+      const int r = e / D4, d4 = e - r * D4;
       const float* pr = sc + r * kChunk;
-      float a = acc[e] * a_s[r];
-      for (int j = 0; j < n; ++j) a = fmaf(pr[j], vs[j * D + d], a);
-      acc[e] = a;
+      const float4* v4 = reinterpret_cast<const float4*>(vs) + d4;
+      float4* a4 = reinterpret_cast<float4*>(acc + (size_t)r * D) + d4;
+      const float alpha = a_s[r];
+      float4 a = *a4;
+      a.x *= alpha;
+      a.y *= alpha;
+      a.z *= alpha;
+      a.w *= alpha;
+      for (int j = 0; j < n; ++j) {
+        const float pj = pr[j];
+        const float4 v = v4[j * D4];
+        a.x = fmaf(pj, v.x, a.x);
+        a.y = fmaf(pj, v.y, a.y);
+        a.z = fmaf(pj, v.z, a.z);
+        a.w = fmaf(pj, v.w, a.w);
+      }
+      *a4 = a;
     }
     __syncthreads();
   }

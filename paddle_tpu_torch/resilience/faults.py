@@ -15,8 +15,6 @@ the port. Sites the serving slice consults:
   request id of the slot being grown.
 * ``engine_cache_evict``   — the prefix cache evicts its LRU cached page
   on one allocation even while free pages remain. Key = request id.
-* ``engine_stall``         — one dispatch spins (bounded). The port has
-  no stall watchdog yet, so the drill ends in a ``RuntimeError``.
 
 Spec grammar (``;``-separated rules)::
 
@@ -37,15 +35,9 @@ import os
 import threading
 
 __all__ = [
-    "InjectedCrash", "InjectedConnectionError", "Rule", "inject",
-    "check", "maybe_raise", "clear", "reset", "active", "parse",
+    "InjectedConnectionError", "Rule", "inject", "check", "maybe_raise",
+    "clear", "reset", "parse",
 ]
-
-
-class InjectedCrash(BaseException):
-    """A simulated process death. Deliberately NOT an ``Exception``:
-    cleanup handlers that swallow ``Exception`` must not 'survive' a
-    crash the harness asked for."""
 
 
 class InjectedConnectionError(ConnectionError):
@@ -131,12 +123,6 @@ def reset():
         _rules.clear()
         _env_loaded = False
         _load_env()
-
-
-def active() -> list[Rule]:
-    with _lock:
-        _load_env()
-        return list(_rules)
 
 
 def check(site: str, key: str = "") -> bool:

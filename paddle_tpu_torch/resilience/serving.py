@@ -19,9 +19,9 @@ from ..core.errors import NonFiniteLogitsError
 from . import faults
 
 __all__ = [
-    "FINISH_REASONS", "DecodeGuard", "dispatch_retry", "simulated_stall",
+    "FINISH_REASONS", "DecodeGuard", "dispatch_retry",
     "SITE_DISPATCH", "SITE_NAN_DECODE", "SITE_PAGE_PRESSURE",
-    "SITE_CACHE_EVICT", "SITE_STALL",
+    "SITE_CACHE_EVICT",
 ]
 
 #: Every value ``CompletedRequest.finish_reason`` can take.
@@ -31,21 +31,6 @@ SITE_DISPATCH = "engine_dispatch"
 SITE_NAN_DECODE = "engine_nan_decode"
 SITE_PAGE_PRESSURE = "engine_page_pressure"
 SITE_CACHE_EVICT = "engine_cache_evict"
-SITE_STALL = "engine_stall"
-
-
-def simulated_stall(key: str, max_s: float = 30.0, site: str = SITE_STALL):
-    """The ``engine_stall`` drill body: when the site fires, spin for at
-    most ``max_s`` seconds and raise. (The port has no stall watchdog
-    yet; the bounded spin keeps a drill from hanging a test run.)"""
-    if not faults.check(site, key=str(key)):
-        return
-    t0 = time.monotonic()
-    while time.monotonic() - t0 < max_s:
-        time.sleep(0.002)
-    raise RuntimeError(
-        f"{site} drill (key={key!r}): no watchdog interrupted the "
-        f"stalled dispatch within {max_s}s")
 
 
 class DecodeGuard:
@@ -96,7 +81,6 @@ def dispatch_retry(kind: str, fn, *, max_attempts=3, on_retry=None):
     while True:
         try:
             faults.maybe_raise(SITE_DISPATCH, kind)
-            simulated_stall(kind)
             return fn()
         except ConnectionError as e:
             attempt += 1

@@ -199,6 +199,7 @@ def test_left_out_subsystems_raise():
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     for kw in ({"kv_quant": True}, {"kv_quant": "on"},
                {"megakernel": True}, {"spec_decode": True},
+               {"spec_k": 4}, {"spec_proposer": "ngram"},
                {"mesh": object()}, {"slo": "ttft_p99<100ms"},
                {"watchdog_ms": 50}):
         with pytest.raises(NotImplementedError):

@@ -82,6 +82,22 @@ def test_engine_refuses_a_model_on_another_device():
         ContinuousBatchingEngine(model, device="meta")
 
 
+def test_chip_smoke_serve_phase_rehearses_on_cpu():
+    """chip_smoke's serve phase (engine drive, pool checks, teacher-forced
+    check against a plain forward) at a tiny width on the CPU."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from paddle_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                    num_heads=4, max_seq_len=96)
+    out = chip_smoke.serve_phase(0, cfg=cfg, device="cpu")
+    assert out["tokens"] == 16 * 32 and out["launches"] == 0
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
