@@ -5,8 +5,9 @@
 1. Header: the card, its power limit (nvidia-smi), TF32 off, and the
    build of every CUDA kernel from ``paddle_tpu_torch/ops/cuda/csrc``.
 2. Kernel phase: ``ragged_paged_attention`` (CUDA) against its plain
-   PyTorch version on the card, at GPT-124M widths (a mixed prefill +
-   decode batch and a decode batch) and one GQA case; max abs error
+   PyTorch version on the card, at the shapes the serve phase's engine
+   gives it (a mixed prefill + decode step and a decode step at
+   GPT-124M widths) and one GQA case; max abs error
    <= 2e-5; times from CUDA events with the L2 flushed before each
    launch, beside the least time the card could take (bound).
 3. Serve phase: GPT-124M (``GPTConfig()`` defaults, weights drawn from
@@ -16,7 +17,9 @@
    the page pool must be conserved, and the kernel must have launched
    in both the mixed and the decode steps. A teacher-forced plain fp32
    forward (plain attention, no kernel) must pick every served token,
-   except where its top-2 margin is below 1e-4 (a near tie).
+   except where its top-2 margin is below 1e-4 (a near tie). One more
+   run of the same requests under ``torch.profiler`` breaks the device
+   time down by kernel and gives the device's busy share.
 4. Prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``
    as the last line. Any failed phase raises: the exit code is not 0
    and no result line is printed. Without a card it exits 2 at once.
@@ -71,21 +74,33 @@ def build():
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
 
 
+# The engine geometry of the serve phase. At GPT-124M (1024 positions)
+# it gives the attention calls of the main path these shapes: block
+# tables [8, 64], pools [12, 513, 16, 64], q [128, 12, 64] in a mixed
+# step (8 slots x q_block + prefill_chunk) and [8, 12, 64] in a decode.
+GEO = dict(max_slots=8, page_size=16, decode_window=8, prefill_chunk=64,
+           q_block=8)
+
+
 # ------------------------------------------------------------ kernel --
-def _attn_case(gen, kv_lens, q_lens, hq, hk, d, ps, q_block, total_pages):
-    """Inputs on the card: shuffled block tables, packed q with each
-    segment at a q_block edge, one trailing padding q block."""
+def _attn_case(gen, kv_lens, q_lens, hq, hk, d, ps, q_block, total_pages,
+               NP=None, T=None):
+    """Inputs on the card: shuffled block tables ``[B, NP]``, packed q
+    ``[T, Hq, D]`` with each segment at a q_block edge (by default one
+    trailing padding q block)."""
     dev = torch.device("cuda")
     B = len(kv_lens)
     npg = [-(-kv // ps) for kv in kv_lens]
-    NP = max(npg)
+    NP = max(npg) if NP is None else NP
     perm = torch.randperm(total_pages - 1, generator=gen) + 1
     bt = torch.zeros(B, NP, dtype=torch.int32)
     at = 0
     for b in range(B):
         bt[b, :npg[b]] = perm[at:at + npg[b]]
         at += npg[b]
-    T = sum(-(-q // q_block) * q_block for q in q_lens) + q_block
+    live = sum(-(-q // q_block) * q_block for q in q_lens)
+    T = live + q_block if T is None else T
+    assert live <= T, (live, T)
     cgen = torch.Generator(device=dev).manual_seed(int(
         torch.randint(0, 2**31 - 1, (1,), generator=gen)))
     k = torch.randn(hk, total_pages, ps, d, generator=cgen, device=dev)
@@ -130,26 +145,37 @@ def _time_ms(fn, n, flush):
     return sum(s.elapsed_time(e) for s, e in evs) / n
 
 
-def kernel_phase(seed):
+def kernel_phase(seed, power):
+    """Kernel vs plain on the card. The two GPT-124M cases have the
+    shapes the serve phase's engine gives the kernel (``GEO``); the GQA
+    case is a LLaMA-like head layout the main path does not reach."""
     from paddle_tpu_torch.ops.cuda.paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain)
     gen = torch.Generator().manual_seed(seed)
     rng = np.random.default_rng(seed)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    kv_mixed = [int(x) for x in rng.integers(64, 1025, 8)]
-    kv_mixed[5] = 1
-    q_mixed = [1, 64, 1, 64, 1, 1, 64, 1]
+    slots, ps, qb = GEO["max_slots"], GEO["page_size"], GEO["q_block"]
+    NP = 1024 // ps                               # GPT-124M max_seq_len
+    pages = 1 + slots * NP
+    budget = slots * qb + GEO["prefill_chunk"]
+    # a mixed step: one 64-token prefill chunk, six decodes, an idle slot
+    # (kv_len 1, q_len 0), in the engine's padded token budget
+    kv_mixed = [int(x) for x in rng.integers(64, 1025, slots)]
+    kv_mixed[3] = 1
+    q_mixed = [1, 64, 1, 0, 1, 1, 1, 1]
     cases = [
-        # name, kv_lens, q_lens, hq, hk, d, page_size, q_block, pages
-        ("gpt124m_mixed", kv_mixed, q_mixed, 12, 12, 64, 16, 8, 513),
-        ("gpt124m_decode", [int(x) for x in rng.integers(1, 1025, 8)],
-         [1] * 8, 12, 12, 64, 16, 1, 513),
+        # name, kv_lens, q_lens, hq, hk, d, page_size, q_block, pages,
+        # table width, packed tokens
+        ("gpt124m_mixed", kv_mixed, q_mixed, 12, 12, 64, ps, qb, pages,
+         NP, budget),
+        ("gpt124m_decode", [int(x) for x in rng.integers(1, 1025, slots)],
+         [1] * slots, 12, 12, 64, ps, 1, pages, NP, slots),
         ("gqa_32q_8kv_d128", [int(x) for x in rng.integers(64, 1025, 4)],
-         [64, 1, 17, 1], 32, 8, 128, 16, 8, 257),
+         [64, 1, 17, 1], 32, 8, 128, 16, 8, 257, None, None),
     ]
     rows = []
-    for name, kvl, ql, hq, hk, d, ps, qb, pages in cases:
-        args = _attn_case(gen, kvl, ql, hq, hk, d, ps, qb, pages)
+    for name, kvl, ql, hq, hk, d, ps, qb, pages, width, T in cases:
+        args = _attn_case(gen, kvl, ql, hq, hk, d, ps, qb, pages, width, T)
         out = ragged_paged_attention(*args, q_block=qb)
         ref = ragged_paged_attention_plain(*args, q_block=qb)
         torch.cuda.synchronize()
@@ -166,10 +192,14 @@ def kernel_phase(seed):
                                                    ps)
         row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=flops, kv_lens=kvl, q_lens=ql, q_block=qb)
-        log(f"kernel {name}: max_abs_err {err:.3g}, {ms:.4f} ms "
-            f"(plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-            f"{bound_by}, {bound_ms / ms:.1%} of bound)")
+                   flops=flops, q_shape=list(args[0].shape),
+                   pool_shape=list(args[1].shape),
+                   table_shape=list(args[3].shape), kv_lens=kvl,
+                   q_lens=ql, q_block=qb)
+        log(f"kernel {name} q {row['q_shape']} pools {row['pool_shape']} "
+            f"tables {row['table_shape']}: max_abs_err {err:.3g}, "
+            f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+            f"ms by {bound_by}, {bound_ms / ms:.1%} of bound) on {power}")
         rows.append(row)
     del flush
     return rows
@@ -237,7 +267,8 @@ def teacher_forced_logits(model, ids):
 def serve_phase(seed, cfg=None, device="cuda"):
     """Serve 16 requests through the engine and check them. ``cfg``
     defaults to GPT-124M; a smaller one (with ``device="cpu"``)
-    rehearses this phase without a card."""
+    rehearses this phase without a card, and without the device-time
+    breakdown (:func:`profile_serve`)."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          load_gpt_from_jax)
@@ -251,8 +282,7 @@ def serve_phase(seed, cfg=None, device="cuda"):
     load_gpt_from_jax(model, jax_layout_gpt_weights(cfg, seed))
     log(f"GPT {model.num_params()} params on {model.device} in "
         f"{time.perf_counter() - t0:.2f} s")
-    geo = dict(max_slots=8, page_size=16, decode_window=8,
-               prefill_chunk=64, q_block=8, device=device)
+    geo = dict(GEO, device=device)
     rng = np.random.default_rng(seed + 1)
     longest = min(512, cfg.max_seq_len - new_tokens)
     prompts = [rng.integers(0, min(cfg.vocab_size, 50257), int(n))
@@ -308,8 +338,9 @@ def serve_phase(seed, cfg=None, device="cuda"):
                                  and launches["decode"] > 0):
         raise AssertionError(f"kernel launches by step kind: {launches}")
     gen_tokens = st["tokens_generated"]
-    log(f"served {len(rids)} requests, {gen_tokens} tokens in {wall:.3f} s "
-        f"= {gen_tokens / wall:.1f} tokens/s; prompt tokens "
+    where = torch.cuda.get_device_name(0) if device == "cuda" else device
+    log(f"served {len(rids)} requests on {where}, {gen_tokens} tokens in "
+        f"{wall:.3f} s = {gen_tokens / wall:.1f} tokens/s; prompt tokens "
         f"{st['prefill_tokens_computed']}; {st['mixed_steps']} mixed "
         f"steps (mean {np.mean(step_ms['mixed']):.2f} ms), "
         f"{len(step_ms['decode'])} decode dispatches (mean "
@@ -340,11 +371,53 @@ def serve_phase(seed, cfg=None, device="cuda"):
                 f"picks {pr} with top-2 margin {m:.3g}")
     log(f"teacher-forced check: {checked} tokens, {near_ties} near ties "
         f"(top-2 margin < {MARGIN})")
-    return dict(launches=total_launches, by_step=launches, wall_s=wall,
-                tokens=gen_tokens, tokens_per_s=gen_tokens / wall,
-                near_ties=near_ties,
-                mixed_step_ms=float(np.mean(step_ms["mixed"])),
-                decode_dispatch_ms=float(np.mean(step_ms["decode"])))
+    out = dict(launches=total_launches, by_step=launches, wall_s=wall,
+               tokens=gen_tokens, tokens_per_s=gen_tokens / wall,
+               near_ties=near_ties,
+               mixed_step_ms=float(np.mean(step_ms["mixed"])),
+               decode_dispatch_ms=float(np.mean(step_ms["decode"])))
+    if device == "cuda":
+        out["profile"] = profile_serve(model, prompts, new_tokens, geo,
+                                       wall)
+    return out
+
+
+def profile_serve(model, prompts, new_tokens, geo, wall):
+    """Device time by kernel over one more run of the same requests on a
+    fresh engine under ``torch.profiler`` (not the timed run: the
+    profiler slows the host). The busy share is the device time over
+    ``wall``, the unprofiled run's wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, **geo)
+    for p in prompts:
+        eng.add_request(p, new_tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    log(f"profile: device busy {busy:.3f} ms over {wall * 1e3:.3f} ms of "
+        f"the timed run = {busy / (wall * 1e3):.1%} busy "
+        f"(profiled run {prof_wall * 1e3:.3f} ms); {len(kernels)} device "
+        f"kernels/copies, {sum(n for *_, n in kernels)} launches")
+    for key, ms, n in kernels[:12]:
+        log(f"profile:   {ms:9.3f} ms {ms / busy if busy else 0:6.1%} "
+            f"x{n:<6d} {key[:100]}")
+    return dict(busy_ms=busy, wall_ms=wall * 1e3,
+                busy_share=busy / (wall * 1e3), profiled_wall_ms=prof_wall
+                * 1e3, top=[dict(name=k[:200], ms=ms, count=n)
+                            for k, ms, n in kernels[:12]])
 
 
 def main(argv=None):
@@ -358,7 +431,7 @@ def main(argv=None):
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
     name, count, smi_line = header()
     build()
-    rows = kernel_phase(args.seed)
+    rows = kernel_phase(args.seed, smi_line)
     serve = serve_phase(args.seed)
     main_row = rows[0]
     kernels = {"kernels": [{
