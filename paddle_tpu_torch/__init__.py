@@ -5,10 +5,14 @@ its module paths and names so each counterpart is easy to find
 (``models/gpt.py``, ``models/generation.py``, ``inference/engine.py``,
 ``ops/cuda/paged_attention.py`` beside ``ops/pallas/paged_attention.py``).
 
-What is ported so far: the serving path — ``inference.
-ContinuousBatchingEngine`` over ``models.GPTForCausalLM`` — whose one
-kernel, ragged paged attention, is hand-written CUDA for ``sm_90a``
-(``ops/cuda/csrc/paged_attention.cu``).
+What is ported so far, each kernel hand-written CUDA for ``sm_90a``:
+the serving path — ``inference.ContinuousBatchingEngine`` over
+``models.GPTForCausalLM`` — with ragged paged attention
+(``ops/cuda/csrc/paged_attention.cu``); and the GPT training step —
+forward, loss, backward and ``optimizer.AdamW`` under ``amp`` O2 with
+fp32 master weights and ``distributed.fleet.recompute`` — with flash
+attention forward and backward (``ops/cuda/csrc/flash_attention.cu``)
+and the fused optimizer update (``ops/cuda/csrc/fused_optimizer.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device=`` they raise (:func:`resolve_device`).

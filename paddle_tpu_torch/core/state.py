@@ -1,4 +1,4 @@
-"""Flags the serving slice reads (names, defaults and spellings as in
+"""Flags the port reads (names, defaults and spellings as in
 ``paddle_tpu/core/state.py``; env override ``PDTPU_<NAME>``)."""
 from __future__ import annotations
 
@@ -24,6 +24,14 @@ def get_flag(name: str):
     return _FLAGS[name]
 
 
+def set_flags(flags: dict):
+    """Set defined flags, converted to their default's type."""
+    for k, v in flags.items():
+        if k not in _FLAGS:
+            raise KeyError(f"unknown flag {k!r}")
+        _FLAGS[k] = type(_FLAGS[k])(v)
+
+
 # bounded admission queue; 0 = unbounded
 define_flag("serving_max_queue", 0)
 # what a full queue does to add_request: 'reject' raises QueueFullError
@@ -40,3 +48,12 @@ PREFIX_CACHE_OFF_SPELLINGS = ("off", "false", "0", "no")
 # strict on/off spellings of the engine's kv_quant/megakernel kwargs
 KV_QUANT_OFF_SPELLINGS = PREFIX_CACHE_OFF_SPELLINGS
 KV_QUANT_ON_SPELLINGS = ("on", "true", "1", "yes")
+# flat-buffer multi-tensor optimizer path (optimizer/flat.py +
+# ops/cuda/fused_optimizer.py): dtype-bucketed flat params/moments
+# updated by one fused kernel per bucket. PDTPU_FUSED_OPT=off disables
+# it (per-param path)
+define_flag("fused_opt", True)
+# fused residual-add + norm training glue kernels (the JAX package's
+# ops/pallas/fused_residual_norm.py, kernels #9-#12); off by default.
+# The port has not ported them: a training forward with it on raises
+define_flag("train_glue_fusion", False)

@@ -7,9 +7,14 @@ ln_f}``, ``lm_head=None`` under tied embeddings) and the same init
 torch-layout (``Linear.weight`` is ``[out, in]``); ``models/weights.py``
 loads the JAX package's ``[in, out]`` arrays.
 
-This slice serves: ``models/generation.py`` drives the blocks token by
-token over paged KV. The full-sequence ``forward`` rides the
-flash-attention kernel and arrives with the training slice.
+Serving: ``models/generation.py`` drives the blocks token by token over
+paged KV. Training: ``GPTForCausalLM(ids, labels)`` runs the
+full-sequence forward through the port's functionals (each cast by the
+AMP rule), the flash-attention kernel and, with ``cfg.recompute``, block
+recompute under ``cfg.recompute_policy``. The model starts in training
+mode, as the JAX ``Layer`` does; the serving engine switches it to eval.
+The glue-fused forward (``train_glue_fusion``, kernels #9-#12) and MoE
+are not ported.
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .. import resolve_device
+from .. import ops, resolve_device
+from ..core import state
+from ..distributed.fleet.recompute import recompute
+from ..nn import functional as F
 
 
 @dataclass
@@ -51,11 +58,10 @@ class GPTConfig:
         return self.hidden_size // self.num_heads
 
 
-_TRAINING_SLICE = ("the full-sequence forward rides the flash-attention "
-                   "kernel (paddle_tpu/ops/pallas/flash_attention.py) and "
-                   "arrives with the port's training slice; this slice "
-                   "serves through models.generation and "
-                   "inference.ContinuousBatchingEngine")
+_GLUE = ("train_glue_fusion (the fused residual + norm kernels #9-#12 of "
+         "paddle_tpu/ops/pallas/fused_residual_norm.py) arrives with the "
+         "port's glue-fusion slice; turn the flag off")
+_MOE = "GPT MoE (num_experts > 0) arrives with the port's MoE slice"
 
 
 class GPTAttention(nn.Module):
@@ -69,6 +75,20 @@ class GPTAttention(nn.Module):
         self.head_dim = cfg.head_dim
         self.qkv = nn.Linear(h, 3 * h)
         self.proj = nn.Linear(h, h)
+        self.dropout = cfg.dropout
+        self.use_flash = cfg.use_flash_attention
+
+    def forward(self, x):
+        b, s, h = x.shape
+        qkv = F.linear(x, self.qkv.weight, self.qkv.bias)
+        q, k, v = qkv.reshape(b, s, 3, self.num_heads,
+                              self.head_dim).unbind(2)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.dropout if self.training else 0.0,
+            backend=None if self.use_flash else "xla")
+        return F.linear(out.reshape(b, s, h), self.proj.weight,
+                        self.proj.bias)
 
 
 class GPTMLP(nn.Module):
@@ -78,7 +98,9 @@ class GPTMLP(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(F.linear(x, self.fc1.weight, self.fc1.bias),
+                   approximate=True)
+        return F.linear(h, self.fc2.weight, self.fc2.bias)
 
 
 class GPTBlock(nn.Module):
@@ -88,6 +110,32 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.mlp = GPTMLP(cfg)
+        self.dropout = cfg.dropout
+        self._recompute = cfg.recompute
+        self._recompute_policy = (cfg.recompute_policy
+                                  if cfg.recompute_policy != "full"
+                                  else None)
+
+    def _inner(self, x):
+        drop = self.dropout
+        x = ops.add(x, F.dropout(self.attn(_ln(self.ln1, x)), drop,
+                                 self.training))
+        x = ops.add(x, F.dropout(self.mlp(_ln(self.ln2, x)), drop,
+                                 self.training))
+        return x
+
+    def forward(self, x):
+        if self._recompute and self.training:
+            return recompute(self._inner, x, policy=self._recompute_policy)
+        return self._inner(x)
+
+    def forward_fused(self, x, pending=None):
+        raise NotImplementedError(_GLUE)
+
+
+def _ln(mod, x):
+    return F.layer_norm(x, mod.normalized_shape, mod.weight, mod.bias,
+                        mod.eps)
 
 
 class GPTModel(nn.Module):
@@ -102,6 +150,18 @@ class GPTModel(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)
+        x = ops.add(F.embedding(input_ids, self.wte.weight),
+                    F.embedding(pos, self.wpe.weight))
+        x = F.dropout(x, self.cfg.dropout, self.training)
+        if self.training and state.get_flag("train_glue_fusion"):
+            raise NotImplementedError(_GLUE)
+        for blk in self.blocks:
+            x = blk(x)
+        return _ln(self.ln_f, x)
+
 
 class GPTForCausalLM(nn.Module):
     """LM head on top (tied to ``wte`` unless ``tie_embeddings=False``).
@@ -113,8 +173,7 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, generator=None):
         super().__init__()
         if cfg.num_experts:
-            raise NotImplementedError(
-                "GPT MoE (num_experts > 0) is not ported yet")
+            raise NotImplementedError(_MOE)
         dev = resolve_device(device)
         self.cfg = cfg
         self.gpt = GPTModel(cfg)
@@ -123,7 +182,6 @@ class GPTForCausalLM(nn.Module):
                                   bias=False))
         self._init_weights(generator)
         self.to(dev)
-        self.eval()
 
     @torch.no_grad()
     def _init_weights(self, generator):
@@ -143,8 +201,26 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
+    def logits(self, input_ids):
+        h = self.gpt(input_ids)
+        if self.lm_head is not None:
+            return F.linear(h, self.lm_head.weight)
+        return ops.matmul(h, self.gpt.wte.weight, transpose_y=True)
+
     def forward(self, input_ids, labels=None):
-        raise NotImplementedError(_TRAINING_SLICE)
+        """Logits ``[B, S, V]``, or with ``labels`` (already shifted by
+        the data pipeline) the mean next-token cross-entropy."""
+        logits = self.logits(input_ids)
+        if labels is None:
+            return logits
+        return F.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+                               labels.reshape(-1))
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Standard 6N + attention estimate (per trained token)."""
+        c = self.cfg
+        return 6.0 * self.num_params() + 12 * c.num_layers * \
+            c.hidden_size * seq_len

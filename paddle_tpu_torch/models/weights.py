@@ -14,9 +14,10 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["gpt_state_from_jax", "load_gpt_from_jax"]
+__all__ = ["gpt_state_from_jax", "gpt_state_to_jax", "load_gpt_from_jax"]
 
 _BLOCK = re.compile(r"^gpt\.block_(\d+)\.")
+_TBLOCK = re.compile(r"^gpt\.blocks\.(\d+)\.")
 # 2-D weights that are embedding tables (row = token/position), not Linear
 _EMBEDDINGS = ("gpt.wte.weight", "gpt.wpe.weight")
 
@@ -57,3 +58,19 @@ def load_gpt_from_jax(model, named_numpy: dict):
                          + "; ".join(bad))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def gpt_state_to_jax(named_tensors: dict) -> dict:
+    """The inverse of :func:`gpt_state_from_jax`: torch names and layout
+    (a ``state_dict()``, or ``{name: p.grad}`` over
+    ``named_parameters()``) -> the JAX model's names (``block_{i}``) and
+    layout (``Linear`` weights ``[in, out]``), as float32 numpy arrays."""
+    out = {}
+    for key, t in named_tensors.items():
+        arr = t.detach().float().cpu().numpy()
+        jkey = _TBLOCK.sub(r"gpt.block_\1.", key)
+        if (arr.ndim == 2 and key.endswith(".weight")
+                and key not in _EMBEDDINGS):
+            arr = arr.T
+        out[jkey] = np.ascontiguousarray(arr)
+    return out

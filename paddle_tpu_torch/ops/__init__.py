@@ -1,2 +1,6 @@
-"""Kernels of the port (``ops/cuda``), the counterparts of
-``paddle_tpu/ops/pallas``."""
+"""Ops of the port: plain ops on the GPT path (``linalg``, ``math``) and
+the CUDA kernels (``cuda``)."""
+from .linalg import matmul
+from .math import add
+
+__all__ = ["add", "matmul"]

@@ -78,8 +78,12 @@ def test_model_surface(models):
     jm, tm, _ = models
     assert tm.num_params() == jm.num_params()
     assert tm.lm_head is None and len(tm.gpt.blocks) == 2
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.zeros(1, 4, dtype=torch.long))
+    # the full-sequence forward (the training slice's) gives the JAX
+    # model's logits
+    ids = np.array([[1, 2, 3, 4]], np.int32)
+    np.testing.assert_allclose(
+        tm(torch.tensor(ids).long()).detach().numpy(),
+        np.asarray(jm(_jt(ids)).numpy()), rtol=0, atol=1e-4)
     with pytest.raises(TypeError, match="LLaMA"):
         tgen._ragged_fn(torch.nn.Linear(2, 2))
     with pytest.raises(TypeError, match="LLaMA"):
