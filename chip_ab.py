@@ -1,9 +1,10 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,train} ROOT [ROOT ...]
+    python3 chip_ab.py {flash,decode,train} ROOT [ROOT ...]
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
-ms per case, forward and backward) or its train phase (``train``: step
+ms per case, forward and backward), its fused decode kernel cases
+(``decode``: kernel ms of each) or its train phase (``train``: step
 ms, and the device busy ms of the profiled step) from each ROOT in the
 order given, each in a process of its own, and prints one ``AB`` JSON
 line per run. Give the roots in turns (old, new, new, old) so that
@@ -30,6 +31,9 @@ def _one(what, root):
         fwd, bwd = chip_smoke.flash_cases(0, "", flush)
         out = {"fwd": {r["case"]: r["ms"] for r in fwd},
                "bwd": {r["case"]: r["ms"] for r in bwd}}
+    elif what == "decode":
+        rows = chip_smoke.decode_kernel_phase(0, "")
+        out = {name: r[0]["ms"] for name, r in rows.items()}
     else:
         tr = chip_smoke.train_phase(0)
         out = {"step_ms": tr["step_ms"], "busy_ms": tr["profile"]["busy_ms"],
@@ -41,7 +45,7 @@ def main(argv):
     if len(argv) >= 3 and argv[0] == "--one":
         _one(argv[1], argv[2])
         return 0
-    if len(argv) < 2 or argv[0] not in ("flash", "train"):
+    if len(argv) < 2 or argv[0] not in ("flash", "decode", "train"):
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv[1:]:

@@ -4,7 +4,7 @@ card.
     python3 chip_smoke.py [--seed N]
 
 1. Header: the card, its power limit (nvidia-smi), TF32 off, and the
-   build of every CUDA kernel from ``paddle_tpu_torch/ops/cuda/csrc``
+   build of every CUDA source in ``paddle_tpu_torch/ops/cuda/csrc``
    (one ``nvcc`` per source, all started together).
 2. Kernel phase, each kernel against its plain PyTorch version on the
    card at the shapes its main path gives it, timed with CUDA events
@@ -24,16 +24,28 @@ card.
      buckets (124,437,504 bf16 params with fp32 masters; 38,912 fp32
      LayerNorm params, padded) and the bf16 bucket with a clip scale:
      fp32 state within 1e-6 of its largest value, bf16 weights within
-     one bf16 rounding.
+     one bf16 rounding;
+   * ``fused_decode_qkv``, ``fused_decode_mlp`` and
+     ``fused_decode_epilogue`` at the megakernel serve phase's shapes
+     (x ``[8, 768]``, pools ``[12, 513, 16, 64]``, tables ``[8, 64]``,
+     the tied embedding ``[50304, 768]``): values within 2e-5, tokens and
+     bad flags equal except on near ties, a NaN-poisoned row bad with
+     token 0; each beside the unfused eager chain it replaces.
 3. Serve phase: GPT-124M (``GPTConfig()`` defaults, weights drawn from
    the seed in the JAX package's layout and init) behind
    ``ContinuousBatchingEngine`` serves 16 requests (prompts 16-512
    tokens, 32 new tokens each). Every request must finish by length,
-   the page pool must be conserved, and the kernel must have launched
-   in both the mixed and the decode steps. A teacher-forced plain fp32
-   forward must pick every served token, except where its top-2 margin
-   is below 1e-4 (a near tie). One more run under ``torch.profiler``
-   breaks the device time down by kernel.
+   the page pool must be conserved, and every dispatch must launch the
+   attention kernel once per layer per step. A teacher-forced plain
+   fp32 forward must pick every served token, except where its top-2
+   margin is below 1e-4 (a near tie). One more run under
+   ``torch.profiler`` breaks the device time down by kernel, and one
+   profiled decode window counts the device launches per decode step.
+   The megakernel serve phase then serves the same requests with
+   ``megakernel=True`` under the same checks; every decode step (the
+   warm-up's single step and each step of a window) must launch
+   ``fused_decode_qkv``, the attention and ``fused_decode_mlp`` once per
+   layer and ``fused_decode_epilogue`` once.
 4. Train phase: GPT-124M in ``bench.py``'s training configuration
    (batch 8 x 1024, recompute ``dots_and_kernels_saveable``, AdamW lr
    1e-4, AMP O2 bf16 with fp32 master weights) through the Paddle entry
@@ -47,7 +59,8 @@ card.
    2 x 256, TF32 off) on the card, through the kernels, against the same
    step of a CPU copy running the plain versions: loss, every grad and
    every updated parameter within the tolerances printed.
-6. Prints the ``train`` JSON line, the ``kernels`` JSON line, then
+6. Prints the ``train`` JSON line, the ``kernels`` JSON line (seven
+   kernels, with both serve phases), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed phase
    raises: the exit code is not 0 and no result line is printed.
    Without a card it exits 2 at once.
@@ -68,6 +81,7 @@ FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 TOL = 2e-5                   # fp32, another summation order
 MARGIN = 1e-4                # teacher-forced near-tie margin
+SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's ~2 GHz clock
 
 
 def log(msg):
@@ -97,12 +111,15 @@ def header():
 
 def build():
     from paddle_tpu_torch.ops.cuda import (_build, flash_attention,
+                                           fused_decode_mlp, fused_decode_qkv,
                                            fused_optimizer, paged_attention)
     t0 = time.perf_counter()
     libs = _build.build_all()
     paged_attention._kernel()           # load + bind
     flash_attention._kernels()
     fused_optimizer._kernel()
+    fused_decode_qkv._kernel()
+    fused_decode_mlp._kernels()
     secs = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {secs:.2f} s")
     return secs
@@ -110,12 +127,16 @@ def build():
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
-    from paddle_tpu_torch.ops.cuda import (flash_attention,
-                                           fused_optimizer, paged_attention)
+    from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
+                                           fused_decode_qkv, fused_optimizer,
+                                           paged_attention)
     return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
             "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
-            "fused_update": fused_optimizer.fused_update}
+            "fused_update": fused_optimizer.fused_update,
+            "fused_decode_qkv": fused_decode_qkv.fused_decode_qkv,
+            "fused_decode_mlp": fused_decode_mlp.fused_decode_mlp,
+            "fused_decode_epilogue": fused_decode_mlp.fused_decode_epilogue}
 
 
 def reset_counts():
@@ -182,15 +203,22 @@ def _bound(kv_lens, q_lens, hq, hk, d, page_size):
             nbytes, flops)
 
 
-def _time_ms(fn, n, flush):
+def _time_ms(fn, n, flush, spin=False):
     """Mean device time of ``fn`` over ``n`` calls, each after an L2
-    flush (a 256 MB write), each between its own pair of CUDA events."""
+    flush (a 256 MB write), each between its own pair of CUDA events.
+    With ``spin``, a device spin of ~1 ms (SPIN_CYCLES) after the flush
+    keeps the card busy while the host enqueues the start event and
+    ``fn``'s launches, so the events time the device's work, not the
+    host's enqueue (a ``fn`` that waits on the device, or whose host side
+    outlasts the spin, still counts its host time)."""
     for _ in range(3):
         fn()
     evs = [(torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     for s, e in evs:
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -487,6 +515,203 @@ def train_kernel_phase(seed, power):
     return fwd, bwd, opt
 
 
+# ------------------------------------------------------ decode kernels --
+def _decode_bound(nbytes, flops):
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
+def _pick_err(name, nxt, bad, ref_nxt, ref_bad, ref_lg):
+    """Tokens and bad flags must equal the plain version's, except where
+    the plain logits of the two picks are within MARGIN (a near tie)."""
+    if not torch.equal(bad, ref_bad):
+        raise AssertionError(f"{name}: bad {bad.tolist()} != plain "
+                             f"{ref_bad.tolist()}")
+    ties = 0
+    for r in torch.nonzero(nxt != ref_nxt).flatten().tolist():
+        gap = float((ref_lg[r, ref_nxt[r]] - ref_lg[r, nxt[r]]).abs())
+        if bad[r] or gap >= MARGIN:
+            raise AssertionError(f"{name} row {r}: kernel picks "
+                                 f"{int(nxt[r])}, plain {int(ref_nxt[r])} "
+                                 f"(logit gap {gap:.3g})")
+        ties += 1
+    return ties
+
+
+def decode_kernel_phase(seed, power):
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    rows = decode_kernel_cases(seed, power, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def decode_kernel_cases(seed, power, flush):
+    """The three fused decode kernels against their plain versions at the
+    megakernel serve phase's shapes (GPT-124M, ``GEO``): x ``[8, 768]``,
+    pools ``[12, 513, 16, 64]``, tables ``[8, 64]``, the tied embedding
+    ``[50304, 768]``. Each row also times the unfused eager chain the
+    kernel replaces on the unfused decode path (``unfused_ms``); no single
+    library call computes any of these functions (``library_ms`` null).
+    All are timed with the device spin of :func:`_time_ms`: a chain's
+    launches then run back to back, so ``unfused_ms`` is its device time.
+    Values within TOL of the plain version; tokens and bad flags equal
+    except on near ties (one epilogue check poisons a row with NaN)."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.models.generation import (_slot_page_write,
+                                                    guarded_argmax)
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    rng = np.random.default_rng(seed + 5)
+    B, ps = GEO["max_slots"], GEO["page_size"]
+    H, nh, hd, V, L = 768, 12, 64, 50304, 12
+    inter, NP, eps = 4 * H, 1024 // ps, 1e-5
+    P = 1 + B * NP
+    resid = 0.02 / np.sqrt(2 * L)
+
+    def timed(fn, n):
+        return _time_ms(fn, n, flush, spin=True)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    x, att = rn(B, H), rn(B, H)
+    ln_w, ln_b = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
+    pos = torch.tensor(rng.integers(0, 1024, B), device=dev)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed + 5)) + 1
+    bt = perm[:B * NP].reshape(B, NP).to(torch.int32).to(dev)
+    k0, v0 = rn(nh, P, ps, hd), rn(nh, P, ps, hd)
+
+    def finish(name, err, ms, plain_ms, unfused_ms, nbytes, flops, shape):
+        bound_ms, bound_by = _decode_bound(nbytes, flops)
+        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   unfused_ms=unfused_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, flops=flops,
+                   library_ms=None, library="none: no single call",
+                   shape=shape)
+        log(f"kernel {name} {shape}: max_abs_err {err:.3g}, {ms:.4f} ms "
+            f"(plain {plain_ms:.4f} ms, unfused chain {unfused_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
+            f"bound) on {power}")
+        return row
+
+    # ingress: LayerNorm + fused QKV + paged append
+    w, b = rn(3 * H, H, std=0.02), rn(3 * H, std=0.02)
+    kw = dict(eps=eps, n_heads=nh, n_kv_heads=nh, head_dim=hd)
+    kk, vk, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    q, _, _ = fq.fused_decode_qkv(x, ln_w, ln_b, w, b, pos, bt, kk, vk, **kw)
+    rq, _, _ = fq.fused_decode_qkv_plain(x, ln_w, ln_b, w, b, pos, bt, kp,
+                                         vp, **kw)
+    torch.cuda.synchronize()
+    err = max(float((q - rq).abs().max()), float((kk - kp).abs().max()),
+              float((vk - vp).abs().max()))
+    if not err <= TOL:
+        raise AssertionError(f"fused_decode_qkv: kernel vs plain max abs "
+                             f"error {err:.3g} > {TOL}")
+
+    def unfused_qkv():
+        h = tF.layer_norm(x, (H,), ln_w, ln_b, eps)
+        qkv = tF.linear(h, w, b).reshape(B, 1, 3, nh, hd)
+        _, k, v = qkv.unbind(2)
+        _slot_page_write(k[:, 0].transpose(0, 1), v[:, 0].transpose(0, 1),
+                         kp, vp, bt, pos)
+
+    n_out = 3 * H
+    ms = timed(lambda: fq.fused_decode_qkv(x, ln_w, ln_b, w, b, pos, bt, kk,
+                                           vk, **kw), 50)
+    plain_ms = timed(lambda: fq.fused_decode_qkv_plain(
+        x, ln_w, ln_b, w, b, pos, bt, kp, vp, **kw), 10)
+    # W and its bias, x, the norm's w and b read; q, K and V written;
+    # positions and one table entry per row read
+    qkv_row = finish(
+        "gpt124m_decode", err, ms, plain_ms, timed(unfused_qkv, 20),
+        4 * (n_out * H + n_out + B * H + 2 * H + B * n_out) + 8 * B + 4 * B,
+        2 * B * n_out * H + 8 * B * H,
+        dict(x=[B, H], w=[n_out, H], pools=list(k0.shape),
+             tables=list(bt.shape)))
+    del kk, vk, kp, vp, w, b
+
+    # egress: out-proj + residual + LayerNorm + fc1 + GELU + fc2 + residual
+    wo, bo = rn(H, H, std=resid), rn(H, std=0.02)
+    w1, b1 = rn(inter, H, std=0.02), rn(inter, std=0.02)
+    w2, b2 = rn(H, inter, std=resid), rn(H, std=0.02)
+    margs = (x, att, wo, bo, ln_w, ln_b, w1, b1, w2, b2)
+    out = fm.fused_decode_mlp(*margs, eps=eps)
+    ref = fm.fused_decode_mlp_plain(*margs, eps=eps)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"fused_decode_mlp: kernel vs plain max abs "
+                             f"error {err:.3g} > {TOL}")
+
+    def unfused_mlp():
+        y = x + tF.linear(att, wo, bo)
+        h = tF.layer_norm(y, (H,), ln_w, ln_b, eps)
+        return y + tF.linear(tF.gelu(tF.linear(h, w1, b1),
+                                     approximate="tanh"), w2, b2)
+
+    # the three weights and their biases, the norm's w and b, x and att
+    # read, the output written
+    mlp_row = finish(
+        "gpt124m_decode", err,
+        timed(lambda: fm.fused_decode_mlp(*margs, eps=eps), 50),
+        timed(lambda: fm.fused_decode_mlp_plain(*margs, eps=eps), 10),
+        timed(unfused_mlp, 20),
+        4 * (H * H + 2 * inter * H + inter + 2 * H + 2 * H + 3 * B * H),
+        2 * B * (H * H + 2 * inter * H) + 20 * B * inter,
+        dict(x=[B, H], wo=[H, H], w1=[inter, H], w2=[H, inter]))
+    del wo, w1, w2, margs
+
+    # epilogue: final LayerNorm + tied LM head + guarded argmax
+    wte = rn(V, H, std=0.02)
+    zero = torch.zeros(B, device=dev)
+    lg, nxt, bad = fm.fused_decode_epilogue(x, ln_w, ln_b, wte, None, zero,
+                                            eps=eps, transpose_lm=True)
+    rlg, rnxt, rbad = fm.fused_decode_epilogue_plain(
+        x, ln_w, ln_b, wte, None, zero, eps=eps, transpose_lm=True)
+    torch.cuda.synchronize()
+    err = float((lg - rlg).abs().max())
+    if not err <= TOL:
+        raise AssertionError(f"fused_decode_epilogue: kernel vs plain max "
+                             f"abs error {err:.3g} > {TOL}")
+    ties = _pick_err("fused_decode_epilogue", nxt, bad, rnxt, rbad, rlg)
+    poison = zero.clone()
+    poison[2] = float("nan")
+    _, pn, pb = fm.fused_decode_epilogue(x, ln_w, ln_b, wte, None, poison,
+                                         eps=eps, transpose_lm=True)
+    if pb.tolist() != [r == 2 for r in range(B)] or int(pn[2]) != 0 \
+            or not torch.equal(pn[pb.logical_not()], nxt[pb.logical_not()]):
+        raise AssertionError(f"fused_decode_epilogue poison drill: nxt "
+                             f"{pn.tolist()}, bad {pb.tolist()}")
+
+    def unfused_epilogue():
+        h = tF.layer_norm(x, (H,), ln_w, ln_b, eps)
+        return guarded_argmax(h @ wte.t(), zero)
+
+    ekw = dict(eps=eps, transpose_lm=True)
+    # the embedding, x, the norm's w and b and the poison lane read; the
+    # logits, nxt (int64) and bad (bool) written
+    epi_row = finish(
+        "gpt124m_decode", err,
+        timed(lambda: fm.fused_decode_epilogue(x, ln_w, ln_b, wte, None,
+                                               zero, **ekw), 20),
+        timed(lambda: fm.fused_decode_epilogue_plain(x, ln_w, ln_b, wte,
+                                                     None, zero, **ekw), 10),
+        timed(unfused_epilogue, 10),
+        4 * (V * H + B * H + 2 * H + B + B * V) + 9 * B,
+        2 * B * V * H + 8 * B * H,
+        dict(x=[B, H], w_lm=[V, H], near_ties=ties))
+    del wte, k0, v0
+    torch.cuda.empty_cache()
+    return {"fused_decode_qkv": [qkv_row], "fused_decode_mlp": [mlp_row],
+            "fused_decode_epilogue": [epi_row]}
+
+
 # ------------------------------------------------------------- serve --
 def jax_layout_gpt_weights(cfg, seed):
     """GPT weights as the JAX package names and lays them out (Linear
@@ -546,90 +771,162 @@ def teacher_forced_logits(model, ids):
     return logits
 
 
-def serve_phase(seed, cfg=None, device="cuda"):
-    """Serve 16 requests through the engine and check them. ``cfg``
-    defaults to GPT-124M; a smaller one (with ``device="cpu"``)
-    rehearses this phase without a card, and without the device-time
-    breakdown (:func:`profile_serve`)."""
-    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+def serve_model(seed, cfg=None, device="cuda"):
+    """GPT-124M (or ``cfg``) with random weights drawn from the seed in
+    the JAX package's layout and init."""
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          load_gpt_from_jax)
-    from paddle_tpu_torch.ops.cuda.paged_attention import \
-        ragged_paged_attention as rpa
-
     cfg = GPTConfig() if cfg is None else cfg
-    new_tokens = 32
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device=device)
     load_gpt_from_jax(model, jax_layout_gpt_weights(cfg, seed))
     log(f"GPT {model.num_params()} params on {model.device} in "
         f"{time.perf_counter() - t0:.2f} s")
-    geo = dict(GEO, device=device)
+    return model
+
+
+NEW_TOKENS = 32
+
+
+def serve_prompts(seed, cfg):
+    """The serve phases' 16 prompts, 16-512 tokens, from the seed."""
     rng = np.random.default_rng(seed + 1)
-    longest = min(512, cfg.max_seq_len - new_tokens)
-    prompts = [rng.integers(0, min(cfg.vocab_size, 50257), int(n))
-               .astype(np.int32) for n in rng.integers(16, longest + 1, 16)]
+    longest = min(512, cfg.max_seq_len - NEW_TOKENS)
+    return [rng.integers(0, min(cfg.vocab_size, 50257), int(n))
+            .astype(np.int32) for n in rng.integers(16, longest + 1, 16)]
 
-    # warm-up on another engine (cuBLAS handles, allocator); it also
-    # runs this geometry's first single-step decode
-    warm = ContinuousBatchingEngine(model, **geo)
-    warm.add_request(prompts[0][:16], 8)
-    warm.run()
 
-    eng = ContinuousBatchingEngine(model, **geo)
-    rids = [eng.add_request(p, new_tokens) for p in prompts]
-    launches = {"mixed": 0, "decode": 0}
+def serve_turns(model, seed, order=(False, True, True, False)):
+    """The two decode paths compared in turns on one card: timed runs of
+    the serve phases' requests on fresh engines (both geometries already
+    bootstrapped by their phases), unfused, megakernel, megakernel,
+    unfused. Per run: tokens/s, mean mixed step and decode dispatch ms."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    prompts = serve_prompts(seed, model.cfg)
+    runs = []
+    for mk in order:
+        eng = ContinuousBatchingEngine(model, **GEO, megakernel=mk)
+        for p in prompts:
+            eng.add_request(p, NEW_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, step_ms = _drive(eng, True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append(dict(megakernel=mk, wall_s=wall,
+                         tokens_per_s=eng.stats["tokens_generated"] / wall,
+                         mixed_step_ms=float(np.mean(step_ms["mixed"])),
+                         decode_dispatch_ms=float(np.mean(step_ms["decode"]))))
+    log("serve in turns (unfused, megakernel, megakernel, unfused): "
+        + "; ".join(f"{r['tokens_per_s']:.1f} tokens/s, mixed "
+                    f"{r['mixed_step_ms']:.2f} ms, decode "
+                    f"{r['decode_dispatch_ms']:.2f} ms" for r in runs))
+    return runs
+
+
+def _drive(eng, on_card):
+    """Step ``eng`` to the drain. Per dispatch, the kernel launches must be
+    what the path makes: a mixed step launches the attention once per
+    layer and no fused decode kernel; a decode step (the bootstrap's one,
+    or each of a window's ``decode_window``) launches the attention once
+    per layer and, with ``megakernel``, ``fused_decode_qkv`` and
+    ``fused_decode_mlp`` once per layer and ``fused_decode_epilogue``
+    once, else none of them. Returns (completions, launches by dispatch
+    kind, host ms by kind)."""
+    L = eng.model.cfg.num_layers
+    fused = ("fused_decode_qkv", "fused_decode_mlp", "fused_decode_epilogue")
+    launches = {"mixed": dict.fromkeys(counters(), 0),
+                "decode": dict.fromkeys(counters(), 0)}
     step_ms = {"mixed": [], "decode": []}
     done = {}
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
-    reset_counts()
-    t0 = time.perf_counter()
     while eng.has_work:
         st = eng.stats
-        before = rpa.launches
+        single = eng._geometry() not in eng._decoded_geometries()
+        before = read_counts()
         ts = time.perf_counter()
         done.update({c.request_id: c for c in eng.step()})
         dt = (time.perf_counter() - ts) * 1e3
-        after = eng.stats
-        if after["mixed_steps"] > st["mixed_steps"]:
-            kind = "mixed"
-        elif after["decode_dispatches"] > st["decode_dispatches"]:
+        after = read_counts()
+        got = {k: after[k] - before[k] for k in after}
+        if eng.stats["mixed_steps"] > st["mixed_steps"]:
+            kind, want = "mixed", {"ragged_paged_attention": L}
+        elif eng.stats["decode_dispatches"] > st["decode_dispatches"]:
             kind = "decode"
+            k = 1 if single else eng.decode_window
+            want = {"ragged_paged_attention": L * k}
+            if eng.megakernel:
+                want.update(fused_decode_qkv=L * k, fused_decode_mlp=L * k,
+                            fused_decode_epilogue=k)
         else:
             continue
-        launches[kind] += rpa.launches - before
+        want = {n: want.get(n, 0) for n in ("ragged_paged_attention",)
+                + fused}
+        if on_card and {n: got[n] for n in want} != want:
+            raise AssertionError(f"{kind} dispatch (single step: {single}) "
+                                 f"launched {got}, want {want}")
+        for n, v in got.items():
+            launches[kind][n] += v
         step_ms[kind].append(dt)
+    return done, launches, step_ms
+
+
+def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None):
+    """Serve 16 requests through the engine and check them, with the
+    decode path unfused or (``megakernel``) fused. ``cfg`` defaults to
+    GPT-124M; a smaller one (with ``device="cpu"``) rehearses this phase
+    without a card, and without launch checks or the device-time
+    breakdown (:func:`profile_serve`). ``model`` reuses a model from
+    :func:`serve_model`."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    model = serve_model(seed, cfg, device) if model is None else model
+    on_card = device == "cuda"
+    tag = "megakernel serve" if megakernel else "serve"
+    geo = dict(GEO, device=device, megakernel=megakernel)
+    prompts = serve_prompts(seed, model.cfg)
+
+    # warm-up on another engine (cuBLAS handles, allocator); it also
+    # runs this geometry's first single-step decode (the geometry
+    # includes the megakernel switch)
+    warm = ContinuousBatchingEngine(model, **geo)
+    warm.add_request(prompts[0][:16], 8)
+    _drive(warm, on_card)
+
+    eng = ContinuousBatchingEngine(model, **geo)
+    rids = [eng.add_request(p, NEW_TOKENS) for p in prompts]
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    done, by_step, step_ms = _drive(eng, on_card)
     sync()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    total_launches = counts["ragged_paged_attention"]
     st = eng.stats
 
     if sorted(done) != sorted(rids):
         raise AssertionError(f"served {sorted(done)} of {sorted(rids)}")
     for rid in rids:
         c = done[rid]
-        if c.finish_reason != "length" or c.tokens.size != new_tokens:
+        if c.finish_reason != "length" or c.tokens.size != NEW_TOKENS:
             raise AssertionError(f"request {rid}: {c.finish_reason}, "
                                  f"{c.tokens.size} tokens")
     eng._cache.check()
     if st["pages_in_use"] != 0 or (st["pages_free"] + st["cached_pages"]
                                    != eng.total_pages - 1):
         raise AssertionError(f"page pool not conserved: {st}")
-    if device == "cuda" and not (launches["mixed"] > 0
-                                 and launches["decode"] > 0):
-        raise AssertionError(f"kernel launches by step kind: {launches}")
+    if on_card and not (by_step["mixed"]["ragged_paged_attention"] > 0
+                        and by_step["decode"]["ragged_paged_attention"] > 0):
+        raise AssertionError(f"kernel launches by step kind: {by_step}")
     gen_tokens = st["tokens_generated"]
-    where = torch.cuda.get_device_name(0) if device == "cuda" else device
-    log(f"served {len(rids)} requests on {where}, {gen_tokens} tokens in "
+    where = torch.cuda.get_device_name(0) if on_card else device
+    log(f"{tag}: {len(rids)} requests on {where}, {gen_tokens} tokens in "
         f"{wall:.3f} s = {gen_tokens / wall:.1f} tokens/s; prompt tokens "
         f"{st['prefill_tokens_computed']}; {st['mixed_steps']} mixed "
         f"steps (mean {np.mean(step_ms['mixed']):.2f} ms), "
         f"{len(step_ms['decode'])} decode dispatches (mean "
-        f"{np.mean(step_ms['decode']):.2f} ms); kernel launches "
-        f"{launches}")
-    log(f"stats {json.dumps(st)}")
+        f"{np.mean(step_ms['decode']):.2f} ms); kernel launches {counts}")
+    log(f"{tag}: stats {json.dumps(st)}")
 
     # teacher-forced check against a plain fp32 forward
     near_ties = checked = 0
@@ -652,17 +949,19 @@ def serve_phase(seed, cfg=None, device="cuda"):
             raise AssertionError(
                 f"request {rid} token {i}: served {t}, plain forward "
                 f"picks {pr} with top-2 margin {m:.3g}")
-    log(f"teacher-forced check: {checked} tokens, {near_ties} near ties "
-        f"(top-2 margin < {MARGIN})")
-    out = dict(launches=total_launches, counts=counts, by_step=launches,
-               wall_s=wall,
-               tokens=gen_tokens, tokens_per_s=gen_tokens / wall,
-               near_ties=near_ties,
+    log(f"{tag}: teacher-forced check: {checked} tokens, {near_ties} near "
+        f"ties (top-2 margin < {MARGIN})")
+    out = dict(megakernel=megakernel,
+               launches=counts["ragged_paged_attention"], counts=counts,
+               by_step=by_step, wall_s=wall, tokens=gen_tokens,
+               tokens_per_s=gen_tokens / wall, near_ties=near_ties,
                mixed_step_ms=float(np.mean(step_ms["mixed"])),
-               decode_dispatch_ms=float(np.mean(step_ms["decode"])))
-    if device == "cuda":
-        out["profile"] = profile_serve(model, prompts, new_tokens, geo,
+               decode_dispatch_ms=float(np.mean(step_ms["decode"])),
+               decode_dispatches=len(step_ms["decode"]))
+    if on_card:
+        out["profile"] = profile_serve(model, prompts, NEW_TOKENS, geo,
                                        wall)
+        out["window"] = profile_window(model, prompts, NEW_TOKENS, geo)
     return out
 
 
@@ -685,6 +984,48 @@ def profile_serve(model, prompts, new_tokens, geo, wall):
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     return _breakdown(prof, wall * 1e3, prof_wall * 1e3, "the timed run")
+
+
+def profile_window(model, prompts, new_tokens, geo):
+    """Device launches and device ms of ONE decode window with every slot
+    decoding: a fresh engine takes the first ``max_slots`` requests
+    through their prefill, then one ``step()`` (a window of
+    ``decode_window`` steps) runs under ``torch.profiler``. Its host wall
+    clock is timed in a second window without the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, **geo)
+    for p in prompts[:eng.max_slots]:
+        eng.add_request(p, new_tokens)
+    while eng._queue or any(s.phase == "prefill" for s in eng._slots):
+        eng.step()
+    k = eng.decode_window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    n = sum(e.count for e in evs)
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    log(f"decode window ({'megakernel' if geo['megakernel'] else 'unfused'},"
+        f" {k} steps, {eng.max_slots} slots): {n} device launches = "
+        f"{n / k:.1f} per decode step, device {dev_ms:.3f} ms = "
+        f"{dev_ms / k:.4f} ms per step; unprofiled window {host_ms:.3f} ms "
+        f"of wall clock = {host_ms / k:.4f} ms per step, device busy "
+        f"{dev_ms / host_ms:.1%}")
+    return dict(steps=k, device_launches=n, launches_per_step=n / k,
+                device_ms=dev_ms, device_ms_per_step=dev_ms / k,
+                wall_ms=host_ms, wall_ms_per_step=host_ms / k,
+                busy_share=dev_ms / host_ms)
 
 
 def _breakdown(prof, wall_ms, prof_wall_ms, what):
@@ -786,9 +1127,10 @@ def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
                              f"within 0.5 of ln({cfg.vocab_size}) = "
                              f"{ln_v:.4f}")
     if on_card:
-        want = {"flash_attention_fwd": cfg.num_layers,
-                "flash_attention_bwd": cfg.num_layers,
-                "fused_update": n_buckets, "ragged_paged_attention": 0}
+        want = dict.fromkeys(counters(), 0)
+        want.update(flash_attention_fwd=cfg.num_layers,
+                    flash_attention_bwd=cfg.num_layers,
+                    fused_update=n_buckets)
         for i, got in enumerate(per_step):
             if got != want:
                 raise AssertionError(f"train step {i}: kernel launches "
@@ -879,8 +1221,9 @@ def train_parity(seed):
         res[dev] = (float(loss.detach()), grads,
                     {n: p.detach().cpu() for n, p in model.named_parameters()})
         del model, opt
-    want = {"flash_attention_fwd": 2, "flash_attention_bwd": 2,
-            "fused_update": 1, "ragged_paged_attention": 0}
+    want = dict.fromkeys(counters(), 0)
+    want.update(flash_attention_fwd=2, flash_attention_bwd=2,
+                fused_update=1)
     if counts != want:
         raise AssertionError(f"train parity: card step launched {counts}, "
                              f"want {want}")
@@ -930,7 +1273,21 @@ def main(argv=None):
     build_s = build()
     rows = kernel_phase(args.seed, smi_line)
     fwd_rows, bwd_rows, opt_rows = train_kernel_phase(args.seed, smi_line)
-    serve = serve_phase(args.seed)
+    dec_rows = decode_kernel_phase(args.seed, smi_line)
+    model = serve_model(args.seed)
+    serve = serve_phase(args.seed, model=model)
+    serve_mk = serve_phase(args.seed, megakernel=True, model=model)
+    turns = serve_turns(model, args.seed)
+    del model
+    torch.cuda.empty_cache()
+    log(f"megakernel vs unfused serve: {serve_mk['tokens_per_s']:.1f} vs "
+        f"{serve['tokens_per_s']:.1f} tokens/s; decode dispatch "
+        f"{serve_mk['decode_dispatch_ms']:.2f} vs "
+        f"{serve['decode_dispatch_ms']:.2f} ms; device launches per decode "
+        f"step {serve_mk['window']['launches_per_step']:.1f} vs "
+        f"{serve['window']['launches_per_step']:.1f}; busy "
+        f"{serve_mk['profile']['busy_share']:.1%} vs "
+        f"{serve['profile']['busy_share']:.1%}")
     train = train_phase(args.seed, power=smi_line)
     parity = train_parity(args.seed)
     print(json.dumps({"train": train, "train_parity": parity,
@@ -949,6 +1306,18 @@ def main(argv=None):
         ("fused_update", "fused_optimizer.cu",
          "paddle_tpu/ops/pallas/fused_optimizer.py:121", opt_rows,
          train["counts"]["fused_update"]),
+        ("fused_decode_qkv", "fused_decode_qkv.cu",
+         "paddle_tpu/ops/pallas/fused_decode_qkv.py:131",
+         dec_rows["fused_decode_qkv"],
+         serve_mk["counts"]["fused_decode_qkv"]),
+        ("fused_decode_mlp", "fused_decode_mlp.cu",
+         "paddle_tpu/ops/pallas/fused_decode_mlp.py:55",
+         dec_rows["fused_decode_mlp"],
+         serve_mk["counts"]["fused_decode_mlp"]),
+        ("fused_decode_epilogue", "fused_decode_mlp.cu",
+         "paddle_tpu/ops/pallas/fused_decode_mlp.py:75",
+         dec_rows["fused_decode_epilogue"],
+         serve_mk["counts"]["fused_decode_epilogue"]),
     ]
     out = []
     for kname, source, replaces, cases, launches in specs:
@@ -964,8 +1333,9 @@ def main(argv=None):
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"),
             "shape": main_row["case"], "cases": cases})
-    print(json.dumps({"kernels": out, "serve": serve, "power": smi_line}),
-          flush=True)
+    print(json.dumps({"kernels": out, "serve": serve,
+                      "serve_megakernel": serve_mk, "serve_turns": turns,
+                      "power": smi_line}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

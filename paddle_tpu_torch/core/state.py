@@ -48,6 +48,15 @@ PREFIX_CACHE_OFF_SPELLINGS = ("off", "false", "0", "no")
 # strict on/off spellings of the engine's kv_quant/megakernel kwargs
 KV_QUANT_OFF_SPELLINGS = PREFIX_CACHE_OFF_SPELLINGS
 KV_QUANT_ON_SPELLINGS = ("on", "true", "1", "yes")
+# fused decode path of the serving engine (ops/cuda/fused_decode_qkv.py
+# + fused_decode_mlp.py): each decode layer runs as three dispatches
+# (norm + QKV + paged-KV append, attention, out-proj + residual + MLP +
+# residual) plus one sampling epilogue (final norm + LM head + guarded
+# argmax). The engine kwarg megakernel overrides it per instance
+define_flag("serving_megakernel", False)
+# spellings of the megakernel kwarg: the kv_quant sets (strict parse)
+MEGAKERNEL_OFF_SPELLINGS = KV_QUANT_OFF_SPELLINGS
+MEGAKERNEL_ON_SPELLINGS = KV_QUANT_ON_SPELLINGS
 # flat-buffer multi-tensor optimizer path (optimizer/flat.py +
 # ops/cuda/fused_optimizer.py): dtype-bucketed flat params/moments
 # updated by one fused kernel per bucket. PDTPU_FUSED_OPT=off disables

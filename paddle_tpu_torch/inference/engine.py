@@ -21,6 +21,14 @@ requests:
   compiled programs, so it keeps a per-model record of the geometries
   it has decoded with, and a second engine on the same model skips the
   single step just as the JAX one does.)
+* ``megakernel`` (kwarg, or the ``serving_megakernel`` flag): each
+  decode step runs as three fused launches per layer (norm + QKV +
+  paged append, the paged attention, out-proj + residual + MLP +
+  residual) plus one epilogue (final norm + LM head + guarded argmax),
+  ``models.generation._gpt_decode_fused``. The single step and the
+  window take the epilogue's token and bad flag, so there is no host
+  argmax; token streams are the unfused path's. The switch is part of
+  the decode geometry.
 * On-demand paging with preemption (latest-admitted victim) and
   requeue, eager ``PageBudgetError`` (PDT-E016), bounded queue with the
   ``reject`` (``QueueFullError`` PDT-E017) or ``block`` policy,
@@ -31,10 +39,10 @@ requests:
   copy-on-write at the divergence page and LRU eviction.
 
 Greedy decoding only. Subsystems of the JAX engine that later slices
-port raise ``NotImplementedError`` when switched on: ``kv_quant``,
-``megakernel``, ``spec_decode``, ``mesh``/``tp_axis``, ``slo`` and
-``watchdog_ms``. Request export/import/snapshot/restore, ``metrics()``
-and tracing are not here yet either.
+port raise ``NotImplementedError`` when switched on: ``kv_quant`` (with
+or without ``megakernel``), ``spec_decode``, ``mesh``/``tp_axis``,
+``slo`` and ``watchdog_ms``. Request export/import/snapshot/restore,
+``metrics()`` and tracing are not here yet either.
 """
 from __future__ import annotations
 
@@ -48,8 +56,8 @@ import torch
 from .. import resolve_device
 from ..core import state as _state
 from ..core.errors import PageBudgetError, QueueFullError
-from ..models.generation import (_decode_fn, _ragged_fn, guarded_argmax,
-                                 paged_slot_attention)
+from ..models.generation import (_decode_fn, _decode_fused_fn, _ragged_fn,
+                                 guarded_argmax, paged_slot_attention)
 from ..resilience import faults
 from ..resilience.serving import (SITE_PAGE_PRESSURE, DecodeGuard,
                                   dispatch_retry)
@@ -194,9 +202,6 @@ class ContinuousBatchingEngine:
                  slo=None, watchdog_ms=None, device=None):
         _parse_switch("kv_quant", kv_quant,
                       "int8 KV pages come with the kv_quant slice")
-        _parse_switch("megakernel", megakernel,
-                      "the fused decode kernels come with the megakernel "
-                      "slice")
         _parse_switch("spec_decode", spec_decode,
                       "speculative decoding comes with a later slice")
         if spec_seed or any(v is not None for v in (
@@ -217,7 +222,23 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "the stall watchdog is not ported yet: it comes with the "
                 "observability slice")
+        mk = (_state.get_flag("serving_megakernel")
+              if megakernel is None else megakernel)
+        if isinstance(mk, str):
+            # strict: the switch picks which kernels serve the tokens,
+            # so a typo must not silently pick a path
+            if mk.lower() in _state.MEGAKERNEL_ON_SPELLINGS:
+                mk = True
+            elif mk.lower() in _state.MEGAKERNEL_OFF_SPELLINGS:
+                mk = False
+            else:
+                raise ValueError(
+                    f"megakernel={mk!r}: expected one of "
+                    f"{_state.MEGAKERNEL_ON_SPELLINGS} or "
+                    f"{_state.MEGAKERNEL_OFF_SPELLINGS}")
+        self.megakernel = bool(mk)
         self._decode, _, self._hard_limit = _decode_fn(model)
+        self._decode_mk = _decode_fused_fn(model) if self.megakernel else None
         self._ragged = _ragged_fn(model)
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -665,7 +686,7 @@ class ContinuousBatchingEngine:
     def _geometry(self):
         return (self.max_slots, self.page_size, self.np_per_seq,
                 self.total_pages, self.token_budget, self.q_block,
-                self.pages_per_block)
+                self.pages_per_block, self.megakernel)
 
     def _decoded_geometries(self) -> set:
         """Per-model record of the geometries a decode step has run
@@ -830,6 +851,14 @@ class ContinuousBatchingEngine:
                                  attend)
         return logits
 
+    def _decode_step_mk(self, tok, pos, bt, poison):
+        """One megakernel decode step for every slot: the epilogue's
+        ``(nxt [B], bad [B])`` (pools written in place)."""
+        _, nxt, bad, _ = self._decode_mk(self.model, tok, pos, bt,
+                                         self._caches, poison,
+                                         self.pages_per_block)
+        return nxt, bad
+
     def _slot_vectors(self):
         B = self.max_slots
         tok = np.zeros((B, 1), np.int64)
@@ -873,18 +902,31 @@ class ContinuousBatchingEngine:
             self._run_window(tok, pos, fin, eos, stop, rids)
             return
         # first decode dispatch of this (model, geometry): one step,
-        # host argmax, the guard applied host-side to the same values
+        # host argmax, the guard applied host-side to the same values;
+        # the megakernel step takes the poison lane and returns the
+        # guarded pick from its epilogue (no host argmax)
         bt = self._tensor(self._bt, torch.int32)
         tok_t, pos_t = self._tensor(tok), self._tensor(pos)
+        if self.megakernel:
+            poison_t = self._tensor(self._guard.poison(rids), torch.float32)
 
-        @torch.no_grad()
-        def _single():
-            return self._decode_step(tok_t, pos_t, bt).float().cpu().numpy()
+            @torch.no_grad()
+            def _single_mk():
+                nxt, bad = self._decode_step_mk(tok_t, pos_t, bt, poison_t)
+                return torch.stack([nxt, bad.long()]).cpu().numpy()
 
-        lg = self._dispatch("decode", _single)
-        lg = lg + self._guard.poison(rids)[:, None]
-        bad = ~np.isfinite(lg).all(-1)
-        nxt = np.where(bad, 0, lg.argmax(-1)).astype(np.int32)
+            out = self._dispatch("decode", _single_mk)
+            nxt, bad = out[0], out[1].astype(bool)
+        else:
+            @torch.no_grad()
+            def _single():
+                return self._decode_step(tok_t, pos_t,
+                                         bt).float().cpu().numpy()
+
+            lg = self._dispatch("decode", _single)
+            lg = lg + self._guard.poison(rids)[:, None]
+            bad = ~np.isfinite(lg).all(-1)
+            nxt = np.where(bad, 0, lg.argmax(-1)).astype(np.int32)
         self._stats["decode_dispatches"] += 1
         geometries.add(self._geometry())
         for b, s in enumerate(self._slots):
@@ -905,8 +947,12 @@ class ContinuousBatchingEngine:
         bad = torch.zeros_like(fin)
         toks, bads = [], []
         for _ in range(self.decode_window):
-            lg = self._decode_step(tok, pos, bt)
-            nxt_raw, row_bad = guarded_argmax(lg, poison)
+            if self.megakernel:   # the epilogue's guarded pick
+                nxt_raw, row_bad = self._decode_step_mk(tok, pos, bt,
+                                                        poison)
+            else:
+                lg = self._decode_step(tok, pos, bt)
+                nxt_raw, row_bad = guarded_argmax(lg, poison)
             bad = bad | (row_bad & ~fin)
             adv = ~(fin | bad)
             nxt = torch.where(adv, nxt_raw, tok[:, 0])

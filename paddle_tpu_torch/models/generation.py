@@ -1,7 +1,9 @@
 """The serving subset of ``paddle_tpu/models/generation.py``: paged-KV
 page writes, the two attention steps the continuous-batching engine
 runs (per-slot decode and the ragged mixed prefill+decode step), the
-guarded greedy pick, and the GPT forwards over them.
+guarded greedy pick, the GPT forwards over them, and the megakernel
+decode step (``fused_qkv_step`` -> ``paged_attend`` -> ``fused_mlp_step``
+per layer, then ``fused_decode_logits``).
 
 Page pools are updated IN PLACE (the JAX package threads them
 functionally and donates the buffers; here an ``index_put_`` writes
@@ -19,6 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.cuda.fused_decode_mlp import (fused_decode_epilogue,
+                                         fused_decode_mlp)
+from ..ops.cuda.fused_decode_qkv import fused_decode_qkv
 from ..ops.cuda.paged_attention import (paged_decode_attention,
                                         ragged_paged_attention)
 
@@ -124,6 +129,74 @@ def guarded_argmax(lg, poison):
     return nxt, bad
 
 
+def fused_qkv_step(x, norm_params, weights, biases, positions,
+                   block_tables, k_pages, v_pages, k_scales=None,
+                   v_scales=None, norm="layer", eps=1e-5, n_heads=1,
+                   n_kv_heads=1, head_dim=1, rope_theta=None, rows=None):
+    """Megakernel INGRESS: pre-attention norm + QKV projection + paged-KV
+    append as ONE fused launch (``ops/cuda/fused_decode_qkv.py``).
+    ``x`` [B, H] residual stream, ``norm_params`` [w] or [w, b],
+    ``weights`` one fused ``[3 nh hd, H]`` projection (``[out, in]``),
+    ``biases`` a matching list or []. Returns ``(q [B, nh, hd], k_pages,
+    v_pages)``, the pools written in place."""
+    nw = norm_params[0]
+    nb = norm_params[1] if len(norm_params) > 1 else None
+    return fused_decode_qkv(
+        x, nw, nb, list(weights), list(biases), positions.reshape(-1),
+        block_tables, k_pages, v_pages, k_scales=k_scales,
+        v_scales=v_scales, norm=norm, eps=eps, n_heads=n_heads,
+        n_kv_heads=n_kv_heads, head_dim=head_dim, rope_theta=rope_theta,
+        rows=rows)
+
+
+def paged_attend(q, k_pages, v_pages, block_tables, positions, scale=None,
+                 pages_per_block=None, k_scales=None, v_scales=None,
+                 seq_lens=None):
+    """Attention half of :func:`paged_slot_attention` alone (the
+    megakernel path appends K/V inside :func:`fused_qkv_step`). ``q``
+    [B, nh, hd]; the lengths are ``positions + 1`` as in
+    ``paged_slot_attention``. ``seq_lens`` (int32 [B]) passes those
+    lengths in when the caller made them once for every layer."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "paged_attend: int8 KV pools with scale side-pools arrive with "
+            "the port's kv_quant slice")
+    if seq_lens is None:
+        seq_lens = (positions.reshape(-1) + 1).to(torch.int32)
+    out = paged_decode_attention(q, k_pages, v_pages,
+                                 block_tables.to(torch.int32), seq_lens,
+                                 scale=scale,
+                                 pages_per_block=pages_per_block)
+    return out.to(q.dtype)
+
+
+def fused_mlp_step(x, att, wo, norm_params, w1, w2, bo=None, b1=None,
+                   b2=None, w_up=None, arch="gpt", norm="layer", eps=1e-5,
+                   rows=None):
+    """Megakernel EGRESS: out-projection + residual + post-norm + MLP +
+    residual as ONE fused launch (``ops/cuda/fused_decode_mlp.py``).
+    ``x`` [B, H] residual stream, ``att`` [B, nh*hd]; returns the next
+    layer's residual stream [B, H]."""
+    nw = norm_params[0]
+    nb = norm_params[1] if len(norm_params) > 1 else None
+    return fused_decode_mlp(x, att, wo, bo, nw, nb, w1, b1, w2, b2, w_up,
+                            arch=arch, norm=norm, eps=eps, rows=rows)
+
+
+def fused_decode_logits(x, norm_params, w_lm, poison, b_lm=None,
+                        norm="layer", eps=1e-5, transpose_lm=False,
+                        rows=None):
+    """Megakernel SAMPLING EPILOGUE: final norm + LM head + the
+    :func:`guarded_argmax` pick as ONE fused launch. Returns ``(logits
+    [B, V] pre-poison, nxt [B], bad [B] bool)``; nxt and bad are exactly
+    ``guarded_argmax(logits, poison)``'s."""
+    nw = norm_params[0]
+    nb = norm_params[1] if len(norm_params) > 1 else None
+    return fused_decode_epilogue(x, nw, nb, w_lm, b_lm, poison.reshape(-1),
+                                 norm=norm, eps=eps,
+                                 transpose_lm=transpose_lm, rows=rows)
+
+
 def _lm_logits(model, h):
     """Final norm output -> logits; tied head is ``h @ wte.T``."""
     if model.lm_head is not None:
@@ -153,6 +226,51 @@ def _gpt_decode(model, ids_t, pos, caches, attend):
         new.extend((kc, vc))
     logits = _lm_logits(model, gpt.ln_f(x))
     return logits.reshape(logits.shape[0], -1), new
+
+
+def _gpt_decode_fused(model, ids_t, pos, bt, caches, poison,
+                      pages_per_block=None):
+    """Megakernel decode step for GPTForCausalLM: one-token forward in
+    three launches per layer (:func:`fused_qkv_step` ->
+    :func:`paged_attend` -> :func:`fused_mlp_step`) plus the
+    :func:`fused_decode_logits` epilogue, against the serving engine's
+    per-slot page pools (written in place). ``bt`` [B, NP] and ``pos``
+    [B] are data; ``poison`` is the decode guard's [B] lane. The
+    attention lengths are made once for all layers. Returns ``(logits
+    [B, V], nxt [B], bad [B] bool, caches)``."""
+    gpt = model.gpt
+    data = _split_caches(caches, len(gpt.blocks))
+    p = pos.reshape(-1)
+    x = gpt.wte(ids_t) + gpt.wpe(p.reshape(-1, 1))
+    b = x.shape[0]
+    x = x.reshape(b, x.shape[-1])
+    bt = bt.to(torch.int32)
+    lens = (p + 1).to(torch.int32)
+    new = []
+    for li, blk in enumerate(gpt.blocks):
+        a = blk.attn
+        q, kc, vc = fused_qkv_step(
+            x, [blk.ln1.weight, blk.ln1.bias], [a.qkv.weight],
+            [a.qkv.bias], p, bt, data[2 * li], data[2 * li + 1],
+            norm="layer", eps=blk.ln1.eps, n_heads=a.num_heads,
+            n_kv_heads=a.num_heads, head_dim=a.head_dim)
+        new.extend((kc, vc))
+        att = paged_attend(q, kc, vc, bt, p,
+                           pages_per_block=pages_per_block, seq_lens=lens)
+        x = fused_mlp_step(x, att.reshape(b, -1), a.proj.weight,
+                           [blk.ln2.weight, blk.ln2.bias],
+                           blk.mlp.fc1.weight, blk.mlp.fc2.weight,
+                           bo=a.proj.bias, b1=blk.mlp.fc1.bias,
+                           b2=blk.mlp.fc2.bias, arch="gpt", norm="layer",
+                           eps=blk.ln2.eps)
+    if model.lm_head is not None:
+        w_lm, tr = model.lm_head.weight, False
+    else:
+        w_lm, tr = gpt.wte.weight, True
+    logits, nxt, bad = fused_decode_logits(
+        x, [gpt.ln_f.weight, gpt.ln_f.bias], w_lm, poison, norm="layer",
+        eps=gpt.ln_f.eps, transpose_lm=tr)
+    return logits, nxt, bad, new
 
 
 def _gpt_ragged_forward(model, ids_t, tok_pos, tok_slot, tok_valid,
@@ -203,6 +321,17 @@ def _decode_fn(model):
     if _is_gpt(model):
         return _gpt_decode, None, True
     raise _unsupported(model)
+
+
+def _decode_fused_fn(model):
+    """Megakernel analog of :func:`_decode_fn`: the fused decode step of
+    the serving engine's ``megakernel`` path."""
+    if _is_gpt(model):
+        return _gpt_decode_fused
+    raise TypeError(
+        f"megakernel: unsupported model {type(model).__name__}; the port's "
+        "fused decode serves GPTForCausalLM, and the LLaMA branches arrive "
+        "with the port's LLaMA slice")
 
 
 def _ragged_fn(model):

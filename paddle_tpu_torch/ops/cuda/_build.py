@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` for Hopper
 (``sm_90a``), into a shared library with a plain C interface that
 :mod:`ctypes` loads — no PyTorch headers, so a build takes seconds. The
 library lands in ``build/`` beside this file (git-ignored), named by a
-hash of its source and flags, so an edited source rebuilds and an
-unchanged one loads at once. :func:`build_all` starts one ``nvcc`` per
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header rebuilds and an unchanged one loads at
+once. :func:`build_all` starts one ``nvcc`` per
 source, all together. A missing ``nvcc`` or a failed build raises,
 naming the command and its stderr: there is no fallback.
 """
@@ -56,6 +57,7 @@ def find_nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

@@ -39,6 +39,7 @@ MAX_HEAD_DIM = 128
 MAX_ROWS = 64   # q_block * (Hq // Hk) query rows one CTA stages
 
 _fn = None
+_ones: dict = {}   # (batch, device) -> int32 ones, the q_lens of a decode
 
 
 def _cdiv(a, b):
@@ -173,8 +174,13 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
                            scale=None, pages_per_block=None):
     """One decode step: q [B, Hq, D], one token per sequence; seq_lens
     [B] valid tokens including the current one. This is
-    :func:`ragged_paged_attention` with ``q_block=1``."""
-    ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
+    :func:`ragged_paged_attention` with ``q_block=1``; its q_lens (all
+    ones) are made once per batch size and device, not per call."""
+    key = (q.shape[0], q.device)
+    ones = _ones.get(key)
+    if ones is None:
+        ones = torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
+        _ones[key] = ones
     return ragged_paged_attention(q, k_pages, v_pages, block_tables,
                                   seq_lens, ones, q_block=1,
                                   pages_per_block=pages_per_block,

@@ -6,11 +6,19 @@ engine history: the single-step decode bootstrap runs once per (model,
 geometry)). Token streams, finish reasons, error codes and every
 ``stats`` counter must be EXACTLY equal. The JAX side runs once per
 module (each engine geometry compiles for ~15 s in interpret mode).
+
+The port's megakernel engine (``megakernel=True``, on another fresh
+model) serves the slot-contention and shared-prefix/COW workloads and is
+held against the same JAX results: the JAX package holds its megakernel
+engine bitwise equal to its unfused one on these workloads
+(``tests/test_decode_megakernel.py``), so no JAX megakernel engine is
+compiled here.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.core import state as t_state
 from paddle_tpu_torch.core.errors import PageBudgetError, QueueFullError
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
@@ -23,6 +31,17 @@ G1 = dict(max_slots=2, page_size=8, max_seq_len=32, decode_window=4,
 G2 = dict(max_slots=3, page_size=4, max_seq_len=16, total_pages=9,
           decode_window=4, prefill_chunk=8, q_block=2)
 G3 = dict(max_slots=1, page_size=8, max_seq_len=32, total_pages=3)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests share the machine's cores with
+    other test workers, and PyTorch's thread pool, spinning on small ops
+    against them, slowed these CPU runs by two orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _prompts(seed, sizes):
@@ -46,6 +65,29 @@ def _conserved(eng):
             == eng.total_pages - 1 and st["pages_in_use"] == 0)
 
 
+def _contention(eng_, res):
+    """Slot contention: 4 ragged requests through 2 slots."""
+    prompts = _prompts(0, (5, 9, 3, 12))
+    eng = eng_(**G1)
+    rids = [eng.add_request(p, n) for p, n in zip(prompts, (6, 4, 7, 5))]
+    res["contention"] = _summary(eng, eng.run())
+    res["contention"]["conserved"] = _conserved(eng)
+    return prompts, rids
+
+
+def _prefix(eng_, res):
+    """Shared prefix: a retired request publishes its pages; later ones
+    map them, and a page-aligned full hit copies the divergence page."""
+    base = _prompts(5, (16,))[0]
+    eng = eng_(**G1)
+    eng.add_request(np.concatenate([base, [1, 2, 3]]), 4)
+    first = eng.run()
+    eng.add_request(np.concatenate([base, [7, 8, 9, 10]]), 3)
+    eng.add_request(base, 5)
+    res["prefix"] = _summary(eng, {**first, **eng.run()})
+    res["prefix"]["conserved"] = _conserved(eng)
+
+
 def _workloads(Engine, model, faults, extra):
     """Every workload in one fixed order (the decode-bootstrap history
     depends on it). ``extra`` carries the port's ``device=``."""
@@ -54,12 +96,7 @@ def _workloads(Engine, model, faults, extra):
     def eng_(**kw):
         return Engine(model, **kw, **extra)
 
-    # slot contention: 4 ragged requests through 2 slots
-    prompts = _prompts(0, (5, 9, 3, 12))
-    eng = eng_(**G1)
-    rids = [eng.add_request(p, n) for p, n in zip(prompts, (6, 4, 7, 5))]
-    res["contention"] = _summary(eng, eng.run())
-    res["contention"]["conserved"] = _conserved(eng)
+    prompts, rids = _contention(eng_, res)
 
     # eos early retire: eos = the first token in a stream that differs
     # from that stream's first token
@@ -71,16 +108,7 @@ def _workloads(Engine, model, faults, extra):
     res["eos"] = _summary(eng, eng.run())
     res["eos"]["conserved"] = _conserved(eng)
 
-    # shared prefix: a retired request publishes its pages; later ones
-    # map them, and a page-aligned full hit copies the divergence page
-    base = _prompts(5, (16,))[0]
-    eng = eng_(**G1)
-    eng.add_request(np.concatenate([base, [1, 2, 3]]), 4)
-    first = eng.run()
-    eng.add_request(np.concatenate([base, [7, 8, 9, 10]]), 3)
-    eng.add_request(base, 5)
-    res["prefix"] = _summary(eng, {**first, **eng.run()})
-    res["prefix"]["conserved"] = _conserved(eng)
+    _prefix(eng_, res)
 
     # preempt-requeue: the pool holds 8 usable pages for 3 slots whose
     # worst case is 12
@@ -150,12 +178,26 @@ def results():
     paddle.seed(0)
     jm = JGPT(JConfig(**CFG, dropout=0.0))
     jm.eval()
+    named = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
-    load_gpt_from_jax(tm, {k: np.asarray(v.numpy())
-                           for k, v in jm.state_dict().items()})
+    load_gpt_from_jax(tm, named)
+    # the megakernel engine on its own fresh model, in the order the
+    # JAX history saw the two workloads (contention bootstraps the
+    # decode geometry; prefix then runs windows only)
+    mk = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
+    load_gpt_from_jax(mk, named)
+    mk_res = {}
+
+    def mk_eng(**kw):
+        return ContinuousBatchingEngine(mk, device="cpu", megakernel=True,
+                                        **kw)
+
+    _contention(mk_eng, mk_res)
+    _prefix(mk_eng, mk_res)
     return {"jax": _workloads(JEngine, jm, j_faults, {}),
             "port": _workloads(ContinuousBatchingEngine, tm, t_faults,
-                               {"device": "cpu"})}
+                               {"device": "cpu"}),
+            "megakernel": mk_res}
 
 
 @pytest.mark.parametrize("name", ["contention", "eos", "prefix", "preempt",
@@ -166,6 +208,14 @@ def test_engine_matches_jax(results, name):
     assert list(t["stats"].items()) == list(j["stats"].items())
     if "conserved" in t:
         assert t["conserved"] and j["conserved"]
+
+
+@pytest.mark.parametrize("name", ["contention", "prefix"])
+def test_megakernel_engine_matches_jax(results, name):
+    j, t = results["jax"][name], results["megakernel"][name]
+    assert t["out"] == j["out"]
+    assert list(t["stats"].items()) == list(j["stats"].items())
+    assert t["conserved"] and j["conserved"]
 
 
 def test_workloads_exercise_their_paths(results):
@@ -198,7 +248,7 @@ def test_coded_rejections_match_jax(results):
 def test_left_out_subsystems_raise():
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     for kw in ({"kv_quant": True}, {"kv_quant": "on"},
-               {"megakernel": True}, {"spec_decode": True},
+               {"kv_quant": True, "megakernel": True}, {"spec_decode": True},
                {"spec_k": 4}, {"spec_proposer": "ngram"},
                {"mesh": object()}, {"slo": "ttft_p99<100ms"},
                {"watchdog_ms": 50}):
@@ -209,6 +259,45 @@ def test_left_out_subsystems_raise():
     eng = ContinuousBatchingEngine(tm, device="cpu", kv_quant="off",
                                    megakernel=False, **G1)
     assert eng.stats["kv_quant"] is False
+
+
+def test_megakernel_off_spelling_restores_default_geometry():
+    """An off-spelling is indistinguishable from the default: the same
+    parsed value and the same decode geometry key; an on-spelling is a
+    geometry of its own (its own decode bootstrap)."""
+    tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
+    base = ContinuousBatchingEngine(tm, device="cpu", **G1)
+    for spelling in ("off", "false", "0", "no", False):
+        eng = ContinuousBatchingEngine(tm, device="cpu",
+                                       megakernel=spelling, **G1)
+        assert eng.megakernel is False
+        assert eng._geometry() == base._geometry()
+    for spelling in ("on", "true", "1", "yes", True, "ON"):
+        eng = ContinuousBatchingEngine(tm, device="cpu",
+                                       megakernel=spelling, **G1)
+        assert eng.megakernel is True
+        assert eng._geometry() != base._geometry()
+
+
+def test_megakernel_flag_and_strict_spelling():
+    """The ``serving_megakernel`` flag sets the default (the kwarg still
+    wins); a typo raises instead of silently picking a decode path."""
+    tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
+    assert t_state.MEGAKERNEL_ON_SPELLINGS == t_state.KV_QUANT_ON_SPELLINGS
+    assert t_state.MEGAKERNEL_OFF_SPELLINGS == \
+        t_state.KV_QUANT_OFF_SPELLINGS
+    old = t_state.get_flag("serving_megakernel")
+    assert old is False
+    try:
+        t_state.set_flags({"serving_megakernel": True})
+        assert ContinuousBatchingEngine(
+            tm, device="cpu", **G1).megakernel is True
+        assert ContinuousBatchingEngine(
+            tm, device="cpu", megakernel="off", **G1).megakernel is False
+    finally:
+        t_state.set_flags({"serving_megakernel": old})
+    with pytest.raises(ValueError, match="megakernel"):
+        ContinuousBatchingEngine(tm, device="cpu", megakernel="fast", **G1)
 
 
 @pytest.mark.gpu

@@ -21,6 +21,17 @@ CFG = dict(vocab_size=96, hidden_size=32, num_layers=2, num_heads=4,
 PS, NP, P = 8, 4, 14   # page size, table width, pool pages
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests share the machine's cores with
+    other test workers, and PyTorch's thread pool, spinning on small ops
+    against them, slowed these CPU runs by two orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models(serving_gpt):
     named = {k: np.asarray(v.numpy())

@@ -27,6 +27,17 @@ N = 2048
 REL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests share the machine's cores with
+    other test workers, and PyTorch's thread pool, spinning on small ops
+    against them, slowed these CPU runs by two orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jfo():
     pytest.importorskip("jax")
