@@ -16,13 +16,15 @@ card.
      and one GQA case; max abs error <= 2e-5 (fp32);
    * ``flash_attention_fwd`` / ``flash_attention_bwd`` at the train
      phase's shape (q, k, v ``[8, 1024, 12, 64]`` bf16 causal, the
-     unbound views of a packed qkv), an fp32 case with Sq != Sk and a
-     GQA case (Hq 32, Hk 8, D 128, S 512, bf16): fp32 within 2e-5 (o,
-     lse) and 1e-4 (grads); bf16 within one bf16 rounding of the plain
-     version run in fp32 on the same bf16 inputs;
+     unbound views of a packed qkv), an fp32 case with Sq != Sk, a
+     GQA case (Hq 32, Hk 8, D 128, S 512, bf16) and the LLaMA train
+     phase's shape (``[2, 2048, 32, 128]`` bf16 causal): fp32 within
+     2e-5 (o, lse) and 1e-4 (grads); bf16 within one bf16 rounding of
+     the plain version run in fp32 on the same bf16 inputs;
    * ``fused_update`` (AdamW, lr 1e-4, decay 0.01) on GPT-124M's O2
      buckets (124,437,504 bf16 params with fp32 masters; 38,912 fp32
-     LayerNorm params, padded) and the bf16 bucket with a clip scale:
+     LayerNorm params, padded), the bf16 bucket with a clip scale and
+     the LLaMA train phase's bucket (1,071,681,536 bf16 params):
      fp32 state within 1e-6 of its largest value, bf16 weights within
      one bf16 rounding;
    * ``fused_decode_qkv``, ``fused_decode_mlp`` and
@@ -30,7 +32,15 @@ card.
      (x ``[8, 768]``, pools ``[12, 513, 16, 64]``, tables ``[8, 64]``,
      the tied embedding ``[50304, 768]``): values within 2e-5, tokens and
      bad flags equal except on near ties, a NaN-poisoned row bad with
-     token 0; each beside the unfused eager chain it replaces.
+     token 0; each beside the unfused eager chain it replaces;
+   * ``rope`` at the LLaMA train phase's q ``[2, 2048, 32, 128]`` bf16
+     with ``[2048, 128]`` half-pairing tables, forward and the
+     backward's -sin launch, plus interleaved pairing, per-batch
+     ``[2, 2048, 128]`` tables and fp32; ``fused_residual_rms_norm_fwd``
+     / ``_bwd`` at its rows (``[4096, 4096]`` bf16), fp32 and 4093 rows:
+     bf16 within one bf16 rounding of the plain version run in fp32 on
+     the same inputs, fp32 within 1e-5 (dw within 1e-5 of its column's
+     sum of magnitudes); each beside the unfused eager chain it replaces.
 3. Serve phase: GPT-124M (``GPTConfig()`` defaults, weights drawn from
    the seed in the JAX package's layout and init) behind
    ``ContinuousBatchingEngine`` serves 16 requests (prompts 16-512
@@ -59,7 +69,20 @@ card.
    2 x 256, TF32 off) on the card, through the kernels, against the same
    step of a CPU copy running the plain versions: loss, every grad and
    every updated parameter within the tolerances printed.
-6. Prints the ``train`` JSON line, the ``kernels`` JSON line (seven
+6. LLaMA train phase: LLaMA-7B widths (vocab 32000, hidden 4096, 32
+   heads of 128, intermediate 11008) at 4 layers, batch 2 x 2048,
+   recompute ``dots_and_kernels_saveable``, AdamW lr 1e-4, O2 bf16 with
+   fp32 masters, weights drawn from the seed in the JAX package's layout
+   and init; run with ``train_glue_fusion`` off, then on: 2 warm-up and
+   5 timed steps each (step ms, tokens/s, MFU), every step launching the
+   flash forward and backward once per layer, rope 4 times per layer,
+   the fused residual + RMSNorm forward and backward 2 L times each with
+   glue on (none with it off) and the fused update once per bucket;
+   losses finite, the first within 0.5 of the init's expected loss, the
+   two runs' first losses within 1e-2; one profiled step each.
+7. LLaMA parity: one fp32 AdamW step with glue on (LLaMA-7B widths, 1
+   layer, batch 1 x 256) on the card against a CPU copy.
+8. Prints the ``train`` JSON line, the ``kernels`` JSON line (ten
    kernels, with both serve phases), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed phase
    raises: the exit code is not 0 and no result line is printed.
@@ -112,7 +135,8 @@ def header():
 def build():
     from paddle_tpu_torch.ops.cuda import (_build, flash_attention,
                                            fused_decode_mlp, fused_decode_qkv,
-                                           fused_optimizer, paged_attention)
+                                           fused_optimizer, fused_residual_norm,
+                                           paged_attention, rope)
     t0 = time.perf_counter()
     libs = _build.build_all()
     paged_attention._kernel()           # load + bind
@@ -120,6 +144,8 @@ def build():
     fused_optimizer._kernel()
     fused_decode_qkv._kernel()
     fused_decode_mlp._kernels()
+    rope._kernel()
+    fused_residual_norm._kernels()
     secs = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {secs:.2f} s")
     return secs
@@ -129,14 +155,20 @@ def counters():
     """Every kernel wrapper's launch counter, by kernel name."""
     from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
                                            fused_decode_qkv, fused_optimizer,
-                                           paged_attention)
+                                           fused_residual_norm,
+                                           paged_attention, rope)
     return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
             "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "fused_update": fused_optimizer.fused_update,
             "fused_decode_qkv": fused_decode_qkv.fused_decode_qkv,
             "fused_decode_mlp": fused_decode_mlp.fused_decode_mlp,
-            "fused_decode_epilogue": fused_decode_mlp.fused_decode_epilogue}
+            "fused_decode_epilogue": fused_decode_mlp.fused_decode_epilogue,
+            "rope": rope.rope,
+            "fused_residual_rms_norm_fwd":
+                fused_residual_norm.fused_residual_rms_norm_fwd,
+            "fused_residual_rms_norm_bwd":
+                fused_residual_norm.fused_residual_rms_norm_bwd}
 
 
 def reset_counts():
@@ -287,11 +319,11 @@ def kernel_phase(seed, power):
 
 
 # ------------------------------------------------------- train kernels --
-def _bf16_err(got, ref):
-    """(max abs error, limit): one bf16 rounding of the largest
+def _bf16_err(got, ref, roundings=1):
+    """(max abs error, limit): ``roundings`` bf16 roundings of the largest
     reference value, plus 1e-4 for the fp32 summation order."""
     err = float((got.float() - ref.float()).abs().max())
-    return err, 2.0 ** -8 * float(ref.float().abs().max()) + 1e-4
+    return err, roundings * 2.0 ** -8 * float(ref.float().abs().max()) + 1e-4
 
 
 def _flash_pairs(b, hq, sq, sk, causal):
@@ -337,10 +369,12 @@ def flash_cases(seed, power, flush):
         ("f32_sq192_sk320", 2, 192, 320, 4, 4, 64, True, torch.float32),
         ("gqa_32q_8kv_d128", 2, 512, 512, 32, 8, 128, True,
          torch.bfloat16),
+        # the LLaMA train phase's shape (q and k from rope, contiguous)
+        ("llama7b_train", 2, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
     ]
     fwd_rows, bwd_rows = [], []
     for name, b, sq, sk, hq, hk, d, causal, dt in cases:
-        if sq == sk and hq == hk:   # the unbound views of a packed qkv
+        if name == "gpt124m_train":   # the unbound views of a packed qkv
             qkv = torch.randn(b, sq, 3, hq, d, generator=gen, device=dev)
             q, k, v = qkv.to(dt).unbind(2)
         else:
@@ -425,16 +459,19 @@ def flash_cases(seed, power, flush):
 
 def optimizer_cases(seed, power, flush):
     """``fused_update`` (AdamW, lr 1e-4, decay 0.01) against its plain
-    version on the GPT-124M O2 buckets, and the library's fused AdamW
-    over fp32 params of the big bucket's size (which computes the update
-    without the bf16 copy)."""
+    version on the GPT-124M O2 buckets and the LLaMA train phase's
+    bucket, and the library's fused AdamW over fp32 params of each bf16
+    bucket's size (which computes the update without the bf16 copy)."""
     from paddle_tpu_torch.ops.cuda import fused_optimizer as fo
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     cases = [("gpt124m_o2_bf16_master", 124_437_504, torch.bfloat16, None),
              ("gpt124m_o2_f32_layernorm", 38_912, torch.float32, None),
              ("gpt124m_o2_bf16_master_clip", 124_437_504, torch.bfloat16,
-              0.37)]
+              0.37),
+             # the LLaMA train phase's one bucket (4 layers at 7B widths)
+             ("llama7b_4l_o2_bf16_master", 1_071_681_536, torch.bfloat16,
+              None)]
     rows = []
     for name, n, dt, clip in cases:
         use_master = dt == torch.bfloat16
@@ -516,7 +553,9 @@ def train_kernel_phase(seed, power):
 
 
 # ------------------------------------------------------ decode kernels --
-def _decode_bound(nbytes, flops):
+def _fp32_bound(nbytes, flops):
+    """(least ms, what bounds it): the bytes at the HBM rate or the fp32
+    flops at the CUDA-core rate, whichever takes longer."""
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
@@ -588,7 +627,7 @@ def decode_kernel_cases(seed, power, flush):
     k0, v0 = rn(nh, P, ps, hd), rn(nh, P, ps, hd)
 
     def finish(name, err, ms, plain_ms, unfused_ms, nbytes, flops, shape):
-        bound_ms, bound_by = _decode_bound(nbytes, flops)
+        bound_ms, bound_by = _fp32_bound(nbytes, flops)
         row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    unfused_ms=unfused_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, flops=flops,
@@ -1063,30 +1102,26 @@ def _batch_fn(cfg, batch, seq, seed):
     return make
 
 
-def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
-                steps=10, power=""):
-    """Train GPT-124M in bench.py's configuration through the Paddle
-    entry points and check it. ``cfg``/``device``/``batch``/``seq``
-    shrink it to rehearse on the CPU (no launch counts, no profile)."""
+def train_run(model, cfg, seed, device, batch, seq, warmup, steps, want,
+              first_loss, tag, power):
+    """Train ``model`` (training mode, weights loaded) through the Paddle
+    entry points: AdamW lr 1e-4 under ``amp.decorate`` O2 bf16 with fp32
+    master weights and ``auto_cast`` O2, ``warmup`` steps then ``steps``
+    timed steps on numpy batches from the seed, and check it: on the card
+    every timed step launches exactly ``want`` (by kernel name, the rest
+    0) and the fused update once per bucket; every loss finite, the first
+    within 0.5 of ``first_loss``; every parameter and master finite after
+    the last step. On the card one more step runs under
+    ``torch.profiler``. Returns the phase's numbers."""
     from paddle_tpu_torch import amp, optimizer
-    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
-                                         load_gpt_from_jax)
-    if cfg is None:
-        cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
-                        num_heads=12, max_seq_len=1024, dropout=0.0,
-                        recompute=True,
-                        recompute_policy="dots_and_kernels_saveable")
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device=device)
-    load_gpt_from_jax(model, jax_layout_gpt_weights(cfg, seed))
     opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
     model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
                               dtype="bfloat16", master_weight=True)
-    log(f"train: GPT {model.num_params()} params on {model.device}, O2 "
-        f"bf16 + fp32 masters, recompute {cfg.recompute_policy}, batch "
-        f"{batch} x {seq}, in {time.perf_counter() - t0:.2f} s")
+    log(f"{tag}: {model.num_params()} params on {model.device}, O2 bf16 + "
+        f"fp32 masters, recompute {cfg.recompute_policy}, batch {batch} x "
+        f"{seq}")
     make = _batch_fn(cfg, batch, seq, seed)
 
     def to_dev(ids, lab):
@@ -1101,6 +1136,8 @@ def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
         opt.clear_grad()
         return loss.detach()
 
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     losses = [train_step(*to_dev(*make())) for _ in range(warmup)]
     sync()
     n_buckets = len(opt._flat or ())
@@ -1120,28 +1157,24 @@ def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
     loss_vals = [float(x) for x in losses]
 
     if not all(np.isfinite(loss_vals)):
-        raise AssertionError(f"train: non-finite loss in {loss_vals}")
-    ln_v = float(np.log(cfg.vocab_size))
-    if abs(loss_vals[0] - ln_v) > 0.5:
-        raise AssertionError(f"train: first loss {loss_vals[0]:.4f} is not "
-                             f"within 0.5 of ln({cfg.vocab_size}) = "
-                             f"{ln_v:.4f}")
+        raise AssertionError(f"{tag}: non-finite loss in {loss_vals}")
+    if abs(loss_vals[0] - first_loss) > 0.5:
+        raise AssertionError(f"{tag}: first loss {loss_vals[0]:.4f} is not "
+                             f"within 0.5 of {first_loss:.4f}")
     if on_card:
-        want = dict.fromkeys(counters(), 0)
-        want.update(flash_attention_fwd=cfg.num_layers,
-                    flash_attention_bwd=cfg.num_layers,
-                    fused_update=n_buckets)
+        full = dict.fromkeys(counters(), 0)
+        full.update(want, fused_update=n_buckets)
         for i, got in enumerate(per_step):
-            if got != want:
-                raise AssertionError(f"train step {i}: kernel launches "
-                                     f"{got}, want {want}")
+            if got != full:
+                raise AssertionError(f"{tag} step {i}: kernel launches "
+                                     f"{got}, want {full}")
     with torch.no_grad():
         bad = [n for n, p in model.named_parameters()
                if not torch.isfinite(p).all()]
         bad += [f"master of {tuple(p.shape)}" for p, w in
                 opt._master_weights.items() if not torch.isfinite(w).all()]
     if bad:
-        raise AssertionError(f"train: non-finite after the last step: "
+        raise AssertionError(f"{tag}: non-finite after the last step: "
                              f"{bad[:5]}")
     step_ms = wall / steps * 1e3
     tokens_per_s = batch * seq * steps / wall
@@ -1150,15 +1183,16 @@ def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
     mfu = flops_tok * tokens_per_s / BF16_FLOPS_PER_S if on_card else None
     where = torch.cuda.get_device_name(0) if on_card else device
     mfu_txt = f"MFU {mfu:.2%} of 989 TFLOP/s bf16" if on_card else "no MFU"
-    log(f"train: {steps} steps on {where} in {wall:.3f} s = {step_ms:.2f} "
+    log(f"{tag}: {steps} steps on {where} in {wall:.3f} s = {step_ms:.2f} "
         f"ms/step, {tokens_per_s:.1f} tokens/s, {mfu_txt} "
         f"({flops_tok:.4g} flops/token) on {power}; losses "
         f"{[round(x, 4) for x in loss_vals]}; launches {counts}, "
         f"{n_buckets} buckets")
-    out = dict(steps=steps, warmup=warmup, batch=batch, seq=seq,
-               step_ms=step_ms, tokens_per_s=tokens_per_s, mfu=mfu,
-               flops_per_token=flops_tok, losses=loss_vals, counts=counts,
-               per_step=per_step[0], buckets=n_buckets,
+    out = dict(params=model.num_params(), steps=steps, warmup=warmup,
+               batch=batch, seq=seq, step_ms=step_ms,
+               tokens_per_s=tokens_per_s, mfu=mfu, flops_per_token=flops_tok,
+               losses=loss_vals, first_loss_target=first_loss,
+               counts=counts, per_step=per_step[0], buckets=n_buckets,
                bucket_sizes=[g.padded for g in opt._flat or ()],
                peak_mem_gb=(torch.cuda.max_memory_allocated() / 2**30
                             if on_card else None))
@@ -1182,29 +1216,48 @@ def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
             log(f"profile: host {ms:9.3f} ms x{n:<6d} {key[:90]}")
         out["profile"]["host_top"] = [dict(name=k[:200], ms=ms, count=n)
                                       for k, ms, n in host[:8]]
+    del model, opt
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
-def train_parity(seed):
-    """One fp32 AdamW step on the card (kernels) against a CPU copy
-    (plain versions): GPT-124M widths, 2 layers, batch 2 x 256, TF32
-    off, no AMP. Tolerances: loss 1e-4; each grad within 1e-4 of its
-    largest magnitude; each updated parameter within 1e-6 where the
-    reference grad is at least 1e-5 (there Adam's first step,
-    lr * g / (|g| + eps), does not hang on the grad's last bits) and
-    within 2 lr elsewhere."""
-    from paddle_tpu_torch import optimizer
+def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
+                steps=10, power=""):
+    """Train GPT-124M in bench.py's configuration through the Paddle
+    entry points (:func:`train_run`): the flash forward and backward once
+    per layer a step, the first loss within 0.5 of ln(vocab).
+    ``cfg``/``device``/``batch``/``seq`` shrink it to rehearse on the
+    CPU (no launch counts, no profile)."""
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          load_gpt_from_jax)
-    cfg = GPTConfig(num_layers=2, recompute=True,
-                    recompute_policy="dots_and_kernels_saveable")
-    lr = 1e-4
-    weights = jax_layout_gpt_weights(cfg, seed + 3)
-    ids, lab = _batch_fn(cfg, 2, 256, seed + 4)()
-    res = {}
+    if cfg is None:
+        cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                        num_heads=12, max_seq_len=1024, dropout=0.0,
+                        recompute=True,
+                        recompute_policy="dots_and_kernels_saveable")
+    model = GPTForCausalLM(cfg, device=device)
+    load_gpt_from_jax(model, jax_layout_gpt_weights(cfg, seed))
+    L = cfg.num_layers
+    return train_run(model, cfg, seed, device, batch, seq, warmup, steps,
+                     dict(flash_attention_fwd=L, flash_attention_bwd=L),
+                     float(np.log(cfg.vocab_size)), "train: GPT", power)
+
+
+def parity_step(make_model, ids, lab, lr, want, tag):
+    """One fp32 AdamW step of ``make_model(device)`` on the card (kernels)
+    against the same step of a CPU copy (plain versions), TF32 off, no
+    AMP. The card step must launch exactly ``want`` (by kernel name, the
+    rest 0). Tolerances: loss 1e-4; each grad within 1e-4 of its largest
+    magnitude; each updated parameter within 1e-6 where the reference
+    grad is at least 1e-5 (there Adam's first step, lr * g / (|g| +
+    eps), does not hang on the grad's last bits) and within 2 lr
+    elsewhere."""
+    from paddle_tpu_torch import optimizer
+    res, secs = {}, {}
     for dev in ("cuda", "cpu"):
-        model = GPTForCausalLM(cfg, device=dev)
-        load_gpt_from_jax(model, weights)
+        t0 = time.perf_counter()
+        model = make_model(dev)
         opt = optimizer.AdamW(learning_rate=lr,
                               parameters=model.parameters())
         if dev == "cuda":
@@ -1220,13 +1273,14 @@ def train_parity(seed):
             counts = read_counts()
         res[dev] = (float(loss.detach()), grads,
                     {n: p.detach().cpu() for n, p in model.named_parameters()})
+        secs[dev] = time.perf_counter() - t0
         del model, opt
-    want = dict.fromkeys(counters(), 0)
-    want.update(flash_attention_fwd=2, flash_attention_bwd=2,
-                fused_update=1)
-    if counts != want:
-        raise AssertionError(f"train parity: card step launched {counts}, "
-                             f"want {want}")
+    torch.cuda.empty_cache()
+    full = dict.fromkeys(counters(), 0)
+    full.update(want)
+    if counts != full:
+        raise AssertionError(f"{tag}: card step launched {counts}, want "
+                             f"{full}")
     (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = res["cuda"], res["cpu"]
     loss_err = abs(l_gpu - l_cpu)
     grad_err = param_err = param_err_small = 0.0
@@ -1234,29 +1288,395 @@ def train_parity(seed):
         e = float((g_gpu[n] - g).abs().max())
         lim = 1e-4 * float(g.abs().max()) + 1e-12
         if not e <= lim:
-            raise AssertionError(f"train parity: grad {n} max abs error "
-                                 f"{e:.3g} > {lim:.3g}")
+            raise AssertionError(f"{tag}: grad {n} max abs error {e:.3g} > "
+                                 f"{lim:.3g}")
         grad_err = max(grad_err, e / (float(g.abs().max()) + 1e-12))
         d = (p_gpu[n] - p_cpu[n]).abs()
         big = g.abs() >= 1e-5
         e_big = float(d[big].max()) if big.any() else 0.0
         e_small = float(d[~big].max()) if (~big).any() else 0.0
         if not (e_big <= 1e-6 and e_small <= 2 * lr):
-            raise AssertionError(f"train parity: param {n} max abs error "
+            raise AssertionError(f"{tag}: param {n} max abs error "
                                  f"{e_big:.3g} (|g| >= 1e-5) / {e_small:.3g}"
                                  f" (elsewhere)")
         param_err = max(param_err, e_big)
         param_err_small = max(param_err_small, e_small)
     if not loss_err <= 1e-4:
-        raise AssertionError(f"train parity: loss {l_gpu} (card) vs "
-                             f"{l_cpu} (cpu)")
-    log(f"train parity: loss {l_gpu:.6f} (card) vs {l_cpu:.6f} (cpu), "
-        f"err {loss_err:.3g}; grads max err {grad_err:.3g} of each grad's "
+        raise AssertionError(f"{tag}: loss {l_gpu} (card) vs {l_cpu} (cpu)")
+    log(f"{tag}: loss {l_gpu:.6f} (card) vs {l_cpu:.6f} (cpu), err "
+        f"{loss_err:.3g}; grads max err {grad_err:.3g} of each grad's "
         f"largest value; params max err {param_err:.3g} where |g| >= 1e-5, "
-        f"{param_err_small:.3g} elsewhere; card launches {counts}")
+        f"{param_err_small:.3g} elsewhere; card launches {counts}; card "
+        f"step {secs['cuda']:.1f} s, CPU step {secs['cpu']:.1f} s")
     return dict(loss_card=l_gpu, loss_cpu=l_cpu, loss_err=loss_err,
                 grad_rel_err=grad_err, param_err=param_err,
-                param_err_small_grad=param_err_small, counts=counts)
+                param_err_small_grad=param_err_small, counts=counts,
+                card_step_s=secs["cuda"], cpu_step_s=secs["cpu"])
+
+
+def train_parity(seed):
+    """:func:`parity_step` at GPT-124M widths, 2 layers, batch 2 x 256,
+    recompute ``dots_and_kernels_saveable``."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         load_gpt_from_jax)
+    cfg = GPTConfig(num_layers=2, recompute=True,
+                    recompute_policy="dots_and_kernels_saveable")
+    weights = jax_layout_gpt_weights(cfg, seed + 3)
+    ids, lab = _batch_fn(cfg, 2, 256, seed + 4)()
+
+    def make(dev):
+        return load_gpt_from_jax(GPTForCausalLM(cfg, device=dev), weights)
+    return parity_step(make, ids, lab, 1e-4,
+                       dict(flash_attention_fwd=2, flash_attention_bwd=2,
+                            fused_update=1), "train parity")
+
+
+# ------------------------------------------------------- llama kernels --
+def _check_errs(name, errs):
+    for n, (err, lim) in errs.items():
+        if not err <= lim:
+            raise AssertionError(f"{name} {n}: kernel vs plain max abs error "
+                                 f"{err:.3g} > {lim:.3g}")
+
+
+def _err(got, ref, bf16, roundings=1):
+    """(max abs error, limit): bf16 within ``roundings`` bf16 roundings of
+    the plain version run in fp32 on the same inputs; fp32 within 1e-5."""
+    if bf16:
+        return _bf16_err(got, ref, roundings)
+    return float((got.float() - ref.float()).abs().max()), 1e-5
+
+
+def rope_cases(seed, power, flush):
+    """The rope kernel against its plain version: the LLaMA train phase's
+    q ``[2, 2048, 32, 128]`` bf16 with ``[2048, 128]`` half-pairing tables
+    (forward, and the backward's -sin launch), then interleaved pairing,
+    per-batch ``[2, 2048, 128]`` tables and fp32. ``unfused_ms`` times the
+    eager chain a model would run without the kernel: ``x * cos +
+    rotate(x) * sin`` in x's dtype (tables cast once, outside the clock).
+    No single PyTorch call computes rope (``library_ms`` null)."""
+    from paddle_tpu_torch.models import rope_angles
+    from paddle_tpu_torch.ops.cuda import rope as rp
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    B, S, H, D = 2, 2048, 32, 128
+    cos, sin = (t.to(dev) for t in rope_angles(np.arange(S), D, 10000.0))
+    pos = torch.randint(0, S, (B, S), generator=gen, device=dev)
+    cases = [
+        # name, dtype, half pairing, per-batch tables
+        ("llama7b_q_bf16", torch.bfloat16, True, False),
+        ("llama7b_q_bf16_interleaved", torch.bfloat16, False, False),
+        ("llama7b_q_bf16_batched_tables", torch.bfloat16, True, True),
+        ("llama7b_q_f32", torch.float32, True, False),
+    ]
+    fwd_rows, bwd_rows = [], []
+    for name, dt, neox, batched in cases:
+        c, s = (cos[pos], sin[pos]) if batched else (cos, sin)
+        x = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+        g = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+        out = rp.rope(x, c, s, neox)
+        dx = rp.rope(g, c, s, neox, neg_sin=True)
+        ref = rp.rope_plain(x.float(), c, s, neox)
+        dref = rp.rope_plain(g.float(), c, -s, neox)
+        torch.cuda.synchronize()
+        bf = dt == torch.bfloat16
+        errs = {"out": _err(out, ref, bf), "dx": _err(dx, dref, bf)}
+        _check_errs(f"rope {name}", errs)
+        cl, sl = c.to(dt), s.to(dt)
+
+        def unfused():
+            rot = (torch.cat([-x[..., D // 2:], x[..., :D // 2]], dim=-1)
+                   if neox else torch.stack([-x[..., 1::2], x[..., ::2]],
+                                            dim=-1).flatten(-2))
+            return x * cl[..., None, :] + rot * sl[..., None, :]
+
+        esize = x.element_size()
+        nbytes = 2 * x.numel() * esize + 2 * c.numel() * 4
+        bound_ms, bound_by = _fp32_bound(nbytes, 6 * x.numel())
+        unf = _time_ms(unfused, 20, flush)
+        for rows, which, fn, pfn in (
+                (fwd_rows, "out", lambda: rp.rope(x, c, s, neox),
+                 lambda: rp.rope_plain(x, c, s, neox)),
+                (bwd_rows, "dx", lambda: rp.rope(g, c, s, neox, neg_sin=True),
+                 lambda: rp.rope_plain(g, c, -s, neox))):
+            ms = _time_ms(fn, 50, flush)
+            plain_ms = _time_ms(pfn, 10, flush)
+            row = dict(case=name + ("" if which == "out" else "_bwd_neg_sin"),
+                       max_abs_err=errs[which][0], tolerance=errs[which][1],
+                       ms=ms, plain_ms=plain_ms, unfused_ms=unf,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       library_ms=None, library="none: no single call",
+                       x=[B, S, H, D], tables=list(c.shape),
+                       dtype=str(dt).replace("torch.", ""),
+                       pairing="half" if neox else "interleaved")
+            log(f"kernel rope {row['case']} x {row['x']} tables "
+                f"{row['tables']} {row['dtype']}: max_abs_err "
+                f"{row['max_abs_err']:.3g}, {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, unfused chain {unf:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
+                f"bound) on {power}")
+            rows.append(row)
+        del x, g, out, dx, ref, dref
+    torch.cuda.empty_cache()
+    return fwd_rows + bwd_rows
+
+
+def rms_cases(seed, power, flush):
+    """The fused residual + RMSNorm forward and backward kernels against
+    their plain versions: the LLaMA train phase's rows (x, y ``[4096,
+    4096]`` bf16, w bf16, as under O2), fp32, and 4093 rows (not a
+    multiple of the backward CTA's 8); bf16 ``normed`` within two bf16
+    roundings (its residual sum is rounded before the stats, as the TPU
+    kernel does, and the plain version in fp32 does not round it).
+    ``unfused_ms`` times the glue-off
+    path the kernels replace: ``ops.add`` + ``F.rms_norm`` under O2
+    auto_cast (forward) and autograd's backward of that chain. No single
+    PyTorch call computes either function (``library_ms`` null). The
+    fp32 dw is held to 1e-5 of its column's sum of |dnormed * xhat|: a
+    sum over 4096 rows in another order."""
+    from paddle_tpu_torch import amp, ops
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    eps = 1e-6
+    cases = [("llama7b_bf16", 4096, 4096, torch.bfloat16),
+             ("llama7b_f32", 4096, 4096, torch.float32),
+             ("rows4093_bf16", 4093, 4096, torch.bfloat16)]
+    fwd_rows, bwd_rows = [], []
+    for name, n, h, dt in cases:
+        def rn(*shape, std=1.0):
+            return torch.randn(*shape, generator=gen, device=dev) * std
+        x, y = rn(n, h).to(dt), rn(n, h).to(dt)
+        w = (1.0 + rn(h, std=0.1)).to(dt)
+        dres, dn = rn(n, h).to(dt), rn(n, h).to(dt)
+        res, normed, rstd = fr.fused_residual_rms_norm_fwd(x, y, w, eps)
+        d, dw = fr.fused_residual_rms_norm_bwd(res, w, rstd, dres, dn)
+        d0, _ = fr.fused_residual_rms_norm_bwd(res, w, rstd, None, dn)
+        f32 = [t.float() for t in (x, y, w, dres, dn)]
+        rres, rnormed, rrstd = fr.fused_residual_rms_norm_fwd_plain(
+            *f32[:3], eps)
+        # the backward's plain version on the kernel's own res and rstd
+        rd, rdw = fr.fused_residual_rms_norm_bwd_plain(
+            res.float(), f32[2], rstd, f32[3], f32[4])
+        rd0, _ = fr.fused_residual_rms_norm_bwd_plain(
+            res.float(), f32[2], rstd, None, f32[4])
+        torch.cuda.synchronize()
+        bf = dt == torch.bfloat16
+        # normed rounds twice in bf16: the residual sum before the stats
+        # (the plain version in fp32 does not) and the output
+        ferrs = {"res": _err(res, rres, bf),
+                 "normed": _err(normed, rnormed, bf, roundings=2),
+                 "rstd": _err(rstd, rrstd, bf)}
+        berrs = {"d": _err(d, rd, bf), "d_without_dres": _err(d0, rd0, bf),
+                 "dw": _err(dw, rdw, bf)}
+        if not bf:
+            xhat = res.float() * rstd
+            colsum = float((f32[4] * xhat).abs().sum(dim=0).max())
+            berrs["dw"] = (berrs["dw"][0], 1e-5 * colsum)
+        _check_errs(f"fused_residual_rms_norm_fwd {name}", ferrs)
+        _check_errs(f"fused_residual_rms_norm_bwd {name}", berrs)
+        del f32, rres, rnormed, rrstd, rd, rdw, rd0, d0
+
+        xg, yg, wg = (t.detach().clone().requires_grad_() for t in (x, y, w))
+
+        def glue_off():
+            with amp.auto_cast(enable=bf, level="O2", dtype="bfloat16"):
+                r = ops.add(xg, yg)
+                return r, PF.rms_norm(r, wg, epsilon=eps)
+
+        with torch.no_grad():
+            unf_f = _time_ms(glue_off, 20, flush)
+        r_u, h_u = glue_off()
+        unf_b = _time_ms(lambda: torch.autograd.grad(
+            (r_u, h_u), (xg, yg, wg), (dres.to(r_u.dtype),
+                                       dn.to(h_u.dtype)),
+            retain_graph=True), 10, flush)
+        del r_u, h_u, xg, yg, wg
+        esize = x.element_size()
+        rows_bytes = n * h * esize
+        specs = (
+            (fwd_rows, ferrs, unf_f,
+             lambda: fr.fused_residual_rms_norm_fwd(x, y, w, eps),
+             lambda: fr.fused_residual_rms_norm_fwd_plain(x, y, w, eps),
+             # x, y, w read; res, normed, rstd written
+             4 * rows_bytes + h * esize + 4 * n, "fwd"),
+            (bwd_rows, berrs, unf_b,
+             lambda: fr.fused_residual_rms_norm_bwd(res, w, rstd, dres, dn),
+             lambda: fr.fused_residual_rms_norm_bwd_plain(res, w, rstd, dres,
+                                                          dn),
+             # res, dres, dnormed, w, rstd read; d, dw written
+             4 * rows_bytes + 2 * h * esize + 4 * n, "bwd"))
+        for rows, errs, unf, fn, pfn, nbytes, which in specs:
+            ms = _time_ms(fn, 50, flush)
+            plain_ms = _time_ms(pfn, 10, flush)
+            bound_ms, bound_by = _fp32_bound(nbytes, 8 * n * h)
+            row = dict(case=name, max_abs_err=max(e for e, _ in errs.values()),
+                       tolerance={k: lim for k, (_, lim) in errs.items()},
+                       ms=ms, plain_ms=plain_ms, unfused_ms=unf,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       library_ms=None, library="none: no single call",
+                       rows=[n, h], dtype=str(dt).replace("torch.", ""))
+            log(f"kernel fused_residual_rms_norm_{which} {name} [{n}, {h}] "
+                f"{row['dtype']}: max_abs_err {row['max_abs_err']:.3g}, "
+                f"{ms:.4f} ms (plain {plain_ms:.4f} ms, unfused chain "
+                f"{unf:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+                f"{bound_ms / ms:.1%} of bound) on {power}")
+            rows.append(row)
+        del x, y, w, dres, dn, res, normed, rstd, d, dw
+        torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def llama_kernel_phase(seed, power):
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    rope_rows = rope_cases(seed, power, flush)
+    fwd, bwd = rms_cases(seed, power, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return {"rope": rope_rows, "fused_residual_rms_norm_fwd": fwd,
+            "fused_residual_rms_norm_bwd": bwd}
+
+
+# --------------------------------------------------------- llama train --
+def jax_layout_llama_weights(cfg, seed):
+    """LLaMA weights as the JAX package names and lays them out (Linear
+    ``[in, out]``, an untied ``lm_head`` too), drawn with its init:
+    normal std 0.02, ``o_proj``/``down_proj`` 0.02 / sqrt(2 L), unit
+    norms."""
+    rng = np.random.default_rng(seed)
+    h, inter, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    resid = 0.02 / np.sqrt(2 * L)
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    w = {"llama.embed_tokens.weight": normal((cfg.vocab_size, h), 0.02),
+         "llama.norm.weight": np.ones(h, np.float32)}
+    for i in range(L):
+        p = f"llama.layer_{i}."
+        w.update({
+            p + "input_norm.weight": np.ones(h, np.float32),
+            p + "attn.q_proj.weight": normal((h, hq), 0.02),
+            p + "attn.k_proj.weight": normal((h, hkv), 0.02),
+            p + "attn.v_proj.weight": normal((h, hkv), 0.02),
+            p + "attn.o_proj.weight": normal((hq, h), resid),
+            p + "post_norm.weight": np.ones(h, np.float32),
+            p + "mlp.gate_proj.weight": normal((h, inter), 0.02),
+            p + "mlp.up_proj.weight": normal((h, inter), 0.02),
+            p + "mlp.down_proj.weight": normal((inter, h), resid),
+        })
+    if not cfg.tie_embeddings:
+        w["lm_head.weight"] = normal((h, cfg.vocab_size), 0.02)
+    return w
+
+
+def llama_train_config(num_layers=4):
+    """LLaMA-7B widths (the ``LlamaConfig`` defaults: vocab 32000, hidden
+    4096, 32 heads, head_dim 128, intermediate 11008, 2048 positions) at
+    ``num_layers`` layers, recompute ``dots_and_kernels_saveable``."""
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig(num_layers=num_layers, recompute=True,
+                       recompute_policy="dots_and_kernels_saveable")
+
+
+def expected_first_loss(cfg):
+    """The mean cross-entropy of the init at step 0: logits of a unit-RMS
+    final norm times an lm_head of std 0.02 are ~normal with variance
+    hidden * 0.02^2, and E[logsumexp] of V such logits is about ln V +
+    variance / 2: 11.19 at LLaMA-7B widths, where ln V alone (10.37) is
+    0.82 below it."""
+    return float(np.log(cfg.vocab_size) + cfg.hidden_size * 0.02 ** 2 / 2)
+
+
+def llama_train_phase(seed, glue, cfg=None, device="cuda", batch=2,
+                      seq=2048, warmup=2, steps=5, power="", state=None):
+    """Train LLaMA (default: :func:`llama_train_config`) through the
+    Paddle entry points (:func:`train_run`) with ``train_glue_fusion`` set
+    to ``glue``: every step launches the flash forward and backward once
+    per layer, rope four times per layer (q and k, forward and backward)
+    and the fused residual + RMSNorm forward and backward 2 L times each
+    with glue on (none with it off); the first loss within 0.5 of
+    :func:`expected_first_loss`. ``state`` reuses a torch state_dict of
+    the weights (one draw for both runs); ``cfg``/``device``/``batch``/
+    ``seq`` shrink it to rehearse on the CPU (no launch counts, no
+    profile). The flag is restored after."""
+    from paddle_tpu_torch.core import state as flags
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         llama_state_from_jax)
+    cfg = llama_train_config() if cfg is None else cfg
+    if state is None:
+        state = llama_state_from_jax(jax_layout_llama_weights(cfg, seed))
+    model = LlamaForCausalLM(cfg, device=device)
+    model.load_state_dict(state, strict=True)
+    L = cfg.num_layers
+    want = dict(flash_attention_fwd=L, flash_attention_bwd=L, rope=4 * L)
+    if glue:
+        want.update(fused_residual_rms_norm_fwd=2 * L,
+                    fused_residual_rms_norm_bwd=2 * L)
+    old = flags.get_flag("train_glue_fusion")
+    flags.set_flags({"train_glue_fusion": glue})
+    try:
+        out = train_run(model, cfg, seed, device, batch, seq, warmup, steps,
+                        want, expected_first_loss(cfg),
+                        f"llama train (glue {'on' if glue else 'off'}, "
+                        f"{L} layers)", power)
+    finally:
+        flags.set_flags({"train_glue_fusion": old})
+    return dict(out, glue=glue, layers=L)
+
+
+def llama_train_phases(seed, power):
+    """The LLaMA train phase with ``train_glue_fusion`` off, then on, from
+    one draw of the weights; both first losses (same weights, same first
+    batch) must agree within 1e-2."""
+    from paddle_tpu_torch.models import llama_state_from_jax
+    cfg = llama_train_config()
+    t0 = time.perf_counter()
+    state = llama_state_from_jax(jax_layout_llama_weights(cfg, seed))
+    log(f"llama train: weights drawn in {time.perf_counter() - t0:.2f} s")
+    off = llama_train_phase(seed, False, cfg, power=power, state=state)
+    on = llama_train_phase(seed, True, cfg, power=power, state=state)
+    del state
+    gap = abs(on["losses"][0] - off["losses"][0])
+    if not gap <= 1e-2:
+        raise AssertionError(f"llama train: first loss glue on "
+                             f"{on['losses'][0]:.5f} vs off "
+                             f"{off['losses'][0]:.5f}")
+    log(f"llama train: first loss glue on {on['losses'][0]:.5f} vs off "
+        f"{off['losses'][0]:.5f} (gap {gap:.3g}); step {on['step_ms']:.2f} "
+        f"vs {off['step_ms']:.2f} ms")
+    return off, on
+
+
+def llama_parity(seed, num_layers=1, batch=1, seq=256):
+    """:func:`parity_step` of LLaMA with ``train_glue_fusion`` on:
+    LLaMA-7B widths, ``num_layers`` layer(s), batch ``batch`` x ``seq``,
+    recompute ``dots_and_kernels_saveable``."""
+    from paddle_tpu_torch.core import state as flags
+    from paddle_tpu_torch.models import LlamaForCausalLM, load_llama_from_jax
+    cfg = llama_train_config(num_layers)
+    weights = jax_layout_llama_weights(cfg, seed + 3)
+    ids, lab = _batch_fn(cfg, batch, seq, seed + 4)()
+
+    def make(dev):
+        return load_llama_from_jax(LlamaForCausalLM(cfg, device=dev),
+                                   weights)
+    L = num_layers
+    old = flags.get_flag("train_glue_fusion")
+    flags.set_flags({"train_glue_fusion": True})
+    try:
+        out = parity_step(
+            make, ids, lab, 1e-4,
+            dict(flash_attention_fwd=L, flash_attention_bwd=L, rope=4 * L,
+                 fused_residual_rms_norm_fwd=2 * L,
+                 fused_residual_rms_norm_bwd=2 * L, fused_update=1),
+            f"llama parity ({L} layer(s) at LLaMA-7B widths, batch {batch}"
+            f" x {seq}, glue on)")
+    finally:
+        flags.set_flags({"train_glue_fusion": old})
+    return dict(out, layers=L, batch=batch, seq=seq)
 
 
 def main(argv=None):
@@ -1274,6 +1694,7 @@ def main(argv=None):
     rows = kernel_phase(args.seed, smi_line)
     fwd_rows, bwd_rows, opt_rows = train_kernel_phase(args.seed, smi_line)
     dec_rows = decode_kernel_phase(args.seed, smi_line)
+    llama_rows = llama_kernel_phase(args.seed, smi_line)
     model = serve_model(args.seed)
     serve = serve_phase(args.seed, model=model)
     serve_mk = serve_phase(args.seed, megakernel=True, model=model)
@@ -1290,8 +1711,12 @@ def main(argv=None):
         f"{serve['profile']['busy_share']:.1%}")
     train = train_phase(args.seed, power=smi_line)
     parity = train_parity(args.seed)
+    llama_off, llama_on = llama_train_phases(args.seed, smi_line)
+    llama_par = llama_parity(args.seed)
     print(json.dumps({"train": train, "train_parity": parity,
-                      "build_s": build_s, "power": smi_line}), flush=True)
+                      "llama_train": [llama_off, llama_on],
+                      "llama_parity": llama_par, "build_s": build_s,
+                      "power": smi_line}), flush=True)
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     specs = [
         ("ragged_paged_attention", "paged_attention.cu",
@@ -1318,6 +1743,16 @@ def main(argv=None):
          "paddle_tpu/ops/pallas/fused_decode_mlp.py:75",
          dec_rows["fused_decode_epilogue"],
          serve_mk["counts"]["fused_decode_epilogue"]),
+        ("rope", "rope.cu", "paddle_tpu/ops/pallas/rope.py:53",
+         llama_rows["rope"], llama_on["counts"]["rope"]),
+        ("fused_residual_rms_norm_fwd", "fused_residual_norm.cu",
+         "paddle_tpu/ops/pallas/fused_residual_norm.py:259",
+         llama_rows["fused_residual_rms_norm_fwd"],
+         llama_on["counts"]["fused_residual_rms_norm_fwd"]),
+        ("fused_residual_rms_norm_bwd", "fused_residual_norm.cu",
+         "paddle_tpu/ops/pallas/fused_residual_norm.py:297",
+         llama_rows["fused_residual_rms_norm_bwd"],
+         llama_on["counts"]["fused_residual_rms_norm_bwd"]),
     ]
     out = []
     for kname, source, replaces, cases, launches in specs:

@@ -12,7 +12,12 @@ the serving path — ``inference.ContinuousBatchingEngine`` over
 forward, loss, backward and ``optimizer.AdamW`` under ``amp`` O2 with
 fp32 master weights and ``distributed.fleet.recompute`` — with flash
 attention forward and backward (``ops/cuda/csrc/flash_attention.cu``)
-and the fused optimizer update (``ops/cuda/csrc/fused_optimizer.cu``).
+and the fused optimizer update (``ops/cuda/csrc/fused_optimizer.cu``);
+the GPT decode megakernel (``ops/cuda/csrc/fused_decode_{qkv,mlp}.cu``);
+and the LLaMA training step (``models.LlamaForCausalLM``) with the rope
+kernel (``ops/cuda/csrc/rope.cu``) and, under ``train_glue_fusion``,
+the fused residual + RMSNorm forward and backward
+(``ops/cuda/csrc/fused_residual_norm.cu``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device=`` they raise (:func:`resolve_device`).

@@ -3,13 +3,16 @@
 The port of ``paddle_tpu/amp`` (``auto_cast``, ``decorate`` and the
 per-op lists). The JAX package casts inside its op-dispatch funnel; the
 port has no funnel, so the cast rule (:func:`amp_cast_inputs`) is
-applied at its functional boundaries on the GPT path: ``linear``,
-``matmul``, ``embedding``, ``add``, ``gelu``, ``layer_norm``,
-``scaled_dot_product_attention`` and ``cross_entropy``
-(``nn/functional``). Under O2 every op except a black-listed one runs in
-the low dtype; black-listed ops (``layer_norm``, ``cross_entropy``,
-``softmax``, ...) run in fp32. Under O1 only white-listed ops are cast
-down.
+applied at its functional boundaries on the GPT and LLaMA paths:
+``linear``, ``matmul``, ``embedding``, ``add``, ``gelu``, ``layer_norm``,
+``rms_norm``, ``fused_residual_norm``, ``scaled_dot_product_attention``,
+``cross_entropy`` (``nn/functional``), ``swiglu`` and
+``fused_rotary_position_embedding`` (``incubate/nn/functional``, whose
+given sin/cos tables are cast too, as the JAX funnel casts every float
+input). Under O2 every op except a black-listed one runs in the low
+dtype; black-listed ops (``layer_norm``, ``rms_norm``,
+``cross_entropy``, ``softmax``, ...) run in fp32. Under O1 only
+white-listed ops are cast down.
 
 The state is per thread. Backward runs on autograd's threads, outside
 the ``auto_cast`` block, so ``distributed.fleet.recompute`` captures the

@@ -63,6 +63,8 @@ MEGAKERNEL_ON_SPELLINGS = KV_QUANT_ON_SPELLINGS
 # it (per-param path)
 define_flag("fused_opt", True)
 # fused residual-add + norm training glue kernels (the JAX package's
-# ops/pallas/fused_residual_norm.py, kernels #9-#12); off by default.
-# The port has not ported them: a training forward with it on raises
+# ops/pallas/fused_residual_norm.py); off by default. LLaMA's training
+# forward then runs the RMS pair (ops/cuda/fused_residual_norm.py,
+# kernels #11-#12); GPT's needs the LayerNorm pair (kernels #9-#10,
+# not ported yet), so a GPT training forward with it on raises
 define_flag("train_glue_fusion", False)

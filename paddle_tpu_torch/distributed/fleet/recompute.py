@@ -6,13 +6,15 @@ Policies, by the JAX package's names:
 * ``None`` / ``"full"``: recompute everything in backward;
 * ``"dots_saveable"``: keep the outputs of matrix products (``aten.mm``,
   ``addmm``, ``bmm``, ``linear``) and recompute the rest;
-* ``"dots_and_kernels_saveable"``: also keep the flash-attention
-  kernel's outputs (``paddle_tpu_torch::flash_attention_fwd``), so the
-  forward kernel is not run again in backward.
+* ``"dots_and_kernels_saveable"``: also keep the outputs of the forward
+  kernels (``paddle_tpu_torch::flash_attention_fwd``, ``::rope`` and
+  ``::fused_residual_rms_norm_fwd``), so they are not run again in
+  backward: the JAX policy keeps the outputs of every ``pallas_call``
+  and ``custom_vjp_call``.
 
 The last two ride selective activation checkpointing, which sees only
-ops that pass through the dispatcher: that is why the flash kernel is a
-``torch.library`` custom op. The function runs again in backward on
+ops that pass through the dispatcher: that is why those kernels are
+``torch.library`` custom ops. The function runs again in backward on
 autograd's thread, outside the caller's ``auto_cast`` block, so the AMP
 state of the forward is captured here and restored for the recompute.
 """
@@ -26,13 +28,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ...amp import amp_state, restored
 from ...ops.cuda.flash_attention import FLASH_FWD_OP
+from ...ops.cuda.fused_residual_norm import FUSED_RMS_FWD_OP
+from ...ops.cuda.rope import ROPE_OP
 
 __all__ = ["recompute"]
 
 _aten = torch.ops.aten
 _DOTS = frozenset({_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
                    _aten.linear.default})
-_DOTS_AND_KERNELS = _DOTS | {FLASH_FWD_OP}
+_DOTS_AND_KERNELS = _DOTS | {FLASH_FWD_OP, ROPE_OP, FUSED_RMS_FWD_OP}
 _SAVEABLE = {"dots_saveable": _DOTS,
              "dots_and_kernels_saveable": _DOTS_AND_KERNELS}
 # the JAX package's other policy names, not ported yet

@@ -13,8 +13,8 @@ full-sequence forward through the port's functionals (each cast by the
 AMP rule), the flash-attention kernel and, with ``cfg.recompute``, block
 recompute under ``cfg.recompute_policy``. The model starts in training
 mode, as the JAX ``Layer`` does; the serving engine switches it to eval.
-The glue-fused forward (``train_glue_fusion``, kernels #9-#12) and MoE
-are not ported.
+The glue-fused forward (``train_glue_fusion``, the fused residual +
+LayerNorm kernels #9-#10) and MoE are not ported.
 """
 from __future__ import annotations
 
@@ -58,9 +58,9 @@ class GPTConfig:
         return self.hidden_size // self.num_heads
 
 
-_GLUE = ("train_glue_fusion (the fused residual + norm kernels #9-#12 of "
-         "paddle_tpu/ops/pallas/fused_residual_norm.py) arrives with the "
-         "port's glue-fusion slice; turn the flag off")
+_GLUE = ("train_glue_fusion for GPT (the fused residual + LayerNorm "
+         "kernels #9-#10 of paddle_tpu/ops/pallas/fused_residual_norm.py) "
+         "arrives with the port's GPT glue-fusion slice; turn the flag off")
 _MOE = "GPT MoE (num_experts > 0) arrives with the port's MoE slice"
 
 

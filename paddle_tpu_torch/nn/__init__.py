@@ -1,5 +1,7 @@
-"""``nn`` of the port: the GPT path's functionals and gradient clip."""
+"""``nn`` of the port: the GPT and LLaMA paths' functionals, ``RMSNorm``
+and gradient clip."""
 from . import functional
 from .clip import ClipGradBase, ClipGradByGlobalNorm
+from .layers import RMSNorm
 
-__all__ = ["functional", "ClipGradBase", "ClipGradByGlobalNorm"]
+__all__ = ["functional", "ClipGradBase", "ClipGradByGlobalNorm", "RMSNorm"]

@@ -241,7 +241,7 @@ def test_refusals():
     ids = torch.zeros(1, 4, dtype=torch.long)
     tstate.set_flags({"train_glue_fusion": True})
     try:
-        with pytest.raises(NotImplementedError, match="#9-#12"):
+        with pytest.raises(NotImplementedError, match="#9-#10"):
             tm(ids)
         tm.eval()
         assert tm(ids).shape == (1, 4, CFG["vocab_size"])

@@ -54,6 +54,11 @@ def test_import_pulls_in_no_jax():
             "import paddle_tpu_torch.ops.cuda.fused_optimizer\n"
             "import paddle_tpu_torch.ops.cuda.fused_decode_qkv\n"
             "import paddle_tpu_torch.ops.cuda.fused_decode_mlp\n"
+            "import paddle_tpu_torch.ops.cuda.rope\n"
+            "import paddle_tpu_torch.ops.cuda.fused_residual_norm\n"
+            "import paddle_tpu_torch.incubate.nn.functional\n"
+            "import paddle_tpu_torch.models.llama\n"
+            "import paddle_tpu_torch.nn.layers\n"
             "import paddle_tpu_torch.ops.cuda._build\n"
             "import paddle_tpu_torch.amp, paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.nn.functional\n"
@@ -61,7 +66,12 @@ def test_import_pulls_in_no_jax():
             "import paddle_tpu_torch.core.dtype\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "from paddle_tpu_torch.ops.cuda import _build, rope, "
+            "fused_residual_norm\n"
+            "assert _build._loaded == {}, _build._loaded\n"
+            "assert rope._fn is None and fused_residual_norm._fns is None\n"
+            "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -256,6 +266,30 @@ def test_chip_smoke_train_phase_rehearses_on_cpu():
     assert out["mfu"] is None and set(out["counts"].values()) == {0}
 
 
+@pytest.mark.parametrize("glue", [False, True])
+def test_chip_smoke_llama_train_phase_rehearses_on_cpu(glue):
+    """chip_smoke's LLaMA train phase (O2 AdamW steps with
+    ``train_glue_fusion`` off or on, loss and finiteness checks) at a
+    tiny width on the CPU; the flag is restored after."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from paddle_tpu_torch.core import state
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=32,
+                      recompute=True,
+                      recompute_policy="dots_and_kernels_saveable")
+    out = chip_smoke.llama_train_phase(0, glue, cfg=cfg, device="cpu",
+                                       batch=2, seq=32, warmup=1, steps=2)
+    assert len(out["losses"]) == 3 and out["buckets"] == 1
+    assert out["mfu"] is None and set(out["counts"].values()) == {0}
+    assert state.get_flag("train_glue_fusion") is False
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -268,7 +302,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert "sm_90a" in str(ei.value)
     assert _build.sources() == ["flash_attention", "fused_decode_mlp",
                                 "fused_decode_qkv", "fused_optimizer",
-                                "paged_attention"]
+                                "fused_residual_norm", "paged_attention",
+                                "rope"]
 
 
 def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
@@ -288,7 +323,8 @@ def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "fused_optimizer",
-                                  "fused_decode_qkv", "fused_decode_mlp"])
+                                  "fused_decode_qkv", "fused_decode_mlp",
+                                  "rope", "fused_residual_norm"])
 def test_failed_build_of_training_kernels_raises(monkeypatch, tmp_path,
                                                  name):
     fake = tmp_path / "nvcc"
