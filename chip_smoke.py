@@ -13,7 +13,10 @@ card.
    same function, that call's time (never used by the port):
    * ``ragged_paged_attention`` at the serve phase's engine shapes (a
      mixed prefill + decode step and a decode step at GPT-124M widths)
-     and one GQA case; max abs error <= 2e-5 (fp32);
+     and one GQA case; with int8 pools and scale pools at the LLaMA-7B
+     quantized serve phase's shapes (mixed and decode, 32 heads of 128,
+     pools ``[32, 1025, 16, 128]``) and a GQA case (32 q heads on 8 kv
+     heads); max abs error <= 2e-5 (fp32);
    * ``flash_attention_fwd`` / ``flash_attention_bwd`` at the train
      phase's shape (q, k, v ``[8, 1024, 12, 64]`` bf16 causal, the
      unbound views of a packed qkv), an fp32 case with Sq != Sk, a
@@ -40,7 +43,13 @@ card.
      / ``_bwd`` at its rows (``[4096, 4096]`` bf16), fp32 and 4093 rows:
      bf16 within one bf16 rounding of the plain version run in fp32 on
      the same inputs, fp32 within 1e-5 (dw within 1e-5 of its column's
-     sum of magnitudes); each beside the unfused eager chain it replaces.
+     sum of magnitudes); each beside the unfused eager chain it replaces;
+   * ``weight_only_matmul`` at the LLaMA-7B quantized serve phase's
+     projections ((K, N) = (4096, 4096), (4096, 11008), (11008, 4096),
+     (4096, 32000)) at M = 8 (decode), 128 (the mixed step's token
+     budget) and 512, plus M = 1 and odd K and N: each output within
+     2e-5 of its sum of |x| |q| s; beside ``torch.matmul`` with the
+     weight dequantized beforehand (the library yardstick).
 3. Serve phase: GPT-124M (``GPTConfig()`` defaults, weights drawn from
    the seed in the JAX package's layout and init) behind
    ``ContinuousBatchingEngine`` serves 16 requests (prompts 16-512
@@ -56,6 +65,20 @@ card.
    warm-up's single step and each step of a window) must launch
    ``fused_decode_qkv``, the attention and ``fused_decode_mlp`` once per
    layer and ``fused_decode_epilogue`` once.
+3b. LLaMA serve phases: LLaMA-7B (``LlamaConfig()``: vocab 32000, hidden
+   4096, 32 layers of 32 heads of 128, intermediate 11008) at full depth
+   with every projection and the untied ``lm_head`` weight-only int8
+   (``quantization.weight_only_quantize``; weights drawn on the card
+   from the seed layer by layer, each layer quantized as it is drawn)
+   behind ``ContinuousBatchingEngine(kv_quant=True)`` (int8 KV pages),
+   the same 16 requests and checks; every forward launches the int8
+   attention 32 times and ``weight_only_matmul`` 225 times (7 L + 1),
+   and every served token must be the pick of a plain fp32 forward that
+   replays the quantization (dequantized weights, each K/V vector
+   through ``kv_quantize`` -> ``kv_dequantize``) except near ties (a
+   top-2 gap below MARGIN_KV8, whose reason is written beside it); one
+   profiled run and one profiled decode window. Then the fp32 model
+   (fp32 pools) at LLaMA-7B width and 4 layers under the same checks.
 4. Train phase: GPT-124M in ``bench.py``'s training configuration
    (batch 8 x 1024, recompute ``dots_and_kernels_saveable``, AdamW lr
    1e-4, AMP O2 bf16 with fp32 master weights) through the Paddle entry
@@ -82,8 +105,8 @@ card.
    two runs' first losses within 1e-2; one profiled step each.
 7. LLaMA parity: one fp32 AdamW step with glue on (LLaMA-7B widths, 1
    layer, batch 1 x 256) on the card against a CPU copy.
-8. Prints the ``train`` JSON line, the ``kernels`` JSON line (ten
-   kernels, with both serve phases), then
+8. Prints the ``train`` JSON line, the ``kernels`` JSON line (eleven
+   kernels, with the serve phases), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed phase
    raises: the exit code is not 0 and no result line is printed.
    Without a card it exits 2 at once.
@@ -104,6 +127,13 @@ FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 TOL = 2e-5                   # fp32, another summation order
 MARGIN = 1e-4                # teacher-forced near-tie margin
+# ... with int8 KV pages: the served path's K/V come out of another
+# summation order than the plain forward's, so kv_quantize rounds some
+# of them to the neighbouring int8 step, and the served path's logits
+# sit up to ~0.05 from the plain forward's at LLaMA-7B, 32 layers (the
+# LLaMA serve phase measures it: ``logit_gap``); a pick may differ only
+# where the top-2 gap is below twice that (PERF.md, PR 5)
+MARGIN_KV8 = 0.1
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's ~2 GHz clock
 
 
@@ -136,7 +166,7 @@ def build():
     from paddle_tpu_torch.ops.cuda import (_build, flash_attention,
                                            fused_decode_mlp, fused_decode_qkv,
                                            fused_optimizer, fused_residual_norm,
-                                           paged_attention, rope)
+                                           paged_attention, quant_matmul, rope)
     t0 = time.perf_counter()
     libs = _build.build_all()
     paged_attention._kernel()           # load + bind
@@ -146,6 +176,7 @@ def build():
     fused_decode_mlp._kernels()
     rope._kernel()
     fused_residual_norm._kernels()
+    quant_matmul._kernel()
     secs = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {secs:.2f} s")
     return secs
@@ -156,7 +187,8 @@ def counters():
     from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
                                            fused_decode_qkv, fused_optimizer,
                                            fused_residual_norm,
-                                           paged_attention, rope)
+                                           paged_attention, quant_matmul,
+                                           rope)
     return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
             "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
@@ -168,7 +200,8 @@ def counters():
             "fused_residual_rms_norm_fwd":
                 fused_residual_norm.fused_residual_rms_norm_fwd,
             "fused_residual_rms_norm_bwd":
-                fused_residual_norm.fused_residual_rms_norm_bwd}
+                fused_residual_norm.fused_residual_rms_norm_bwd,
+            "weight_only_matmul": quant_matmul.weight_only_matmul}
 
 
 def reset_counts():
@@ -190,10 +223,12 @@ GEO = dict(max_slots=8, page_size=16, decode_window=8, prefill_chunk=64,
 
 # ------------------------------------------------------------ kernel --
 def _attn_case(gen, kv_lens, q_lens, hq, hk, d, ps, q_block, total_pages,
-               NP=None, T=None):
+               NP=None, T=None, int8=False):
     """Inputs on the card: shuffled block tables ``[B, NP]``, packed q
     ``[T, Hq, D]`` with each segment at a q_block edge (by default one
-    trailing padding q block)."""
+    trailing padding q block). With ``int8``, the pools are the int8
+    bytes and ``(k_scales, v_scales)`` of random K/V vectors through
+    ``quantization.kv_quantize``, returned as a last element."""
     dev = torch.device("cuda")
     B = len(kv_lens)
     npg = [-(-kv // ps) for kv in kv_lens]
@@ -212,20 +247,28 @@ def _attn_case(gen, kv_lens, q_lens, hq, hk, d, ps, q_block, total_pages,
     k = torch.randn(hk, total_pages, ps, d, generator=cgen, device=dev)
     v = torch.randn(hk, total_pages, ps, d, generator=cgen, device=dev)
     q = torch.randn(T, hq, d, generator=cgen, device=dev)
+    scales = {}
+    if int8:
+        from paddle_tpu_torch.quantization import kv_quantize
+        k, ks = kv_quantize(k)
+        v, vs = kv_quantize(v)
+        scales = dict(k_scales=ks, v_scales=vs)
     return (q, k, v, bt.to(dev),
             torch.tensor(kv_lens, dtype=torch.int32, device=dev),
-            torch.tensor(q_lens, dtype=torch.int32, device=dev))
+            torch.tensor(q_lens, dtype=torch.int32, device=dev)), scales
 
 
-def _bound(kv_lens, q_lens, hq, hk, d, page_size):
+def _bound(kv_lens, q_lens, hq, hk, d, page_size, int8=False):
     """Least time for the work these inputs need: each needed K/V token
-    read once per kv head, q read and o written once; 4 d flops per
-    attended (row, head, kv position) plus ~5 for the softmax."""
+    read once per kv head (fp32: 4 d bytes; int8: d bytes and a 4-byte
+    scale), q read and o written once; 4 d flops per attended (row,
+    head, kv position) plus ~5 for the softmax."""
+    per_tok = d + 4 if int8 else 4 * d
     nbytes = flops = 0
     for kv, ql in zip(kv_lens, q_lens):
         if ql == 0:
             continue
-        nbytes += 2 * kv * hk * d * 4 + 2 * ql * hq * d * 4
+        nbytes += 2 * kv * hk * per_tok + 2 * ql * hq * d * 4
         attended = sum(kv - ql + i + 1 for i in range(ql))
         flops += hq * attended * (4 * d + 5)
     nbytes += len(kv_lens) * (2 + -(-max(kv_lens) // page_size)) * 4
@@ -261,7 +304,11 @@ def _time_ms(fn, n, flush, spin=False):
 def kernel_phase(seed, power):
     """Kernel vs plain on the card. The two GPT-124M cases have the
     shapes the serve phase's engine gives the kernel (``GEO``); the GQA
-    case is a LLaMA-like head layout the main path does not reach."""
+    case is a LLaMA-like head layout. The int8 cases have the shapes the
+    LLaMA-7B quantized serve phase gives it (32 kv heads of 128, pools
+    ``[32, 1025, 16, 128]`` int8 with ``[32, 1025, 16]`` scales, tables
+    ``[8, 128]``, the serve phase's lengths up to 544 tokens), plus a GQA
+    case (32 q heads on 8 kv heads)."""
     from paddle_tpu_torch.ops.cuda.paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain)
     gen = torch.Generator().manual_seed(seed)
@@ -271,6 +318,12 @@ def kernel_phase(seed, power):
     NP = 1024 // ps                               # GPT-124M max_seq_len
     pages = 1 + slots * NP
     budget = slots * qb + GEO["prefill_chunk"]
+    NP7 = 2048 // ps                              # LLaMA-7B max_seq_len
+    longest = 512 + NEW_TOKENS
+    rng7 = np.random.default_rng(seed + 7)        # the int8 cases' own
+    kv7 = [int(x) for x in rng7.integers(16, longest + 1, slots)]
+    kv7[1] = max(kv7[1], 64)                      # the prefill chunk's
+    kv7[3] = 1
     # a mixed step: one 64-token prefill chunk, six decodes, an idle slot
     # (kv_len 1, q_len 0), in the engine's padded token budget
     kv_mixed = [int(x) for x in rng.integers(64, 1025, slots)]
@@ -285,25 +338,36 @@ def kernel_phase(seed, power):
          [1] * slots, 12, 12, 64, ps, 1, pages, NP, slots),
         ("gqa_32q_8kv_d128", [int(x) for x in rng.integers(64, 1025, 4)],
          [64, 1, 17, 1], 32, 8, 128, 16, 8, 257, None, None),
+        ("llama7b_int8_mixed", kv7, q_mixed, 32, 32, 128, ps, qb,
+         1 + slots * NP7, NP7, budget),
+        ("llama7b_int8_decode",
+         [int(x) for x in rng7.integers(16, longest + 1, slots)],
+         [1] * slots, 32, 32, 128, ps, 1, 1 + slots * NP7, NP7, slots),
+        ("int8_gqa_32q_8kv_d128",
+         [int(x) for x in rng7.integers(64, 1025, 4)], [64, 1, 17, 1], 32,
+         8, 128, 16, 8, 257, None, None),
     ]
     rows = []
     for name, kvl, ql, hq, hk, d, ps, qb, pages, width, T in cases:
-        args = _attn_case(gen, kvl, ql, hq, hk, d, ps, qb, pages, width, T)
-        out = ragged_paged_attention(*args, q_block=qb)
-        ref = ragged_paged_attention_plain(*args, q_block=qb)
+        int8 = "int8" in name
+        args, sc = _attn_case(gen, kvl, ql, hq, hk, d, ps, qb, pages, width,
+                              T, int8=int8)
+        out = ragged_paged_attention(*args, q_block=qb, **sc)
+        ref = ragged_paged_attention_plain(*args, q_block=qb, **sc)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         if not err <= TOL:
             raise AssertionError(f"{name}: kernel vs plain max abs error "
                                  f"{err:.3g} > {TOL}")
-        ms = _time_ms(lambda: ragged_paged_attention(*args, q_block=qb),
-                      100, flush)
+        ms = _time_ms(lambda: ragged_paged_attention(*args, q_block=qb,
+                                                     **sc), 100, flush)
         plain_ms = _time_ms(
-            lambda: ragged_paged_attention_plain(*args, q_block=qb), 5,
-            flush)
+            lambda: ragged_paged_attention_plain(*args, q_block=qb, **sc),
+            5, flush)
         bound_ms, bound_by, nbytes, flops = _bound(kvl, ql, hq, hk, d,
-                                                   ps)
-        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                   ps, int8)
+        row = dict(case=name, pools="int8" if int8 else "fp32",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                    flops=flops, q_shape=list(args[0].shape),
                    pool_shape=list(args[1].shape),
@@ -865,15 +929,19 @@ def serve_turns(model, seed, order=(False, True, True, False)):
 
 def _drive(eng, on_card):
     """Step ``eng`` to the drain. Per dispatch, the kernel launches must be
-    what the path makes: a mixed step launches the attention once per
-    layer and no fused decode kernel; a decode step (the bootstrap's one,
-    or each of a window's ``decode_window``) launches the attention once
-    per layer and, with ``megakernel``, ``fused_decode_qkv`` and
+    what the path makes: a forward (a mixed step, or each decode step: the
+    bootstrap's one, or each of a window's ``decode_window``) launches the
+    attention once per layer and ``weight_only_matmul`` once per
+    weight-only projection of the model (none for a float model); a
+    decode step with ``megakernel`` also ``fused_decode_qkv`` and
     ``fused_decode_mlp`` once per layer and ``fused_decode_epilogue``
-    once, else none of them. Returns (completions, launches by dispatch
-    kind, host ms by kind)."""
+    once, any other step none of them. Returns (completions, launches by
+    dispatch kind, host ms by kind)."""
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
     L = eng.model.cfg.num_layers
-    fused = ("fused_decode_qkv", "fused_decode_mlp", "fused_decode_epilogue")
+    n_mm = sum(isinstance(m, WeightOnlyLinear) for m in eng.model.modules())
+    fused = ("fused_decode_qkv", "fused_decode_mlp", "fused_decode_epilogue",
+             "weight_only_matmul")
     launches = {"mixed": dict.fromkeys(counters(), 0),
                 "decode": dict.fromkeys(counters(), 0)}
     step_ms = {"mixed": [], "decode": []}
@@ -888,11 +956,13 @@ def _drive(eng, on_card):
         after = read_counts()
         got = {k: after[k] - before[k] for k in after}
         if eng.stats["mixed_steps"] > st["mixed_steps"]:
-            kind, want = "mixed", {"ragged_paged_attention": L}
+            kind, want = "mixed", {"ragged_paged_attention": L,
+                                   "weight_only_matmul": n_mm}
         elif eng.stats["decode_dispatches"] > st["decode_dispatches"]:
             kind = "decode"
             k = 1 if single else eng.decode_window
-            want = {"ragged_paged_attention": L * k}
+            want = {"ragged_paged_attention": L * k,
+                    "weight_only_matmul": n_mm * k}
             if eng.megakernel:
                 want.update(fused_decode_qkv=L * k, fused_decode_mlp=L * k,
                             fused_decode_epilogue=k)
@@ -909,6 +979,13 @@ def _drive(eng, on_card):
     return done, launches, step_ms
 
 
+def _gpt_teacher(model, prompts, seqs):
+    """The plain fp32 forward's logits at each sequence's generated
+    positions (:func:`teacher_forced_logits`, one sequence at a time)."""
+    return [teacher_forced_logits(model, seq)[p.size - 1:seq.size - 1]
+            for p, seq in zip(prompts, seqs)]
+
+
 def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None):
     """Serve 16 requests through the engine and check them, with the
     decode path unfused or (``megakernel``) fused. ``cfg`` defaults to
@@ -916,12 +993,26 @@ def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None):
     without a card, and without launch checks or the device-time
     breakdown (:func:`profile_serve`). ``model`` reuses a model from
     :func:`serve_model`."""
+    model = serve_model(seed, cfg, device) if model is None else model
+    return _serve_run(model, seed, device,
+                      "megakernel serve" if megakernel else "serve",
+                      _gpt_teacher, megakernel=megakernel)
+
+
+def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
+               **engine_kw):
+    """The serve phases' drive and checks: a warm-up engine, then the 16
+    requests of :func:`serve_prompts` on a fresh engine (``GEO`` and
+    ``engine_kw``) with exact launches per dispatch (:func:`_drive`),
+    every request finished by length, the page pool conserved, every
+    served token the pick of ``teacher(model, prompts, sequences)`` (the
+    logits at the generated positions) except near ties below ``margin``;
+    on the card a profiled run and a profiled decode window."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
 
-    model = serve_model(seed, cfg, device) if model is None else model
     on_card = device == "cuda"
-    tag = "megakernel serve" if megakernel else "serve"
-    geo = dict(GEO, device=device, megakernel=megakernel)
+    megakernel = engine_kw.get("megakernel", False)
+    geo = dict(GEO, device=device, **engine_kw)
     prompts = serve_prompts(seed, model.cfg)
 
     # warm-up on another engine (cuBLAS handles, allocator); it also
@@ -969,28 +1060,33 @@ def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None):
 
     # teacher-forced check against a plain fp32 forward
     near_ties = checked = 0
-    for rid, p in zip(rids, prompts):
+    seqs = [np.concatenate([p, done[rid].tokens])
+            for rid, p in zip(rids, prompts)]
+    t0 = time.perf_counter()
+    ref = teacher(model, prompts, seqs)
+    teacher_s = time.perf_counter() - t0
+    for rid, lg in zip(rids, ref):
         toks = done[rid].tokens
-        seq = np.concatenate([p, toks])
-        lg = teacher_forced_logits(model, seq)[p.size - 1:seq.size - 1]
         if not torch.isfinite(lg).all():
             raise AssertionError(f"request {rid}: non-finite logits")
         top2 = lg.topk(2, dim=-1)
         pred = top2.indices[:, 0].cpu().numpy()
-        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-        for i, (t, pr, m) in enumerate(zip(toks, pred, margin)):
+        gaps = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        for i, (t, pr, m) in enumerate(zip(toks, pred, gaps)):
             checked += 1
             if t == pr:
                 continue
-            if m < MARGIN:
+            if m < margin:
                 near_ties += 1
                 continue
             raise AssertionError(
                 f"request {rid} token {i}: served {t}, plain forward "
                 f"picks {pr} with top-2 margin {m:.3g}")
     log(f"{tag}: teacher-forced check: {checked} tokens, {near_ties} near "
-        f"ties (top-2 margin < {MARGIN})")
-    out = dict(megakernel=megakernel,
+        f"ties (top-2 margin < {margin}); reference forward "
+        f"{teacher_s:.2f} s")
+    out = dict(megakernel=megakernel, kv_quant=geo.get("kv_quant", False),
+               checked=checked, margin=margin,
                launches=counts["ragged_paged_attention"], counts=counts,
                by_step=by_step, wall_s=wall, tokens=gen_tokens,
                tokens_per_s=gen_tokens / wall, near_ties=near_ties,
@@ -1055,8 +1151,11 @@ def profile_window(model, prompts, new_tokens, geo):
            and e.self_device_time_total > 0]
     n = sum(e.count for e in evs)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    log(f"decode window ({'megakernel' if geo['megakernel'] else 'unfused'},"
-        f" {k} steps, {eng.max_slots} slots): {n} device launches = "
+    path = "megakernel" if geo.get("megakernel") else "unfused"
+    if geo.get("kv_quant"):
+        path += ", int8 KV"
+    log(f"decode window ({path}, {k} steps, {eng.max_slots} slots): {n} "
+        f"device launches = "
         f"{n / k:.1f} per decode step, device {dev_ms:.3f} ms = "
         f"{dev_ms / k:.4f} ms per step; unprofiled window {host_ms:.3f} ms "
         f"of wall clock = {host_ms / k:.4f} ms per step, device busy "
@@ -1679,6 +1778,279 @@ def llama_parity(seed, num_layers=1, batch=1, seq=256):
     return dict(out, layers=L, batch=batch, seq=seq)
 
 
+
+# --------------------------------------------------------- llama serve --
+def llama_serve_model(seed, cfg=None, device="cuda", quantized=True):
+    """LLaMA (default ``LlamaConfig()``: LLaMA-7B, 32 layers) with random
+    weights in the JAX package's init (normal std 0.02, ``o_proj`` and
+    ``down_proj`` 0.02 / sqrt(2 L), unit norms) drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``. The model is built on the
+    meta device and materialized one part at a time; with ``quantized``
+    each layer goes through ``quantization.weight_only_quantize`` as soon
+    as it is drawn (and the untied ``lm_head`` after it), so the peak
+    holds one fp32 layer beside the int8 ones: the 32-layer fp32 weights
+    (27 GB) never exist at once."""
+    from torch import nn
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn.layers import RMSNorm
+    from paddle_tpu_torch.quantization import (WeightOnlyLinear,
+                                               weight_only_quantize)
+    cfg = LlamaConfig() if cfg is None else cfg
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg, device="meta")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    resid = 0.02 / np.sqrt(2 * cfg.num_layers)
+
+    @torch.no_grad()
+    def draw(part):
+        part.to_empty(device=dev)
+        for name, mod in part.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                std = resid if name.endswith(("o_proj", "down_proj")) \
+                    else 0.02
+                mod.weight.normal_(0.0, std, generator=gen)
+            elif isinstance(mod, RMSNorm):
+                mod.weight.fill_(1.0)
+        if quantized:
+            weight_only_quantize(part)
+
+    lm = model.llama
+    draw(lm.embed_tokens)
+    for layer in lm.layers:
+        draw(layer)
+    draw(lm.norm)
+    if model.lm_head is not None:
+        draw(model.lm_head)
+        if quantized:
+            model.lm_head = WeightOnlyLinear(model.lm_head)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in list(model.parameters()) + list(model.buffers()))
+    log(f"LLaMA {cfg.num_layers} layers at hidden {cfg.hidden_size} "
+        f"({'weight-only int8' if quantized else 'fp32'}) on {model.device}:"
+        f" {nbytes / 1e9:.3f} GB of weights, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def _dense(mod):
+    """A projection's weight ``[out, in]`` in fp32: an ``nn.Linear``'s
+    own, a ``WeightOnlyLinear``'s dequantized (int8 times its channel's
+    scale, ``weight_dequantize``)."""
+    from paddle_tpu_torch.quantization import (WeightOnlyLinear,
+                                               weight_dequantize)
+    if isinstance(mod, WeightOnlyLinear):
+        return weight_dequantize(mod.qweight.t(), mod.scale).t()
+    return mod.weight
+
+
+def llama_teacher(kv_quant):
+    """A teacher for :func:`_serve_run`: the plain fp32 LLaMA forward over
+    whole sequences that replays the serve phase's quantization: each
+    weight-only projection dequantized (one layer at a time, for all
+    sequences, so one layer's fp32 weights exist at once) and, with
+    ``kv_quant``, each K/V vector (after rope) through ``kv_quantize`` ->
+    ``kv_dequantize``; plain causal softmax attention, GQA by repeat,
+    rope through the serving path's ``rope_at``. TF32 is off."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.models.generation import rope_at
+    from paddle_tpu_torch.quantization import kv_dequantize, kv_quantize
+
+    @torch.no_grad()
+    def teacher(model, prompts, seqs):
+        lm, dev = model.llama, model.device
+        cfg = model.cfg
+        nh, nk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        xs = [lm.embed_tokens.weight[torch.as_tensor(s, device=dev).long()]
+              for s in seqs]
+        for layer in lm.layers:
+            a, mlp = layer.attn, layer.mlp
+            wq, wk, wv, wo = (_dense(m) for m in (a.q_proj, a.k_proj,
+                                                  a.v_proj, a.o_proj))
+            wg, wu, wd = (_dense(m) for m in (mlp.gate_proj, mlp.up_proj,
+                                              mlp.down_proj))
+            for i, x in enumerate(xs):
+                S = x.shape[0]
+                pos = torch.arange(S, device=dev)
+                h = layer.input_norm(x)
+                q = rope_at((h @ wq.t()).reshape(1, S, nh, hd), pos,
+                            a.rope_theta)[0]
+                k = rope_at((h @ wk.t()).reshape(1, S, nk, hd), pos,
+                            a.rope_theta)[0]
+                v = (h @ wv.t()).reshape(S, nk, hd)
+                if kv_quant:
+                    k = kv_dequantize(*kv_quantize(k))
+                    v = kv_dequantize(*kv_quantize(v))
+                k = k.repeat_interleave(nh // nk, dim=1)
+                v = v.repeat_interleave(nh // nk, dim=1)
+                sc = torch.einsum("qhd,khd->hqk", q, k) / np.sqrt(hd)
+                causal = torch.ones(S, S, dtype=torch.bool,
+                                    device=dev).tril()
+                p = torch.softmax(sc.masked_fill(~causal, float("-inf")),
+                                  dim=-1)
+                att = torch.einsum("hqk,khd->qhd", p, v).reshape(S, -1)
+                x = x + att @ wo.t()
+                h = layer.post_norm(x)
+                x = x + (tF.silu(h @ wg.t()) * (h @ wu.t())) @ wd.t()
+                xs[i] = x
+            del wq, wk, wv, wo, wg, wu, wd
+        w_lm = (_dense(model.lm_head) if model.lm_head is not None
+                else lm.embed_tokens.weight)
+        return [lm.norm(x[p.size - 1:s.size - 1]) @ w_lm.t()
+                for x, p, s in zip(xs, prompts, seqs)]
+
+    return teacher
+
+
+@torch.no_grad()
+def logit_gap(model, seed, kv_quant, n=4):
+    """Largest |logit| difference between the served path's forward (the
+    engine's ``_llama_ragged_forward``: the kernels, fp32 or int8 pools)
+    and :func:`llama_teacher`'s plain forward, over the last
+    ``NEW_TOKENS`` positions of ``n`` of the serve prompts each followed
+    by ``NEW_TOKENS`` random tokens, each sequence one prefill."""
+    from paddle_tpu_torch.models.generation import _llama_ragged_forward
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed + 13)
+    prompts = serve_prompts(seed, cfg)[:n]
+    seqs = [np.concatenate([p, rng.integers(0, cfg.vocab_size, NEW_TOKENS)
+                            .astype(np.int32)]) for p in prompts]
+    ref = llama_teacher(kv_quant)(model, prompts, seqs)
+    ps, L = GEO["page_size"], cfg.num_layers
+    gap = 0.0
+    for p, s, r in zip(prompts, seqs, ref):
+        S = s.size
+        npg = -(-S // ps)
+        pshape = (cfg.num_kv_heads, npg + 1, ps, cfg.head_dim)
+        caches = [torch.zeros(pshape, device=dev, dtype=torch.int8
+                              if kv_quant else torch.float32)
+                  for _ in range(2 * L)]
+        if kv_quant:
+            caches += [torch.zeros(pshape[:3], device=dev)
+                       for _ in range(2 * L)]
+        pos = torch.arange(S, device=dev)
+        lens = torch.tensor([S], dtype=torch.int32, device=dev)
+        lg, _ = _llama_ragged_forward(
+            model, torch.as_tensor(s, device=dev)[None].long(), pos,
+            torch.zeros_like(pos), torch.ones_like(pos), lens, lens,
+            torch.arange(1, npg + 1, dtype=torch.int32, device=dev)[None],
+            caches, GEO["q_block"])
+        gap = max(gap, float((lg[p.size - 1:S - 1] - r).abs().max()))
+    return gap
+
+
+def llama_serve_phase(seed, cfg=None, device="cuda", quantized=True,
+                      model=None):
+    """Serve the 16 requests of the GPT serve phases through
+    ``ContinuousBatchingEngine`` on LLaMA: with ``quantized`` (the main
+    path of this slice) the weight-only int8 model of
+    :func:`llama_serve_model` with ``kv_quant=True`` (int8 KV pages),
+    else the fp32 model with fp32 pools; the megakernel off. The checks
+    of :func:`_serve_run`, with exact launches per dispatch (a forward of
+    L layers: L attentions, and 7 L + 1 weight-only matmuls when
+    quantized) and the teacher of :func:`llama_teacher`. ``cfg`` defaults
+    to LLaMA-7B; a small one with ``device="cpu"`` rehearses the phase."""
+    if model is None:
+        model = llama_serve_model(seed, cfg, device, quantized)
+    L = model.cfg.num_layers
+    tag = (f"llama serve ({L} layers, "
+           + ("weight-only int8, int8 KV)" if quantized else "fp32)"))
+    out = _serve_run(model, seed, device, tag, llama_teacher(quantized),
+                     margin=MARGIN_KV8 if quantized else MARGIN,
+                     kv_quant=quantized)
+    gap = logit_gap(model, seed, quantized)
+    log(f"{tag}: the served path's logits vs the plain forward's, 4 "
+        f"prompts + {NEW_TOKENS} tokens as one prefill: max |difference| "
+        f"{gap:.4g}")
+    return dict(out, quantized=quantized, layers=L,
+                hidden=model.cfg.hidden_size, logit_gap=gap)
+
+
+def quant_matmul_cases(seed, power):
+    """``weight_only_matmul`` against its plain version on the card at the
+    LLaMA-7B quantized serve phase's shapes: x ``[M, K]`` fp32 and an
+    int8 weight ``[N, K]`` (the layout ``WeightOnlyLinear`` keeps) for
+    (K, N) in q/k/v/o (4096, 4096), gate/up (4096, 11008), down (11008,
+    4096) and the lm_head (4096, 32000), at M = 8 (a decode step of 8
+    slots) and M = 128 (the engine's mixed-step token budget), and at
+    M = 512; plus M = 1 and odd K and N. Each output within 2e-5 of its
+    sum of |x| |q| s. Every launch is timed behind the device spin of
+    :func:`_time_ms`. The library yardstick is one ``torch.matmul`` of x
+    with the weight dequantized beforehand (int8 times its scale, fp32;
+    TF32 off); it is never used by the port."""
+    from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul_plain,
+                                                        weight_only_matmul)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    shapes = [(4096, 4096, "qkvo"), (4096, 11008, "gate_up"),
+              (11008, 4096, "down"), (4096, 32000, "lm_head")]
+    cases = [(f"llama7b_{what}_m{m}", m, k, n)
+             for m in (8, 128, 512) for k, n, what in shapes]
+    cases += [("m1_qkvo", 1, 4096, 4096), ("odd_m3_k4099_n1001", 3, 4099,
+                                           1001),
+              ("odd_m130_k4099_n1001", 130, 4099, 1001)]
+    rows = []
+    for name, m, k, n in cases:
+        x = torch.randn(m, k, generator=gen, device=dev)
+        qw = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                           dtype=torch.int8).t()
+        s = torch.rand(n, generator=gen, device=dev) * 0.002 + 1e-4
+        out = weight_only_matmul(x, qw, s)
+        ref = quant_matmul_plain(x, qw, s)
+        mag = (x.abs() @ qw.abs().float()) * s
+        torch.cuda.synchronize()
+        excess = float(((out - ref).abs() - 2e-5 * mag).max())
+        err = float((out - ref).abs().max())
+        if not excess <= 0:
+            raise AssertionError(f"weight_only_matmul {name}: kernel vs "
+                                 f"plain error above 2e-5 of |x| |q| s "
+                                 f"(max abs error {err:.3g})")
+        del mag
+        reps = 20 if m * k * n < 5e10 else 5
+        ms = _time_ms(lambda: weight_only_matmul(x, qw, s), reps, flush,
+                      spin=True)
+        plain_ms = _time_ms(lambda: quant_matmul_plain(x, qw, s), 3, flush,
+                            spin=True)
+        w_deq = qw.float() * s
+        lib_ms = _time_ms(lambda: torch.matmul(x, w_deq), reps, flush,
+                          spin=True)
+        del w_deq
+        # x, the int8 weight and the scales read once, y written once
+        nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+        flops = 2 * m * k * n
+        bound_ms, bound_by = _fp32_bound(nbytes, flops)
+        row = dict(case=name, m=m, k=k, n=n, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, flops=flops, library_ms=lib_ms,
+                   library="torch.matmul(x, dequantized fp32 weight)")
+        log(f"kernel weight_only_matmul {name} x [{m}, {k}] w [{n}, {k}] "
+            f"int8: max_abs_err {err:.3g}, {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
+            f"bound) on {power}")
+        rows.append(row)
+        del x, qw, s, out, ref
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def llama_serve_phases(seed):
+    """The quantized LLaMA-7B serve at full depth (the slice's main path),
+    then the fp32 LLaMA serve at LLaMA-7B width and 4 layers."""
+    quant = llama_serve_phase(seed, quantized=True)
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.models import LlamaConfig
+    fp = llama_serve_phase(seed, cfg=LlamaConfig(num_layers=4),
+                           quantized=False)
+    torch.cuda.empty_cache()
+    return quant, fp
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1695,6 +2067,7 @@ def main(argv=None):
     fwd_rows, bwd_rows, opt_rows = train_kernel_phase(args.seed, smi_line)
     dec_rows = decode_kernel_phase(args.seed, smi_line)
     llama_rows = llama_kernel_phase(args.seed, smi_line)
+    qm_rows = quant_matmul_cases(args.seed, smi_line)
     model = serve_model(args.seed)
     serve = serve_phase(args.seed, model=model)
     serve_mk = serve_phase(args.seed, megakernel=True, model=model)
@@ -1709,6 +2082,7 @@ def main(argv=None):
         f"{serve['window']['launches_per_step']:.1f}; busy "
         f"{serve_mk['profile']['busy_share']:.1%} vs "
         f"{serve['profile']['busy_share']:.1%}")
+    llama_q, llama_fp = llama_serve_phases(args.seed)
     train = train_phase(args.seed, power=smi_line)
     parity = train_parity(args.seed)
     llama_off, llama_on = llama_train_phases(args.seed, smi_line)
@@ -1753,7 +2127,16 @@ def main(argv=None):
          "paddle_tpu/ops/pallas/fused_residual_norm.py:297",
          llama_rows["fused_residual_rms_norm_bwd"],
          llama_on["counts"]["fused_residual_rms_norm_bwd"]),
+        ("weight_only_matmul", "quant_matmul.cu",
+         "paddle_tpu/ops/pallas/quant_matmul.py:146", qm_rows,
+         llama_q["counts"]["weight_only_matmul"]),
     ]
+    # every serve path's own count of the attention launches
+    attn_paths = {"gpt_serve": serve["launches"],
+                  "llama7b_int8_serve": llama_q["launches"],
+                  "llama7b_4l_fp32_serve": llama_fp["launches"]}
+    if min(attn_paths.values()) <= 0:
+        raise AssertionError(f"attention launches by path: {attn_paths}")
     out = []
     for kname, source, replaces, cases, launches in specs:
         if launches <= 0:
@@ -1768,8 +2151,11 @@ def main(argv=None):
             "bound_by": main_row["bound_by"],
             "library_ms": main_row.get("library_ms"),
             "shape": main_row["case"], "cases": cases})
+        if kname == "ragged_paged_attention":
+            out[-1]["launches_by_path"] = attn_paths
     print(json.dumps({"kernels": out, "serve": serve,
                       "serve_megakernel": serve_mk, "serve_turns": turns,
+                      "llama_serve": llama_q, "llama_serve_fp32": llama_fp,
                       "power": smi_line}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

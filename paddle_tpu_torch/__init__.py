@@ -14,10 +14,14 @@ fp32 master weights and ``distributed.fleet.recompute`` — with flash
 attention forward and backward (``ops/cuda/csrc/flash_attention.cu``)
 and the fused optimizer update (``ops/cuda/csrc/fused_optimizer.cu``);
 the GPT decode megakernel (``ops/cuda/csrc/fused_decode_{qkv,mlp}.cu``);
-and the LLaMA training step (``models.LlamaForCausalLM``) with the rope
+the LLaMA training step (``models.LlamaForCausalLM``) with the rope
 kernel (``ops/cuda/csrc/rope.cu``) and, under ``train_glue_fusion``,
 the fused residual + RMSNorm forward and backward
-(``ops/cuda/csrc/fused_residual_norm.cu``).
+(``ops/cuda/csrc/fused_residual_norm.cu``); and LLaMA serving with
+weight-only int8 projections (``quantization.weight_only_quantize``,
+the weight-only matmul ``ops/cuda/csrc/quant_matmul.cu``) and int8 KV
+pages (the engine's ``kv_quant``, the int8 variant of the paged
+attention).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device=`` they raise (:func:`resolve_device`).

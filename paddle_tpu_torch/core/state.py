@@ -45,6 +45,11 @@ define_flag("serving_dispatch_retries", 3)
 define_flag("serving_prefix_cache", True)
 # string spellings that disable the prefix cache
 PREFIX_CACHE_OFF_SPELLINGS = ("off", "false", "0", "no")
+# int8 KV page pools for the serving engine: pages hold int8 with
+# per-(head, token slot) f32 scale side-pools (quantization.kv_quantize),
+# dequantized inside the paged-attention kernel's load loop. Default
+# off; the engine kwarg kv_quant overrides it per instance
+define_flag("serving_kv_quant", False)
 # strict on/off spellings of the engine's kv_quant/megakernel kwargs
 KV_QUANT_OFF_SPELLINGS = PREFIX_CACHE_OFF_SPELLINGS
 KV_QUANT_ON_SPELLINGS = ("on", "true", "1", "yes")

@@ -7,7 +7,12 @@ requests:
 
 * ONE page pool per layer ``[Hkv, total_pages, page_size, D]`` with a
   free-list allocator; page 0 is the reserved NULL page that inactive
-  slots and packing padding write to.
+  slots and packing padding write to. With ``kv_quant`` (kwarg, or the
+  ``serving_kv_quant`` flag) the pools are int8 and f32 scale pools
+  ``[Hkv, total_pages, page_size]`` are appended to the cache list;
+  pages quantize on write and dequantize inside the attention kernel.
+  Block tables, the prefix cache, copy-on-write and preemption carry
+  the scale pools without knowing they exist.
 * The MIXED step packs prefill chunks of admitted requests with one
   token from every ongoing decode (each segment at a ``q_block`` edge,
   idle slots ``kv_lens=1, q_lens=0``) through ONE ragged paged-attention
@@ -38,10 +43,14 @@ requests:
 * The cross-request prefix cache (``inference/prefix_cache.py``) with
   copy-on-write at the divergence page and LRU eviction.
 
-Greedy decoding only. Subsystems of the JAX engine that later slices
-port raise ``NotImplementedError`` when switched on: ``kv_quant`` (with
-or without ``megakernel``), ``spec_decode``, ``mesh``/``tp_axis``,
-``slo`` and ``watchdog_ms``. Request export/import/snapshot/restore,
+The engine serves ``GPTForCausalLM`` and ``LlamaForCausalLM``, with
+float or weight-only int8 projections (``quantization.
+weight_only_quantize``); the megakernel path serves GPT with float
+weights and fp32 pools. Greedy decoding only. Subsystems of the JAX
+engine that later slices port raise ``NotImplementedError`` when
+switched on: ``megakernel`` with ``kv_quant``, with LLaMA or with
+weight-only projections, ``spec_decode``, ``mesh``/``tp_axis``, ``slo``
+and ``watchdog_ms``. Request export/import/snapshot/restore,
 ``metrics()`` and tracing are not here yet either.
 """
 from __future__ import annotations
@@ -160,22 +169,29 @@ class _Slot:
                     and self.out_toks[-1] == self.eos)
 
 
+def _parse_on_off(name, value):
+    """Strict parse of an on/off switch (the JAX engine's): a string
+    must be one of the on or off spellings, anything else is truthy or
+    not."""
+    if isinstance(value, str):
+        low = value.lower()
+        if low in _state.KV_QUANT_ON_SPELLINGS:
+            return True
+        if low in _state.KV_QUANT_OFF_SPELLINGS:
+            return False
+        raise ValueError(
+            f"{name}={value!r}: expected one of "
+            f"{_state.KV_QUANT_ON_SPELLINGS} or "
+            f"{_state.KV_QUANT_OFF_SPELLINGS}")
+    return bool(value)
+
+
 def _parse_switch(name, value, later):
     """A subsystem switch of the JAX engine that a later slice ports:
     off spellings pass, on raises ``NotImplementedError`` naming the
     slice, anything else raises ``ValueError`` (strict, as in JAX)."""
-    if isinstance(value, str):
-        low = value.lower()
-        if low in _state.KV_QUANT_OFF_SPELLINGS:
-            return
-        if low not in _state.KV_QUANT_ON_SPELLINGS:
-            raise ValueError(
-                f"{name}={value!r}: expected one of "
-                f"{_state.KV_QUANT_ON_SPELLINGS} or "
-                f"{_state.KV_QUANT_OFF_SPELLINGS}")
-    elif not value:
-        return
-    raise NotImplementedError(f"{name} is not ported yet: {later}")
+    if _parse_on_off(name, value):
+        raise NotImplementedError(f"{name} is not ported yet: {later}")
 
 
 class ContinuousBatchingEngine:
@@ -200,8 +216,11 @@ class ContinuousBatchingEngine:
                  spec_temperature=None, spec_rejection_sampling=None,
                  spec_seed=0, clock=None, mesh=None, tp_axis=None,
                  slo=None, watchdog_ms=None, device=None):
-        _parse_switch("kv_quant", kv_quant,
-                      "int8 KV pages come with the kv_quant slice")
+        # strict: kv_quant changes numerics, and the megakernel which
+        # kernels serve the tokens, so a typo must not pick either
+        self.kv_quant = _parse_on_off(
+            "kv_quant", _state.get_flag("serving_kv_quant")
+            if kv_quant is None else kv_quant)
         _parse_switch("spec_decode", spec_decode,
                       "speculative decoding comes with a later slice")
         if spec_seed or any(v is not None for v in (
@@ -222,21 +241,15 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "the stall watchdog is not ported yet: it comes with the "
                 "observability slice")
-        mk = (_state.get_flag("serving_megakernel")
-              if megakernel is None else megakernel)
-        if isinstance(mk, str):
-            # strict: the switch picks which kernels serve the tokens,
-            # so a typo must not silently pick a path
-            if mk.lower() in _state.MEGAKERNEL_ON_SPELLINGS:
-                mk = True
-            elif mk.lower() in _state.MEGAKERNEL_OFF_SPELLINGS:
-                mk = False
-            else:
-                raise ValueError(
-                    f"megakernel={mk!r}: expected one of "
-                    f"{_state.MEGAKERNEL_ON_SPELLINGS} or "
-                    f"{_state.MEGAKERNEL_OFF_SPELLINGS}")
-        self.megakernel = bool(mk)
+        self.megakernel = _parse_on_off(
+            "megakernel", _state.get_flag("serving_megakernel")
+            if megakernel is None else megakernel)
+        if self.megakernel and self.kv_quant:
+            raise NotImplementedError(
+                "megakernel with kv_quant is not ported yet: the int8 "
+                "branches of the fused decode kernels (rows 4, 5 and 7: "
+                "quantize-on-write in the ingress, int8 pools in the "
+                "attention) arrive with a later slice")
         self._decode, _, self._hard_limit = _decode_fn(model)
         self._decode_mk = _decode_fused_fn(model) if self.megakernel else None
         self._ragged = _ragged_fn(model)
@@ -286,12 +299,18 @@ class ContinuousBatchingEngine:
 
         n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
         shape = (n_kv, self.total_pages, self.page_size, cfg.head_dim)
-        self._caches = [torch.zeros(shape, dtype=torch.float32,
+        kv_dtype = torch.int8 if self.kv_quant else torch.float32
+        self._caches = [torch.zeros(shape, dtype=kv_dtype,
                                     device=self.device)
                         for _ in range(2 * cfg.num_layers)]
-        # bytes per page across all layers (K and V)
+        if self.kv_quant:   # the scale pools, appended
+            self._caches += [torch.zeros(shape[:3], dtype=torch.float32,
+                                         device=self.device)
+                             for _ in range(2 * cfg.num_layers)]
+        # bytes per page across all layers (K and V, data and scales)
+        itemsize = 1 if self.kv_quant else 4
         self._page_bytes = 2 * cfg.num_layers * n_kv * self.page_size \
-            * cfg.head_dim * 4
+            * (cfg.head_dim * itemsize + (4 if self.kv_quant else 0))
         self._free_pages = deque(range(1, self.total_pages))  # 0 = null
         pc = (_state.get_flag("serving_prefix_cache")
               if prefix_cache is None else prefix_cache)
@@ -327,7 +346,7 @@ class ContinuousBatchingEngine:
         d["pages_in_use"] = self._pages_in_use()
         d["pages_free"] = len(self._free_pages)
         d["queue_depth"] = len(self._queue)
-        d["kv_quant"] = False
+        d["kv_quant"] = self.kv_quant
         d["kv_page_bytes"] = self._page_bytes
         d["kv_bytes_in_use"] = d["pages_in_use"] * self._page_bytes
         d["spec_proposed"] = 0
@@ -686,7 +705,7 @@ class ContinuousBatchingEngine:
     def _geometry(self):
         return (self.max_slots, self.page_size, self.np_per_seq,
                 self.total_pages, self.token_budget, self.q_block,
-                self.pages_per_block, self.megakernel)
+                self.pages_per_block, self.kv_quant, self.megakernel)
 
     def _decoded_geometries(self) -> set:
         """Per-model record of the geometries a decode step has run
@@ -702,7 +721,8 @@ class ContinuousBatchingEngine:
     # ------------------------------------------- copy-on-write --------
     def _cow_page(self, src, dst):
         """Copy-on-write at the divergence page: duplicate shared page
-        ``src``'s KV (every layer pool) into private page ``dst``."""
+        ``src``'s KV (every pool of the cache list: data pools and, under
+        kv_quant, scale pools) into private page ``dst``."""
         def _cow_call():
             for p in self._caches:
                 p[:, dst] = p[:, src]
@@ -843,9 +863,10 @@ class ContinuousBatchingEngine:
         in place)."""
         ppb = self.pages_per_block
 
-        def attend(q, k, v, kc, vc, p):
+        def attend(q, k, v, kc, vc, p, ks=None, vs=None):
             return paged_slot_attention(q, k, v, kc, vc, p, bt,
-                                        pages_per_block=ppb)
+                                        pages_per_block=ppb, k_scales=ks,
+                                        v_scales=vs)
 
         logits, _ = self._decode(self.model, tok, pos, self._caches,
                                  attend)

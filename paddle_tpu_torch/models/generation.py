@@ -1,7 +1,9 @@
 """The serving subset of ``paddle_tpu/models/generation.py``: paged-KV
-page writes, the two attention steps the continuous-batching engine
+page writes (fp32 pools, or int8 pools quantized on write into f32 scale
+side-pools), the two attention steps the continuous-batching engine
 runs (per-slot decode and the ragged mixed prefill+decode step), the
-guarded greedy pick, the GPT forwards over them, and the megakernel
+guarded greedy pick, the GPT and LLaMA forwards over them (LLaMA's rope
+at device positions through :func:`rope_at`), and the GPT megakernel
 decode step (``fused_qkv_step`` -> ``paged_attend`` -> ``fused_mlp_step``
 per layer, then ``fused_decode_logits``).
 
@@ -14,8 +16,13 @@ several writes may target the same (page 0, slot 0): the value left
 there is unspecified on CUDA, which is harmless only because page 0 is
 never read.
 
-``generate()`` and its contiguous KV cache, LLaMA, int8 KV and the
-tensor-parallel paths arrive with later slices.
+The cache list is ``[k0, v0, ..., kL-1, vL-1]`` for fp32 pools; int8
+serving appends the scale pools ``[ks0, vs0, ...]`` (``_split_caches``).
+A weight-only-quantized model (``quantization.weight_only_quantize``)
+serves unchanged: every projection is called as a module.
+
+``generate()`` and its contiguous KV cache, the LLaMA megakernel and
+the tensor-parallel paths arrive with later slices.
 """
 from __future__ import annotations
 
@@ -26,39 +33,57 @@ from ..ops.cuda.fused_decode_mlp import (fused_decode_epilogue,
 from ..ops.cuda.fused_decode_qkv import fused_decode_qkv
 from ..ops.cuda.paged_attention import (paged_decode_attention,
                                         ragged_paged_attention)
+from ..quantization import kv_quantize
 
 
 def _split_caches(caches, n_layers):
-    """Serving cache-list layout ``[k0, v0, ..., kL-1, vL-1]`` (fp
-    pools; the int8 layout that appends scale pools comes with the
-    kv_quant slice)."""
+    """Serving cache-list layout: ``[k0, v0, ..., kL-1, vL-1]`` for fp
+    pools, with the int8 path APPENDING the scale side-pools ``[ks0,
+    vs0, ..., ksL-1, vsL-1]`` (the engine builds the list; its length
+    says which). Returns ``(data, scales)``, ``scales == []`` on the fp
+    path."""
     n = 2 * n_layers
     if len(caches) == 2 * n:
-        raise NotImplementedError(
-            "int8 KV pools with scale side-pools arrive with the port's "
-            "kv_quant slice")
+        return caches[:n], caches[n:]
     if len(caches) != n:
-        raise ValueError(f"expected {n} cache pools for {n_layers} "
-                         f"layers, got {len(caches)}")
-    return caches
+        raise ValueError(
+            f"expected {n} (fp) or {2 * n} (int8 + scales) cache pools "
+            f"for {n_layers} layers, got {len(caches)}")
+    return caches, []
 
 
-def _slot_page_write(kn, vn, k_pages, v_pages, bt, positions):
+def _write(kn, vn, k_pages, v_pages, page, slot, k_scales, v_scales):
+    """Write ``kn``/``vn`` ``[Hk, N, D]`` at (page, slot) in place; with
+    scale pools, quantize on write (``kv_quantize``: each token's bytes
+    are a function of its own vector, so a page holds the same bytes
+    whichever path filled it; K and V go through it together, one set
+    of launches for both)."""
+    if k_scales is not None:
+        q, sc = kv_quantize(torch.stack((kn, vn)))
+        kn, vn = q[0], q[1]
+        k_scales[:, page, slot] = sc[0]
+        v_scales[:, page, slot] = sc[1]
+    k_pages[:, page, slot] = kn.to(k_pages.dtype)
+    v_pages[:, page, slot] = vn.to(v_pages.dtype)
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def _slot_page_write(kn, vn, k_pages, v_pages, bt, positions,
+                     k_scales=None, v_scales=None):
     """Write one token per slot into its (page, slot) in place: ``kn``/
     ``vn`` are head-major ``[Hk, B, D]``, ``positions`` [B] each slot's
-    current token index."""
+    current token index; scales switch on the int8 quantize-on-write
+    path. Returns ``(k_pages, v_pages, k_scales, v_scales)``."""
     p = positions.reshape(-1).long()
     ps = k_pages.shape[2]
     rows = torch.arange(p.shape[0], device=p.device)
     page = bt[rows, torch.clamp(p // ps, max=bt.shape[1] - 1)].long()
     slot = p % ps
-    k_pages[:, page, slot] = kn.to(k_pages.dtype)
-    v_pages[:, page, slot] = vn.to(v_pages.dtype)
-    return k_pages, v_pages
+    return _write(kn, vn, k_pages, v_pages, page, slot, k_scales, v_scales)
 
 
 def _ragged_page_write(kn, vn, k_pages, v_pages, bt, tok_pos, tok_slot,
-                       tok_valid):
+                       tok_valid, k_scales=None, v_scales=None):
     """Packed-token analog of :func:`_slot_page_write`: ``kn``/``vn``
     are ``[Hk, T, D]``; invalid tokens route to the null page 0."""
     ps = k_pages.shape[2]
@@ -68,52 +93,77 @@ def _ragged_page_write(kn, vn, k_pages, v_pages, bt, tok_pos, tok_slot,
         ok, bt[tok_slot.long(), torch.clamp(pos // ps, max=bt.shape[1] - 1)]
         .long(), 0)
     wslot = torch.where(ok, pos % ps, 0)
-    k_pages[:, page, wslot] = kn.to(k_pages.dtype)
-    v_pages[:, page, wslot] = vn.to(v_pages.dtype)
-    return k_pages, v_pages
+    return _write(kn, vn, k_pages, v_pages, page, wslot, k_scales,
+                  v_scales)
+
+
+def _both_or_neither(who, k_scales, v_scales):
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{who}: pass both k_scales and v_scales or "
+                         "neither")
+    return k_scales is not None
 
 
 def paged_slot_attention(q, k_new, v_new, k_pages, v_pages, positions,
-                         block_tables, scale=None, pages_per_block=None):
+                         block_tables, scale=None, pages_per_block=None,
+                         k_scales=None, v_scales=None):
     """One decode step against a paged KV cache with PER-SLOT state:
     q/k_new/v_new [B, 1, H(q|kv), D]; ``positions`` [B] and
     ``block_tables`` [B, NP] are data (admission and retirement change
     their values, never shapes). Writes each slot's K/V at its own
     (page, slot) and attends with per-slot lengths ``positions + 1``.
-    Returns (out [B, 1, Hq, D], k_pages, v_pages)."""
+    ``k_scales``/``v_scales`` [Hk, P, page_size] switch on the int8 KV
+    path (quantize on write, dequantize in the kernel's load loop).
+    Returns (out [B, 1, Hq, D], k_pages, v_pages[, k_scales,
+    v_scales])."""
+    quant = _both_or_neither("paged_slot_attention", k_scales, v_scales)
     p = positions.reshape(-1)
     bt = block_tables.to(torch.int32)
     kn = k_new[:, 0].transpose(0, 1)                   # [Hk, B, D]
     vn = v_new[:, 0].transpose(0, 1)
-    k_pages, v_pages = _slot_page_write(kn, vn, k_pages, v_pages, bt, p)
+    k_pages, v_pages, k_scales, v_scales = _slot_page_write(
+        kn, vn, k_pages, v_pages, bt, p, k_scales, v_scales)
     out = paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,
                                  bt, (p + 1).to(torch.int32), scale=scale,
-                                 pages_per_block=pages_per_block)
-    return out[:, None].to(q.dtype), k_pages, v_pages
+                                 pages_per_block=pages_per_block,
+                                 k_scales=k_scales, v_scales=v_scales)
+    out = out[:, None].to(q.dtype)
+    if quant:
+        return out, k_pages, v_pages, k_scales, v_scales
+    return out, k_pages, v_pages
 
 
 def ragged_paged_step(q, k_new, v_new, k_pages, v_pages, tok_pos,
                       tok_slot, tok_valid, kv_lens, q_lens, block_tables,
                       scale=None, q_block=8, pages_per_block=None,
+                      k_scales=None, v_scales=None,
                       attention=ragged_paged_attention):
     """Attention for ONE continuously-batched step over packed tokens:
     q/k_new/v_new [T, H(q|kv), D] in slot order (each segment padded to
     a ``q_block`` multiple); tok_pos/tok_slot/tok_valid [T] per-token
     position, owning slot and validity; kv_lens/q_lens [B] (kv
     INCLUDING this step's tokens). Prefill chunks and single-token
-    decodes share this one call. ``attention`` defaults to the kernel
-    wrapper; a caller may pass the plain version for a reference run.
-    Returns (out [T, Hq, D], k_pages, v_pages)."""
+    decodes share this one call. ``k_scales``/``v_scales`` switch on the
+    int8 KV path as in :func:`paged_slot_attention`. ``attention``
+    defaults to the kernel wrapper; a caller may pass the plain version
+    for a reference run. Returns (out [T, Hq, D], k_pages, v_pages[,
+    k_scales, v_scales])."""
+    quant = _both_or_neither("ragged_paged_step", k_scales, v_scales)
     bt = block_tables.to(torch.int32)
     kn = k_new.transpose(0, 1)                         # [Hk, T, D]
     vn = v_new.transpose(0, 1)
-    k_pages, v_pages = _ragged_page_write(kn, vn, k_pages, v_pages, bt,
-                                          tok_pos, tok_slot, tok_valid)
+    k_pages, v_pages, k_scales, v_scales = _ragged_page_write(
+        kn, vn, k_pages, v_pages, bt, tok_pos, tok_slot, tok_valid,
+        k_scales, v_scales)
+    kw = {"k_scales": k_scales, "v_scales": v_scales} if quant else {}
     out = attention(q.contiguous(), k_pages, v_pages, bt,
                     kv_lens.to(torch.int32), q_lens.to(torch.int32),
                     q_block=q_block, scale=scale,
-                    pages_per_block=pages_per_block)
-    return out.to(q.dtype), k_pages, v_pages
+                    pages_per_block=pages_per_block, **kw)
+    out = out.to(q.dtype)
+    if quant:
+        return out, k_pages, v_pages, k_scales, v_scales
+    return out, k_pages, v_pages
 
 
 def guarded_argmax(lg, poison):
@@ -159,8 +209,9 @@ def paged_attend(q, k_pages, v_pages, block_tables, positions, scale=None,
     lengths in when the caller made them once for every layer."""
     if k_scales is not None or v_scales is not None:
         raise NotImplementedError(
-            "paged_attend: int8 KV pools with scale side-pools arrive with "
-            "the port's kv_quant slice")
+            "paged_attend: the megakernel path over int8 KV pools "
+            "(kv_quant) arrives with the slice of the int8 branches of the "
+            "fused decode kernels (rows 4, 5 and 7)")
     if seq_lens is None:
         seq_lens = (positions.reshape(-1) + 1).to(torch.int32)
     out = paged_decode_attention(q, k_pages, v_pages,
@@ -197,35 +248,158 @@ def fused_decode_logits(x, norm_params, w_lm, poison, b_lm=None,
                                  transpose_lm=transpose_lm, rows=rows)
 
 
-def _lm_logits(model, h):
-    """Final norm output -> logits; tied head is ``h @ wte.T``."""
+def _lm_logits(model, h, embed):
+    """Final norm output -> logits; a tied head is ``h @ embed.T``."""
     if model.lm_head is not None:
         return model.lm_head(h)
-    return h @ model.gpt.wte.weight.t()
+    return h @ embed.weight.t()
+
+
+def _attend_layer(attend, q, k, v, data, scales, li, pos):
+    """One layer's cache update + attention, fp or int8: returns
+    ``(att, new data pair, new scale pair)``. The int8 call passes the
+    layer's scale pools and gets them back."""
+    kc, vc = data[2 * li], data[2 * li + 1]
+    if scales:
+        att, kc, vc, ks, vs = attend(q, k, v, kc, vc, pos, scales[2 * li],
+                                     scales[2 * li + 1])
+        return att, [kc, vc], [ks, vs]
+    att, kc, vc = attend(q, k, v, kc, vc, pos)
+    return att, [kc, vc], []
+
+
+def _ragged_attend_layer(q, k, v, data, scales, li, tok_pos, tok_slot,
+                         tok_valid, kv_lens, q_lens, bt, q_block,
+                         pages_per_block, attention):
+    """The :func:`_attend_layer` analog of the mixed step: one layer's
+    packed-token page write + ragged attention, fp or int8."""
+    kc, vc = data[2 * li], data[2 * li + 1]
+    kw = dict(q_block=q_block, pages_per_block=pages_per_block,
+              attention=attention)
+    if scales:
+        att, kc, vc, ks, vs = ragged_paged_step(
+            q, k, v, kc, vc, tok_pos, tok_slot, tok_valid, kv_lens, q_lens,
+            bt, k_scales=scales[2 * li], v_scales=scales[2 * li + 1], **kw)
+        return att, [kc, vc], [ks, vs]
+    att, kc, vc = ragged_paged_step(q, k, v, kc, vc, tok_pos, tok_slot,
+                                    tok_valid, kv_lens, q_lens, bt, **kw)
+    return att, [kc, vc], []
 
 
 def _gpt_decode(model, ids_t, pos, caches, attend):
     """One-token logits for GPTForCausalLM: ``ids_t`` [B, 1], ``pos``
     [B] per-slot positions (or [1], one shared position), flat
-    ``[k0, v0, k1, v1, ...]`` page pools; ``attend(q, k, v, kc, vc,
-    pos) -> (att, kc, vc)`` is the layer's cache write + attention.
-    Returns (logits [B, V], new caches)."""
+    ``[k0, v0, k1, v1, ...]`` page pools (int8 serving appends the scale
+    pools); ``attend(q, k, v, kc, vc, pos[, ks, vs]) -> (att, kc, vc[,
+    ks, vs])`` is the layer's cache write + attention. Returns (logits
+    [B, V], new caches)."""
     gpt = model.gpt
-    data = _split_caches(caches, len(gpt.blocks))
+    data, scales = _split_caches(caches, len(gpt.blocks))
     x = gpt.wte(ids_t) + gpt.wpe(pos.reshape(-1, 1))
-    new = []
+    new, new_sc = [], []
     for li, blk in enumerate(gpt.blocks):
         h = blk.ln1(x)
         b, _, hidden = h.shape
         qkv = blk.attn.qkv(h).reshape(b, 1, 3, blk.attn.num_heads,
                                       blk.attn.head_dim)
         q, k, v = qkv.unbind(2)
-        att, kc, vc = attend(q, k, v, data[2 * li], data[2 * li + 1], pos)
+        att, pair, sc_pair = _attend_layer(attend, q, k, v, data, scales,
+                                           li, pos)
         x = x + blk.attn.proj(att.reshape(b, 1, hidden))
         x = x + blk.mlp(blk.ln2(x))
-        new.extend((kc, vc))
-    logits = _lm_logits(model, gpt.ln_f(x))
-    return logits.reshape(logits.shape[0], -1), new
+        new.extend(pair)
+        new_sc.extend(sc_pair)
+    logits = _lm_logits(model, gpt.ln_f(x), gpt.wte)
+    return logits.reshape(logits.shape[0], -1), new + new_sc
+
+
+def _rope_tables(pos, d, theta):
+    """cos/sin ``[n, d]`` at device positions ``pos`` [n] in float32, as
+    the JAX package's ``rope_angles`` computes traced positions (its
+    serving programs are jitted, so their positions are traced): the
+    same half-rotation convention as ``llama.rope_angles``, whose
+    float64 tables serve concrete positions in training. The inverse
+    frequencies are ``theta ** -e``, not ``1 / theta ** e``: XLA rewrites
+    the latter to the former in a jitted program, and the two differ in
+    the last bit of a third of the frequencies, which the position
+    multiplies."""
+    inv = theta ** -(torch.arange(0, d // 2, device=pos.device) * 2.0 / d)
+    ang = pos.to(torch.float32)[..., None] * inv
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _apply_rope(x, cos, sin):
+    """Rotate-half application: ``x * cos + [-x2, x1] * sin``."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return x * cos + torch.cat([-x2, x1], dim=-1) * sin
+
+
+def _rope_for(pos, shape, theta):
+    """cos/sin at ``pos`` shaped to broadcast against ``x`` of ``shape``
+    ``[B, S, H, D]`` (see :func:`rope_at` for the three position
+    shapes)."""
+    p = pos.reshape(-1)
+    n = p.shape[0]
+    cos, sin = _rope_tables(p, shape[-1], theta)        # [n, D]
+    if n == 1:
+        return cos.reshape(-1), sin.reshape(-1)         # broadcast all
+    if n == shape[0]:
+        return cos[:, None, None, :], sin[:, None, None, :]
+    if n == shape[1]:
+        return cos[None, :, None, :], sin[None, :, None, :]
+    raise ValueError(f"rope_at: {n} positions do not match x "
+                     f"{tuple(shape)}")
+
+
+def rope_at(x, pos, theta=10000.0):
+    """Half-rotation rope at explicit positions (serving), plain
+    PyTorch as the JAX package's is jnp. Three position shapes:
+
+    * pos [1]: one position for the whole batch;
+    * pos [B] matching x [B, 1, H, D]: per-slot positions (the
+      continuous-batching decode step);
+    * pos [T] matching x [1, T, H, D]: per-token positions (the packed
+      ragged prefill + decode step).
+    """
+    return _apply_rope(x, *_rope_for(pos, x.shape, theta))
+
+
+def _llama_qkv(a, h, lead, rope):
+    """LLaMA q/k/v of ``h`` as ``[*lead, heads, head_dim]``, q and k
+    roped by ``rope`` (the forward's :func:`_rope_for` tables, made once
+    for all layers: they share the positions, head_dim and theta)."""
+    q = a.q_proj(h).reshape(*lead, a.num_heads, a.head_dim)
+    k = a.k_proj(h).reshape(*lead, a.num_kv_heads, a.head_dim)
+    v = a.v_proj(h).reshape(*lead, a.num_kv_heads, a.head_dim)
+    return _apply_rope(q, *rope), _apply_rope(k, *rope), v
+
+
+def _llama_rope(lm, lead, pos):
+    a = lm.layers[0].attn
+    return _rope_for(pos, (*lead, a.num_heads, a.head_dim), a.rope_theta)
+
+
+def _llama_decode(model, ids_t, pos, caches, attend):
+    """One-token logits for LlamaForCausalLM; the arguments and the
+    result are :func:`_gpt_decode`'s."""
+    lm = model.llama
+    data, scales = _split_caches(caches, len(lm.layers))
+    x = lm.embed_tokens(ids_t)
+    b = x.shape[0]
+    rope = _llama_rope(lm, (b, 1), pos)
+    new, new_sc = [], []
+    for li, layer in enumerate(lm.layers):
+        a = layer.attn
+        q, k, v = _llama_qkv(a, layer.input_norm(x), (b, 1), rope)
+        att, pair, sc_pair = _attend_layer(attend, q, k, v, data, scales,
+                                           li, pos)
+        x = x + a.o_proj(att.reshape(b, 1, -1))
+        x = x + layer.mlp(layer.post_norm(x))
+        new.extend(pair)
+        new_sc.extend(sc_pair)
+    logits = _lm_logits(model, lm.norm(x), lm.embed_tokens)
+    return logits.reshape(logits.shape[0], -1), new + new_sc
 
 
 def _gpt_decode_fused(model, ids_t, pos, bt, caches, poison,
@@ -239,7 +413,7 @@ def _gpt_decode_fused(model, ids_t, pos, bt, caches, poison,
     attention lengths are made once for all layers. Returns ``(logits
     [B, V], nxt [B], bad [B] bool, caches)``."""
     gpt = model.gpt
-    data = _split_caches(caches, len(gpt.blocks))
+    data, _ = _split_caches(caches, len(gpt.blocks))
     p = pos.reshape(-1)
     x = gpt.wte(ids_t) + gpt.wpe(p.reshape(-1, 1))
     b = x.shape[0]
@@ -282,60 +456,102 @@ def _gpt_ragged_forward(model, ids_t, tok_pos, tok_slot, tok_valid,
     all slots (segments in slot order, ``q_block``-padded). Returns
     ([T, V] logits — padding rows unspecified — and the page pools)."""
     gpt = model.gpt
-    data = _split_caches(caches, len(gpt.blocks))
+    data, scales = _split_caches(caches, len(gpt.blocks))
     t = ids_t.shape[1]
     x = gpt.wte(ids_t) + gpt.wpe(tok_pos.reshape(1, -1))
-    new = []
+    new, new_sc = [], []
     for li, blk in enumerate(gpt.blocks):
         h = blk.ln1(x)
         hd, nh = blk.attn.head_dim, blk.attn.num_heads
         qkv = blk.attn.qkv(h).reshape(t, 3, nh, hd)
         q, k, v = qkv.unbind(1)                        # [T, nh, hd]
-        att, kc, vc = ragged_paged_step(
-            q, k, v, data[2 * li], data[2 * li + 1], tok_pos, tok_slot,
-            tok_valid, kv_lens, q_lens, bt, q_block=q_block,
-            pages_per_block=pages_per_block, attention=attention)
+        att, pair, sc_pair = _ragged_attend_layer(
+            q, k, v, data, scales, li, tok_pos, tok_slot, tok_valid,
+            kv_lens, q_lens, bt, q_block, pages_per_block, attention)
         x = x + blk.attn.proj(att.reshape(1, t, nh * hd))
         x = x + blk.mlp(blk.ln2(x))
-        new.extend((kc, vc))
-    logits = _lm_logits(model, gpt.ln_f(x))
-    return logits.reshape(t, -1), new
+        new.extend(pair)
+        new_sc.extend(sc_pair)
+    logits = _lm_logits(model, gpt.ln_f(x), gpt.wte)
+    return logits.reshape(t, -1), new + new_sc
 
 
-def _is_gpt(model):
+def _llama_ragged_forward(model, ids_t, tok_pos, tok_slot, tok_valid,
+                          kv_lens, q_lens, bt, caches, q_block,
+                          pages_per_block=None,
+                          attention=ragged_paged_attention):
+    """The LLaMA analog of :func:`_gpt_ragged_forward`: rope at each
+    packed token's own position."""
+    lm = model.llama
+    data, scales = _split_caches(caches, len(lm.layers))
+    t = ids_t.shape[1]
+    x = lm.embed_tokens(ids_t)
+    rope = _llama_rope(lm, (1, t), tok_pos)
+    new, new_sc = [], []
+    for li, layer in enumerate(lm.layers):
+        a = layer.attn
+        q, k, v = _llama_qkv(a, layer.input_norm(x), (1, t), rope)
+        att, pair, sc_pair = _ragged_attend_layer(
+            q[0], k[0], v[0], data, scales, li, tok_pos, tok_slot,
+            tok_valid, kv_lens, q_lens, bt, q_block, pages_per_block,
+            attention)
+        x = x + a.o_proj(att.reshape(1, t, -1))
+        x = x + layer.mlp(layer.post_norm(x))
+        new.extend(pair)
+        new_sc.extend(sc_pair)
+    logits = _lm_logits(model, lm.norm(x), lm.embed_tokens)
+    return logits.reshape(t, -1), new + new_sc
+
+
+def _family(model):
+    """``"gpt"`` or ``"llama"``; any other model raises ``TypeError``."""
     from .gpt import GPTForCausalLM
-    return isinstance(model, GPTForCausalLM)
-
-
-def _unsupported(model):
-    return TypeError(
+    from .llama import LlamaForCausalLM
+    if isinstance(model, GPTForCausalLM):
+        return "gpt"
+    if isinstance(model, LlamaForCausalLM):
+        return "llama"
+    raise TypeError(
         f"serving engine: unsupported model {type(model).__name__}; the "
-        "port serves GPTForCausalLM, and LLaMA serving arrives with the "
-        "port's LLaMA slice")
+        "port serves GPT (GPTForCausalLM) and LLaMA (LlamaForCausalLM)")
 
 
 def _decode_fn(model):
     """(decode_fn, prefill_fn, hard_position_limit): GPT's learned wpe
-    table makes max_seq_len a hard bound. The prefill of ``generate()``
-    comes with a later slice, so ``prefill_fn`` is None."""
-    if _is_gpt(model):
+    table makes max_seq_len a hard bound; LLaMA's rope extrapolates. The
+    prefill of ``generate()`` comes with a later slice, so
+    ``prefill_fn`` is None."""
+    if _family(model) == "gpt":
         return _gpt_decode, None, True
-    raise _unsupported(model)
+    return _llama_decode, None, False
 
 
 def _decode_fused_fn(model):
     """Megakernel analog of :func:`_decode_fn`: the fused decode step of
-    the serving engine's ``megakernel`` path."""
-    if _is_gpt(model):
-        return _gpt_decode_fused
-    raise TypeError(
-        f"megakernel: unsupported model {type(model).__name__}; the port's "
-        "fused decode serves GPTForCausalLM, and the LLaMA branches arrive "
-        "with the port's LLaMA slice")
+    the serving engine's ``megakernel`` path (GPT with float weights)."""
+    from ..quantization import WeightOnlyLinear
+    from .gpt import GPTForCausalLM
+    from .llama import LlamaForCausalLM
+    if isinstance(model, LlamaForCausalLM):
+        raise NotImplementedError(
+            "megakernel: the LLaMA branches of the fused decode kernels "
+            "(RMSNorm, rope in the ingress, split q/k/v and GQA, SwiGLU in "
+            "the egress) arrive with the port's LLaMA-megakernel slice")
+    if not isinstance(model, GPTForCausalLM):
+        raise TypeError(
+            f"megakernel: unsupported model {type(model).__name__}; the "
+            "port's fused decode serves GPTForCausalLM, and the LLaMA "
+            "branches arrive with the port's LLaMA-megakernel slice")
+    if any(isinstance(m, WeightOnlyLinear) for m in model.modules()):
+        raise NotImplementedError(
+            "megakernel: fused decode kernels over weight-only int8 "
+            "projections arrive with a later slice; serve a "
+            "weight_only_quantize'd model with megakernel off")
+    return _gpt_decode_fused
 
 
 def _ragged_fn(model):
     """Family dispatch for the packed continuous-batching forward."""
-    if _is_gpt(model):
+    if _family(model) == "gpt":
         return _gpt_ragged_forward
-    raise _unsupported(model)
+    return _llama_ragged_forward

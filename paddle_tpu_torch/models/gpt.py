@@ -80,15 +80,14 @@ class GPTAttention(nn.Module):
 
     def forward(self, x):
         b, s, h = x.shape
-        qkv = F.linear(x, self.qkv.weight, self.qkv.bias)
+        qkv = F.linear_layer(self.qkv, x)
         q, k, v = qkv.reshape(b, s, 3, self.num_heads,
                               self.head_dim).unbind(2)
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.dropout if self.training else 0.0,
             backend=None if self.use_flash else "xla")
-        return F.linear(out.reshape(b, s, h), self.proj.weight,
-                        self.proj.bias)
+        return F.linear_layer(self.proj, out.reshape(b, s, h))
 
 
 class GPTMLP(nn.Module):
@@ -98,9 +97,9 @@ class GPTMLP(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        h = F.gelu(F.linear(x, self.fc1.weight, self.fc1.bias),
+        h = F.gelu(F.linear_layer(self.fc1, x),
                    approximate=True)
-        return F.linear(h, self.fc2.weight, self.fc2.bias)
+        return F.linear_layer(self.fc2, h)
 
 
 class GPTBlock(nn.Module):
@@ -204,7 +203,7 @@ class GPTForCausalLM(nn.Module):
     def logits(self, input_ids):
         h = self.gpt(input_ids)
         if self.lm_head is not None:
-            return F.linear(h, self.lm_head.weight)
+            return F.linear_layer(self.lm_head, h)
         return ops.matmul(h, self.gpt.wte.weight, transpose_y=True)
 
     def forward(self, input_ids, labels=None):

@@ -19,8 +19,13 @@ attention branch into ``post_norm`` as one fused residual + RMSNorm
 kernel each (kernels #11-#12), the last branch into the final norm.
 The model starts in training mode, as the JAX ``Layer`` does.
 
-Not ported yet: LLaMA serving (the decode path and its megakernel
-branches) and ``shard_llama`` (the distributed slice).
+Serving: ``models/generation.py`` drives the layers over paged KV (rope
+at device positions through ``generation.rope_at``); every projection is
+called as a module, so a ``quantization.weight_only_quantize``'d model
+serves through the weight-only matmul kernel unchanged.
+
+Not ported yet: the LLaMA branches of the decode megakernel and
+``shard_llama`` (the distributed slice).
 """
 from __future__ import annotations
 
@@ -113,19 +118,19 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x):
         b, s, _ = x.shape
-        q = F.linear(x, self.q_proj.weight).reshape(b, s, self.num_heads,
-                                                    self.head_dim)
-        k = F.linear(x, self.k_proj.weight).reshape(b, s, self.num_kv_heads,
-                                                    self.head_dim)
-        v = F.linear(x, self.v_proj.weight).reshape(b, s, self.num_kv_heads,
-                                                    self.head_dim)
+        q = F.linear_layer(self.q_proj, x).reshape(b, s, self.num_heads,
+                                                   self.head_dim)
+        k = F.linear_layer(self.k_proj, x).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
+        v = F.linear_layer(self.v_proj, x).reshape(
+            b, s, self.num_kv_heads, self.head_dim)
         # half-rotation convention (LLaMA/HF); explicit tables carry this
         # config's rope_theta (the computed tables use base 10000)
         cos, sin = self._rope_tables(s, x.device)
         q, k, _ = fused_rotary_position_embedding(
             q, k, sin=sin, cos=cos, use_neox_rotary_style=False)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return F.linear(out.reshape(b, s, -1), self.o_proj.weight)
+        return F.linear_layer(self.o_proj, out.reshape(b, s, -1))
 
 
 class LlamaMLP(nn.Module):
@@ -141,9 +146,9 @@ class LlamaMLP(nn.Module):
                                    bias=False)
 
     def forward(self, x):
-        return F.linear(swiglu(F.linear(x, self.gate_proj.weight),
-                               F.linear(x, self.up_proj.weight)),
-                        self.down_proj.weight)
+        return F.linear_layer(self.down_proj,
+                              swiglu(F.linear_layer(self.gate_proj, x),
+                                     F.linear_layer(self.up_proj, x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -255,7 +260,7 @@ class LlamaForCausalLM(nn.Module):
     def logits(self, input_ids):
         h = self.llama(input_ids)
         if self.lm_head is not None:
-            return F.linear(h, self.lm_head.weight)
+            return F.linear_layer(self.lm_head, h)
         return ops.matmul(h, self.llama.embed_tokens.weight,
                           transpose_y=True)
 

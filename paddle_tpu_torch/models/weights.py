@@ -7,6 +7,14 @@ weight ``[in, out]`` (``paddle_tpu/nn/layers.py``; an untied LLaMA
 blocks live in ``gpt.blocks.{i}`` and ``llama.layers.{i}``. The fused
 qkv keeps the JAX column order ``[3, heads, head_dim]``, so a transpose
 of every 2-D weight except the embedding tables is the whole conversion.
+
+A model quantized by ``weight_only_quantize`` carries, for each swapped
+``Linear``, ``<name>.qweight`` (int8, ``[in, out]`` in the JAX package,
+``[out, in]`` in the port's ``WeightOnlyLinear``) and ``<name>.scale``
+(``[out]`` f32) in place of ``<name>.weight``: the int8 bytes and the
+scales go over bitwise (the JAX ``state_dict()`` leaves them out, so the
+caller adds them to the named arrays). Load such weights into a port
+model that was quantized the same way.
 """
 from __future__ import annotations
 
@@ -28,27 +36,39 @@ _EMBEDDINGS = ("gpt.wte.weight", "gpt.wpe.weight",
                "llama.embed_tokens.weight")
 
 
+def _transposed(key, arr):
+    """Whether ``key`` is a Linear matrix (stored ``[in, out]`` by the
+    JAX package, ``[out, in]`` by the port)."""
+    return arr.ndim == 2 and key.endswith((".weight", ".qweight")) \
+        and key not in _EMBEDDINGS
+
+
 def _from_jax(named_numpy, root, layer, tlayer, who):
     out = {}
     for key, arr in named_numpy.items():
-        arr = np.asarray(arr, dtype=np.float32)
+        if key.endswith(".qweight"):
+            arr = np.asarray(arr)
+            if arr.dtype != np.int8:
+                raise TypeError(f"{who}: {key} must be int8, got "
+                                f"{arr.dtype}")
+        else:
+            arr = np.asarray(arr, dtype=np.float32)
         if not (key.startswith(root) or key.startswith("lm_head.")):
             raise KeyError(f"{who}: unexpected key {key!r}")
         tkey = layer.sub(tlayer, key)
-        if (arr.ndim == 2 and key.endswith(".weight")
-                and key not in _EMBEDDINGS):
+        if _transposed(key, arr):
             arr = arr.T
-        out[tkey] = torch.tensor(arr)   # a copy, contiguous
+        out[tkey] = torch.tensor(np.ascontiguousarray(arr))   # a copy
     return out
 
 
 def _to_jax(named_tensors, tlayer, layer):
     out = {}
     for key, t in named_tensors.items():
-        arr = t.detach().float().cpu().numpy()
+        t = t.detach().cpu()
+        arr = (t if t.dtype == torch.int8 else t.float()).numpy()
         jkey = tlayer.sub(layer, key)
-        if (arr.ndim == 2 and key.endswith(".weight")
-                and key not in _EMBEDDINGS):
+        if _transposed(key, arr):
             arr = arr.T
         out[jkey] = np.ascontiguousarray(arr)
     return out

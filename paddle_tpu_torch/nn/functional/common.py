@@ -6,15 +6,26 @@ JAX package's is ``[in, out]``; ``models/weights.py`` converts)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
+from torch import nn
 
 from ...amp import amp_cast_inputs
 
-__all__ = ["linear", "embedding", "dropout"]
+__all__ = ["linear", "linear_layer", "embedding", "dropout"]
 
 
 def linear(x, weight, bias=None):
     x, weight, bias = amp_cast_inputs("linear", (x, weight, bias))
     return F.linear(x, weight, bias)
+
+
+def linear_layer(layer, x):
+    """``x`` through a projection module: an ``nn.Linear`` as
+    :func:`linear` of its weight and bias (cast by the AMP rule), any
+    other module (a ``quantization.WeightOnlyLinear``) by its own
+    forward."""
+    if isinstance(layer, nn.Linear):
+        return linear(x, layer.weight, layer.bias)
+    return layer(x)
 
 
 def embedding(x, weight):

@@ -1,7 +1,10 @@
-// Ragged paged attention over fp32 KV page pools, for Hopper (sm_90a).
+// Ragged paged attention over fp32 or int8 KV page pools, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_ragged_kernel`
-// (paddle_tpu/ops/pallas/paged_attention.py) for fp32 pools: packed query
+// (paddle_tpu/ops/pallas/paged_attention.py), both of its variants: fp32
+// pools, and int8 pools with f32 scale side-pools [Hk, P, page_size] (one
+// absmax scale per kv head and token slot, quantization.kv_quantize). Packed query
 // tokens of many sequences (decode rows with q_len 1 and prefill chunks
 // in one call) attend a paged KV pool through per-sequence block tables,
 // with positional causality kv_pos <= kv_len - q_len + i, GQA, and an
@@ -18,7 +21,16 @@
 // move in 64-token chunks with 16-byte cp.async copies into two
 // shared-memory buffers, so the next chunk's bytes are in flight while
 // the current one is scored: the loop waits on memory once per chunk,
-// not once per load. The grid comes from static shapes only (kv heads x
+// not once per load.
+//
+// The int8 variant moves a quarter of the bytes: each chunk stages the
+// int8 K and V rows (16-byte copies) and their 64 scales (4-byte copies)
+// and dequantizes in registers, the int8 value times its token's scale,
+// right before each product, as the TPU kernel dequantizes its VMEM
+// block before the dots. The TPU kernel zeroes the rows of a fetched
+// block that lie at or past kv_len (garbage times a zero weight would
+// still poison the sum); here no such row is ever staged or read, so
+// there is nothing to zero. The grid comes from static shapes only (kv heads x
 // q blocks of the padded token budget): the CTA finds its sequence from
 // q_lens itself, so the host never reads a device length. No tensor
 // cores, no TMA, no split-KV yet: those are later work.
@@ -38,8 +50,10 @@ constexpr int kChunk = 64;  // kv tokens staged in shared memory per step
 
 struct Params {
   const float* q;             // [T, Hq, D]
-  const float* k_pages;       // [Hk, P, page_size, D]
-  const float* v_pages;       // [Hk, P, page_size, D]
+  const void* k_pages;        // [Hk, P, page_size, D] fp32 or int8
+  const void* v_pages;        // [Hk, P, page_size, D] fp32 or int8
+  const float* k_scales;      // [Hk, P, page_size] (int8 pools only)
+  const float* v_scales;      // [Hk, P, page_size] (int8 pools only)
   const int* block_tables;    // [B, NP]
   const int* kv_lens;         // [B]
   const int* q_lens;          // [B]
@@ -48,24 +62,35 @@ struct Params {
   float scale;
 };
 
-// floats of one K+V chunk buffer (K rows padded by 4 floats)
+// floats of one K+V chunk buffer. fp32: K rows padded by 4 floats, then
+// V rows. int8: K rows of D + 16 bytes, V rows of D bytes, then the K and
+// V scales of the chunk's tokens (a multiple of 16 bytes for D % 16 == 0).
+template <bool Q8>
 __host__ __device__ inline size_t chunk_floats(int d) {
+  if (Q8) return ((size_t)kChunk * (d + 16) + (size_t)kChunk * d) / 4 + 2 * kChunk;
   return (size_t)kChunk * (d + 4) + (size_t)kChunk * d;
 }
 
 // shared-memory floats for R = q_block * rep rows of width D
+template <bool Q8>
 __host__ __device__ inline size_t smem_floats(int rows, int d) {
   return (size_t)rows * d            // q rows, pre-scaled
-         + 2 * chunk_floats(d)       // two K/V chunk buffers
+         + 2 * chunk_floats<Q8>(d)   // two K/V chunk buffers
          + (size_t)rows * kChunk     // scores, then probabilities
          + (size_t)rows * d          // output accumulator
          + 3 * (size_t)rows;         // running max, running sum, rescale
 }
 
 // 16-byte global -> shared copy that does not wait for the data
-__device__ inline void cp_async16(float* smem, const float* gmem) {
+__device__ inline void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// 4-byte global -> shared copy (a token's scale)
+__device__ inline void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
 }
 
 __device__ inline void cp_async_commit() {
@@ -88,33 +113,118 @@ __device__ inline float warp_sum(float v) {
 }
 
 // Start copying K/V of tokens [c0, c0 + n) of one sequence's kv head into
-// a chunk buffer (K rows at stride D + 4, V rows at stride D); all tokens
+// a chunk buffer `cb` (fp32: K rows at stride D + 4 floats, then V rows at
+// stride D; int8: K rows at stride D + 16 bytes, V rows at stride D, then
+// the n K scales and the n V scales at kChunk floats apart); all tokens
 // are below kv_len, so never stale or unwritten pool memory.
+template <bool Q8>
 __device__ inline void stage_chunk(const Params& p, const int* bt, int kvh,
-                                   int c0, int n, float* ks, float* vs) {
-  const int D = p.D, D4 = D >> 2, KS = D + 4;
-  for (int e = threadIdx.x; e < n * D4; e += kThreads) {
-    const int j = e / D4, d4 = e - j * D4;
-    const int pos = c0 + j;
-    const int page = __ldg(bt + pos / p.page_size);
-    const size_t off =
-        (((size_t)kvh * p.P + page) * p.page_size + pos % p.page_size) * D + 4 * d4;
-    cp_async16(ks + j * KS + 4 * d4, p.k_pages + off);
-    cp_async16(vs + j * D + 4 * d4, p.v_pages + off);
+                                   int c0, int n, float* cb) {
+  const int D = p.D;
+  if (Q8) {
+    const int D16 = D >> 4, KS8 = D + 16;
+    signed char* ks = reinterpret_cast<signed char*>(cb);
+    signed char* vs = ks + kChunk * KS8;
+    float* kss = reinterpret_cast<float*>(vs + kChunk * D);
+    const signed char* kp = static_cast<const signed char*>(p.k_pages);
+    const signed char* vp = static_cast<const signed char*>(p.v_pages);
+    for (int e = threadIdx.x; e < n * D16; e += kThreads) {
+      const int j = e / D16, d16 = e - j * D16;
+      const int pos = c0 + j;
+      const int page = __ldg(bt + pos / p.page_size);
+      const size_t off =
+          (((size_t)kvh * p.P + page) * p.page_size + pos % p.page_size) * D + 16 * d16;
+      cp_async16(ks + j * KS8 + 16 * d16, kp + off);
+      cp_async16(vs + j * D + 16 * d16, vp + off);
+    }
+    for (int j = threadIdx.x; j < n; j += kThreads) {
+      const int pos = c0 + j;
+      const int page = __ldg(bt + pos / p.page_size);
+      const size_t off = ((size_t)kvh * p.P + page) * p.page_size + pos % p.page_size;
+      cp_async4(kss + j, p.k_scales + off);
+      cp_async4(kss + kChunk + j, p.v_scales + off);
+    }
+  } else {
+    const int D4 = D >> 2, KS = D + 4;
+    float* ks = cb;
+    float* vs = cb + kChunk * KS;
+    const float* kp = static_cast<const float*>(p.k_pages);
+    const float* vp = static_cast<const float*>(p.v_pages);
+    for (int e = threadIdx.x; e < n * D4; e += kThreads) {
+      const int j = e / D4, d4 = e - j * D4;
+      const int pos = c0 + j;
+      const int page = __ldg(bt + pos / p.page_size);
+      const size_t off =
+          (((size_t)kvh * p.P + page) * p.page_size + pos % p.page_size) * D + 4 * d4;
+      cp_async16(ks + j * KS + 4 * d4, kp + off);
+      cp_async16(vs + j * D + 4 * d4, vp + off);
+    }
   }
   cp_async_commit();
 }
 
+// q row qr (pre-scaled, D floats) dotted with chunk token j's K row.
+template <bool Q8>
+__device__ inline float score(const float* qr, const float* cb, int j, int D) {
+  float s = 0.f;
+  if (Q8) {
+    const int KS8 = D + 16;
+    const signed char* kr = reinterpret_cast<const signed char*>(cb) + (size_t)j * KS8;
+    const float ksc = reinterpret_cast<const float*>(
+        reinterpret_cast<const signed char*>(cb) + (size_t)kChunk * (KS8 + D))[j];
+    const float4* q4 = reinterpret_cast<const float4*>(qr);
+    for (int d16 = 0; d16 < (D >> 4); ++d16) {
+      const int4 w = reinterpret_cast<const int4*>(kr)[d16];
+      const signed char* b = reinterpret_cast<const signed char*>(&w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 a = q4[4 * d16 + i];
+        s = fmaf(a.x, (float)b[4 * i] * ksc, s);
+        s = fmaf(a.y, (float)b[4 * i + 1] * ksc, s);
+        s = fmaf(a.z, (float)b[4 * i + 2] * ksc, s);
+        s = fmaf(a.w, (float)b[4 * i + 3] * ksc, s);
+      }
+    }
+  } else {
+    const float4* qv = reinterpret_cast<const float4*>(qr);
+    const float4* kj = reinterpret_cast<const float4*>(cb + (size_t)j * (D + 4));
+    for (int d4 = 0; d4 < (D >> 2); ++d4) {
+      const float4 a = qv[d4], c = kj[d4];
+      s = fmaf(a.x, c.x, s);
+      s = fmaf(a.y, c.y, s);
+      s = fmaf(a.z, c.z, s);
+      s = fmaf(a.w, c.w, s);
+    }
+  }
+  return s;
+}
+
+// Chunk token j's V values at columns 4 d4 .. 4 d4 + 3.
+template <bool Q8>
+__device__ inline float4 v_row4(const float* cb, int j, int d4, int D) {
+  if (Q8) {
+    const signed char* base = reinterpret_cast<const signed char*>(cb);
+    const signed char* vr = base + (size_t)kChunk * (D + 16) + (size_t)j * D;
+    const float vsc = reinterpret_cast<const float*>(
+        base + (size_t)kChunk * (2 * D + 16))[kChunk + j];
+    const char4 v = reinterpret_cast<const char4*>(vr)[d4];
+    return make_float4((float)v.x * vsc, (float)v.y * vsc, (float)v.z * vsc,
+                       (float)v.w * vsc);
+  }
+  return reinterpret_cast<const float4*>(cb + (size_t)kChunk * (D + 4) + (size_t)j * D)[d4];
+}
+
+template <bool Q8>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D;
   const int D4 = D >> 2;
-  const int KS = D + 4;  // K row stride: keeps float4 alignment, spreads banks
   const int R = p.q_block * p.rep;
+  const size_t CB = chunk_floats<Q8>(D);
   float* qs = smem;                       // [R][D]
-  float* buf = qs + (size_t)R * D;        // 2 x ([kChunk][KS] K, [kChunk][D] V)
-  float* sc = buf + 2 * chunk_floats(D);  // [R][kChunk]
+  float* buf = qs + (size_t)R * D;        // 2 chunk buffers of CB floats
+  float* sc = buf + 2 * CB;               // [R][kChunk]
   float* acc = sc + (size_t)R * kChunk;   // [R][D]
   float* m_s = acc + (size_t)R * D;       // [R]
   float* l_s = m_s + R;                   // [R]
@@ -153,7 +263,7 @@ ragged_paged_attention_kernel(Params p) {
   const int kv_need = min(kv_len, base + p.q_block);       // causal truncation
   const int* bt = p.block_tables + (size_t)b * p.NP;
   // the first chunk's copies fly while the q rows are staged
-  if (kv_need > 0) stage_chunk(p, bt, kvh, 0, min(kChunk, kv_need), buf, buf + kChunk * KS);
+  if (kv_need > 0) stage_chunk<Q8>(p, bt, kvh, 0, min(kChunk, kv_need), buf);
 
   // Row r is token r / rep of the q block, query head kvh * rep + r % rep.
   for (int e = tid; e < R * D; e += kThreads) {
@@ -172,16 +282,14 @@ ragged_paged_attention_kernel(Params p) {
   const int warp = tid >> 5, lane = tid & 31;
   for (int c0 = 0, it = 0; c0 < kv_need; c0 += kChunk, ++it) {
     const int n = min(kChunk, kv_need - c0);
-    float* ks = buf + (it & 1) * chunk_floats(D);
-    float* vs = ks + kChunk * KS;
+    const float* cb = buf + (it & 1) * CB;
 
     // 1. start the next chunk's copies into the other buffer (its last
     //    reader finished before the barrier that ended the previous
     //    iteration), then wait for this chunk's
     const int c1 = c0 + kChunk;
     if (c1 < kv_need) {
-      float* ks1 = buf + ((it + 1) & 1) * chunk_floats(D);
-      stage_chunk(p, bt, kvh, c1, min(kChunk, kv_need - c1), ks1, ks1 + kChunk * KS);
+      stage_chunk<Q8>(p, bt, kvh, c1, min(kChunk, kv_need - c1), buf + ((it + 1) & 1) * CB);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -191,16 +299,7 @@ ragged_paged_attention_kernel(Params p) {
     // 2. scores, masked by kv_pos <= q_pos
     for (int e = tid; e < R * n; e += kThreads) {
       const int r = e / n, j = e - r * n;
-      const float4* qr = reinterpret_cast<const float4*>(qs + (size_t)r * D);
-      const float4* kj = reinterpret_cast<const float4*>(ks + j * KS);
-      float s = 0.f;
-      for (int d4 = 0; d4 < D4; ++d4) {
-        const float4 a = qr[d4], c = kj[d4];
-        s = fmaf(a.x, c.x, s);
-        s = fmaf(a.y, c.y, s);
-        s = fmaf(a.z, c.z, s);
-        s = fmaf(a.w, c.w, s);
-      }
+      const float s = score<Q8>(qs + (size_t)r * D, cb, j, D);
       sc[r * kChunk + j] = (c0 + j <= base + r / p.rep) ? s : -INFINITY;
     }
     __syncthreads();
@@ -233,7 +332,6 @@ ragged_paged_attention_kernel(Params p) {
     for (int e = tid; e < R * D4; e += kThreads) {
       const int r = e / D4, d4 = e - r * D4;
       const float* pr = sc + r * kChunk;
-      const float4* v4 = reinterpret_cast<const float4*>(vs) + d4;
       float4* a4 = reinterpret_cast<float4*>(acc + (size_t)r * D) + d4;
       const float alpha = a_s[r];
       float4 a = *a4;
@@ -243,7 +341,7 @@ ragged_paged_attention_kernel(Params p) {
       a.w *= alpha;
       for (int j = 0; j < n; ++j) {
         const float pj = pr[j];
-        const float4 v = v4[j * D4];
+        const float4 v = v_row4<Q8>(cb, j, d4, D);
         a.x = fmaf(pj, v.x, a.x);
         a.y = fmaf(pj, v.y, a.y);
         a.z = fmaf(pj, v.z, a.z);
@@ -269,10 +367,34 @@ ragged_paged_attention_kernel(Params p) {
 
 extern "C" {
 
-// Dynamic shared memory one CTA needs, in bytes.
-size_t pdt_ragged_paged_attention_smem_bytes(int q_block, int rep, int d) {
-  return smem_floats(q_block * rep, d) * sizeof(float);
+// Dynamic shared memory one CTA needs, in bytes (int8 pools: q8 != 0).
+size_t pdt_ragged_paged_attention_smem_bytes(int q_block, int rep, int d, int q8) {
+  return (q8 ? smem_floats<true>(q_block * rep, d) : smem_floats<false>(q_block * rep, d)) *
+         sizeof(float);
 }
+
+}  // extern "C"
+
+namespace {
+
+template <bool Q8>
+int launch(const Params& p, void* stream) {
+  if (p.T <= 0 || p.Hk <= 0) return (int)cudaSuccess;
+  const size_t smem = pdt_ragged_paged_attention_smem_bytes(p.q_block, p.rep, p.D, Q8);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ragged_paged_attention_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((p.T + p.q_block - 1) / p.q_block, p.Hk);
+  ragged_paged_attention_kernel<Q8><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
 
 // Launch on `stream` (a cudaStream_t); returns a cudaError_t as int.
 int pdt_ragged_paged_attention_f32(const float* q, const float* k_pages,
@@ -281,19 +403,25 @@ int pdt_ragged_paged_attention_f32(const float* q, const float* k_pages,
                                    int T, int Hq, int Hk, int D, int P, int page_size,
                                    int B, int NP, int q_block, float scale,
                                    void* stream) {
-  if (T <= 0 || Hk <= 0) return (int)cudaSuccess;
-  Params p{q, k_pages, v_pages, block_tables, kv_lens, q_lens, out,
+  if (Hk <= 0) return (int)cudaSuccess;
+  Params p{q, k_pages, v_pages, nullptr, nullptr, block_tables, kv_lens, q_lens, out,
            T, Hq, Hk, D, P, page_size, B, NP, q_block, Hq / Hk, scale};
-  const size_t smem = pdt_ragged_paged_attention_smem_bytes(q_block, Hq / Hk, D);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ragged_paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((T + q_block - 1) / q_block, Hk);
-  ragged_paged_attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch<false>(p, stream);
+}
+
+// int8 pools [Hk, P, page_size, D] with f32 scales [Hk, P, page_size];
+// D % 16 == 0.
+int pdt_ragged_paged_attention_i8(const float* q, const signed char* k_pages,
+                                  const signed char* v_pages, const float* k_scales,
+                                  const float* v_scales, const int* block_tables,
+                                  const int* kv_lens, const int* q_lens, float* out,
+                                  int T, int Hq, int Hk, int D, int P, int page_size,
+                                  int B, int NP, int q_block, float scale,
+                                  void* stream) {
+  if (Hk <= 0) return (int)cudaSuccess;
+  Params p{q, k_pages, v_pages, k_scales, v_scales, block_tables, kv_lens, q_lens, out,
+           T, Hq, Hk, D, P, page_size, B, NP, q_block, Hq / Hk, scale};
+  return launch<true>(p, stream);
 }
 
 const char* pdt_cuda_error_string(int err) {

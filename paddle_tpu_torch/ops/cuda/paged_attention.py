@@ -2,8 +2,8 @@
 
 Replaces the Pallas TPU kernel ``_ragged_kernel`` (``paddle_tpu/ops/
 pallas/paged_attention.py``; entries ``ragged_paged_attention`` and
-``paged_decode_attention``) for fp32 page pools, with the same
-signatures and layouts:
+``paged_decode_attention``) for fp32 page pools and for int8 page pools
+with f32 scale side-pools, with the same signatures and layouts:
 
 * the KV cache is a PAGE POOL ``[num_kv_heads, total_pages, page_size,
   head_dim]``; each sequence owns a block table of page ids;
@@ -12,10 +12,15 @@ signatures and layouts:
   and prefill chunks share ONE call;
 * causality is positional: q token ``i`` of a sequence attends kv
   positions ``<= kv_len - q_len + i``; GQA groups the ``Hq // Hk`` query
-  heads of a kv head.
+  heads of a kv head;
+* int8 pools come with ``k_scales``/``v_scales`` ``[Hk, P, page_size]``
+  f32 (``quantization.kv_quantize``: one scale per kv head and token
+  slot), both or neither; a K/V value is its int8 byte times its slot's
+  scale, dequantized inside the kernel's load loop.
 
 What bounds it on the H100 is the KV bytes (4 B x head_dim x 2 per token
-and kv head, read once per q block); the kernel
+and kv head with fp32 pools, head_dim + 4 with int8 ones, read once per
+q block); the kernel
 (``csrc/paged_attention.cu``) reads only the pages a q block needs, up
 to its causal bound, with 16-byte coalesced loads, and keeps scores and
 softmax state on chip. Its design notes are in the source.
@@ -47,6 +52,7 @@ def _cdiv(a, b):
 
 
 def _kernel():
+    """``(fp32 launcher, int8 launcher, error string)``."""
     global _fn
     if _fn is None:
         from ._build import load
@@ -55,14 +61,18 @@ def _kernel():
         f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                       + [ctypes.c_float, ctypes.c_void_p])
         f.restype = ctypes.c_int
+        f8 = lib.pdt_ragged_paged_attention_i8
+        f8.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        f8.restype = ctypes.c_int
         lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (f, lib.pdt_cuda_error_string)
+        _fn = (f, f8, lib.pdt_cuda_error_string)
     return _fn
 
 
 def _check(q, k_pages, v_pages, block_tables, kv_lens, q_lens, q_block,
-           pages_per_block):
+           pages_per_block, k_scales=None, v_scales=None):
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(
             f"ragged_paged_attention: q must be [T, Hq, D] and the pools "
@@ -90,18 +100,39 @@ def _check(q, k_pages, v_pages, block_tables, kv_lens, q_lens, q_block,
     if pages_per_block is not None and int(pages_per_block) < 1:
         raise ValueError(f"pages_per_block must be >= 1, got "
                          f"{pages_per_block}")
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"ragged_paged_attention: {name} must be "
-                            f"float32 (bf16/int8 pools come later), got "
-                            f"{x.dtype}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("ragged_paged_attention: pass both k_scales and "
+                         "v_scales or neither")
+    quant = k_scales is not None
+    if q.dtype != torch.float32:
+        raise TypeError(f"ragged_paged_attention: q must be float32, got "
+                        f"{q.dtype}")
+    pool_dt = torch.int8 if quant else torch.float32
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.dtype != pool_dt:
+            raise TypeError(
+                f"ragged_paged_attention: {name} must be {pool_dt} "
+                + ("with k_scales/v_scales" if quant else
+                   "without scales (int8 pools take k_scales/v_scales; "
+                   "bf16 pools come with a later slice)")
+                + f", got {x.dtype}")
+    if quant:
+        want = tuple(k_pages.shape[:3])
+        for name, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if tuple(x.shape) != want:
+                raise ValueError(f"ragged_paged_attention: {name} must be "
+                                 f"{list(want)}, got {tuple(x.shape)}")
+            if x.dtype != torch.float32:
+                raise TypeError(f"ragged_paged_attention: {name} must be "
+                                f"float32, got {x.dtype}")
     for name, x in (("block_tables", block_tables), ("kv_lens", kv_lens),
                     ("q_lens", q_lens)):
         if x.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"ragged_paged_attention: {name} must be an "
                             f"integer tensor, got {x.dtype}")
     devs = {x.device for x in (q, k_pages, v_pages, block_tables, kv_lens,
-                               q_lens)}
+                               q_lens) + ((k_scales, v_scales) if quant
+                                          else ())}
     if len(devs) != 1:
         raise ValueError(f"ragged_paged_attention: inputs on several "
                          f"devices {sorted(map(str, devs))}")
@@ -110,38 +141,45 @@ def _check(q, k_pages, v_pages, block_tables, kv_lens, q_lens, q_block,
 
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
                            q_lens, q_block=8, pages_per_block=None,
-                           scale=None):
+                           scale=None, k_scales=None, v_scales=None):
     """Attention for a continuously-batched step over a paged KV cache.
 
     q: [T, Hq, D] packed tokens (segment b starts at
     ``q_block * sum(ceil(q_lens[:b] / q_block))``); k_pages/v_pages:
-    [Hk, P, page_size, D] fp32 pools, this step's K/V already written;
+    [Hk, P, page_size, D] fp32 pools, or int8 pools with
+    k_scales/v_scales [Hk, P, page_size] f32, this step's K/V already
+    written;
     block_tables: [B, NP] page ids; kv_lens: [B] kv tokens per sequence
     INCLUDING this step's; q_lens: [B] tokens each sequence contributes
     (0 = sits out). Returns [T, Hq, D]; rows of segment padding hold
     values no caller reads, rows past the live segments hold 0.
     """
     dev = _check(q, k_pages, v_pages, block_tables, kv_lens, q_lens,
-                 q_block, pages_per_block)
+                 q_block, pages_per_block, k_scales, v_scales)
     if dev.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pages, v_pages, block_tables, kv_lens, q_lens,
-            q_block=q_block, scale=scale)
+            q_block=q_block, scale=scale, k_scales=k_scales,
+            v_scales=v_scales)
     if dev.type != "cuda":
         raise ValueError(f"ragged_paged_attention: no kernel for device "
                          f"{dev}")
     t, hq, d = q.shape
     hk, npool, page_size, _ = k_pages.shape
     q_block = int(q_block)
-    if d % 4 or d > MAX_HEAD_DIM:
+    quant = k_scales is not None
+    align = 16 if quant else 4
+    if d % align or d > MAX_HEAD_DIM:
         raise ValueError(f"ragged_paged_attention: head_dim {d} must be a "
-                         f"multiple of 4 and <= {MAX_HEAD_DIM}")
+                         f"multiple of {align} and <= {MAX_HEAD_DIM}")
     if q_block * (hq // hk) > MAX_ROWS:
         raise ValueError(
             f"ragged_paged_attention: q_block {q_block} x {hq // hk} q "
             f"heads per kv head exceeds the kernel's {MAX_ROWS} rows")
+    scales = (("k_scales", k_scales), ("v_scales", v_scales)) if quant \
+        else ()
     for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables)):
+                    ("block_tables", block_tables)) + scales:
         if not x.is_contiguous():
             raise ValueError(f"ragged_paged_attention: {name} must be "
                              f"contiguous")
@@ -153,13 +191,20 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, kv_lens,
     ql = q_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    fn, err_str = _kernel()
+    fn, fn8, err_str = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                bt.data_ptr(), kvl.data_ptr(), ql.data_ptr(),
-                out.data_ptr(), t, hq, hk, d, npool, page_size,
-                bt.shape[0], bt.shape[1], q_block, scale, stream)
+        if quant:
+            rc = fn8(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     k_scales.data_ptr(), v_scales.data_ptr(),
+                     bt.data_ptr(), kvl.data_ptr(), ql.data_ptr(),
+                     out.data_ptr(), t, hq, hk, d, npool, page_size,
+                     bt.shape[0], bt.shape[1], q_block, scale, stream)
+        else:
+            rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    bt.data_ptr(), kvl.data_ptr(), ql.data_ptr(),
+                    out.data_ptr(), t, hq, hk, d, npool, page_size,
+                    bt.shape[0], bt.shape[1], q_block, scale, stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")
@@ -171,9 +216,11 @@ ragged_paged_attention.launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
-                           scale=None, pages_per_block=None):
+                           scale=None, pages_per_block=None, k_scales=None,
+                           v_scales=None):
     """One decode step: q [B, Hq, D], one token per sequence; seq_lens
-    [B] valid tokens including the current one. This is
+    [B] valid tokens including the current one; int8 pools with
+    k_scales/v_scales as in :func:`ragged_paged_attention`. This is
     :func:`ragged_paged_attention` with ``q_block=1``; its q_lens (all
     ones) are made once per batch size and device, not per call."""
     key = (q.shape[0], q.device)
@@ -184,17 +231,20 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
     return ragged_paged_attention(q, k_pages, v_pages, block_tables,
                                   seq_lens, ones, q_block=1,
                                   pages_per_block=pages_per_block,
-                                  scale=scale)
+                                  scale=scale, k_scales=k_scales,
+                                  v_scales=v_scales)
 
 
 def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
                                  kv_lens, q_lens, q_block=8,
-                                 pages_per_block=None, scale=None):
+                                 pages_per_block=None, scale=None,
+                                 k_scales=None, v_scales=None):
     """Plain PyTorch version of :func:`ragged_paged_attention` (any
-    device): per sequence, gather its pages, mask causally, softmax,
-    weight V. Rows the kernel writes, it writes: segment padding rows
-    attend like a token past the end of the sequence, rows past the live
-    segments and rows that attend nothing are 0."""
+    device): per sequence, gather its pages (int8 ones times their
+    slots' scales), mask causally, softmax, weight V. Rows the kernel
+    writes, it writes: segment padding rows attend like a token past the
+    end of the sequence, rows past the live segments and rows that
+    attend nothing are 0."""
     t, hq, d = q.shape
     hk, _, page_size, _ = k_pages.shape
     rep = hq // hk
@@ -216,6 +266,11 @@ def ragged_paged_attention_plain(q, k_pages, v_pages, block_tables,
         pages = block_tables[b, :npg].long()
         k = k_pages[:, pages].reshape(hk, npg * page_size, d)[:, :kv]
         v = v_pages[:, pages].reshape(hk, npg * page_size, d)[:, :kv]
+        if k_scales is not None:
+            ks = k_scales[:, pages].reshape(hk, npg * page_size)[:, :kv]
+            vs = v_scales[:, pages].reshape(hk, npg * page_size)[:, :kv]
+            k = k.to(torch.float32) * ks[..., None]
+            v = v.to(torch.float32) * vs[..., None]
         qs = (q[row0:row0 + m] * scale).reshape(m, hk, rep, d)
         s = torch.einsum("mhrd,hkd->hrmk", qs, k)          # [Hk,rep,m,kv]
         q_pos = kv - n + torch.arange(m, device=q.device)

@@ -152,8 +152,11 @@ def test_wrapper_validation(mutate, exc, match):
 
 def test_wrapper_rejects_tpu_only_arguments():
     args = _small()
+    # scale pools are ported (int8 pools, tests/test_torch_quantization.py)
+    # and belong with int8 pools only: fp32 pools with scales are refused
+    scales = torch.ones(tuple(args[1].shape[:3]))
     for kw in ({"interpret": True}, {"item_budget": 4},
-               {"k_scales": None, "v_scales": None}):
+               {"k_scales": scales, "v_scales": scales}):
         with pytest.raises(TypeError):
             ragged_paged_attention(*args, q_block=2, **kw)
     with pytest.raises(ValueError, match="q_block"):

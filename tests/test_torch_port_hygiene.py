@@ -56,6 +56,8 @@ def test_import_pulls_in_no_jax():
             "import paddle_tpu_torch.ops.cuda.fused_decode_mlp\n"
             "import paddle_tpu_torch.ops.cuda.rope\n"
             "import paddle_tpu_torch.ops.cuda.fused_residual_norm\n"
+            "import paddle_tpu_torch.ops.cuda.quant_matmul\n"
+            "import paddle_tpu_torch.quantization\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
             "import paddle_tpu_torch.models.llama\n"
             "import paddle_tpu_torch.nn.layers\n"
@@ -68,9 +70,10 @@ def test_import_pulls_in_no_jax():
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n"
             "from paddle_tpu_torch.ops.cuda import _build, rope, "
-            "fused_residual_norm\n"
+            "fused_residual_norm, quant_matmul\n"
             "assert _build._loaded == {}, _build._loaded\n"
             "assert rope._fn is None and fused_residual_norm._fns is None\n"
+            "assert quant_matmul._fn is None\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -303,7 +306,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert _build.sources() == ["flash_attention", "fused_decode_mlp",
                                 "fused_decode_qkv", "fused_optimizer",
                                 "fused_residual_norm", "paged_attention",
-                                "rope"]
+                                "quant_matmul", "rope"]
 
 
 def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
@@ -324,7 +327,8 @@ def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["flash_attention", "fused_optimizer",
                                   "fused_decode_qkv", "fused_decode_mlp",
-                                  "rope", "fused_residual_norm"])
+                                  "rope", "fused_residual_norm",
+                                  "quant_matmul"])
 def test_failed_build_of_training_kernels_raises(monkeypatch, tmp_path,
                                                  name):
     fake = tmp_path / "nvcc"
@@ -341,3 +345,85 @@ def test_failed_build_of_training_kernels_raises(monkeypatch, tmp_path,
     assert f"$ {fake}" in msg and f"{name}.cu" in msg
     assert "fake compiler said no" in msg
     assert "arch=compute_90a,code=sm_90a" in msg
+
+
+def test_weight_only_matmul_defaults_to_the_card(monkeypatch):
+    """The weight-only matmul runs its plain version only for CPU
+    tensors; the entry points that reach it default to the card and
+    raise without one."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+
+    before = qm.weight_only_matmul.launches
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        qm.weight_only_matmul(torch.zeros(2, 8, device="meta"),
+                              torch.zeros(8, 4, dtype=torch.int8,
+                                          device="meta"),
+                              torch.ones(4, device="meta"))
+    assert qm.weight_only_matmul.launches == before
+    cfg = LlamaConfig(vocab_size=32, hidden_size=16, num_layers=1,
+                      num_heads=2, max_seq_len=16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ContinuousBatchingEngine(model, max_slots=1, page_size=4,
+                                 kv_quant=True)
+
+
+@pytest.mark.parametrize("case,slice_name", [
+    ("megakernel_llama", "LLaMA-megakernel slice"),
+    ("megakernel_kv_quant", "rows 4, 5 and 7"),
+    ("megakernel_weight_only", "weight-only int8"),
+    ("weight_only_int4", "int4 weight-only slice"),
+])
+def test_unported_serving_switches_name_their_slice(case, slice_name):
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaConfig, LlamaForCausalLM)
+    from paddle_tpu_torch.quantization import weight_only_quantize
+
+    geo = dict(max_slots=1, page_size=4, device="cpu")
+    gpt = GPTForCausalLM(GPTConfig(vocab_size=32, hidden_size=16,
+                                   num_layers=1, num_heads=2,
+                                   max_seq_len=16), device="cpu")
+    calls = {
+        "megakernel_llama": lambda: ContinuousBatchingEngine(
+            LlamaForCausalLM(LlamaConfig(vocab_size=32, hidden_size=16,
+                                         num_layers=1, num_heads=2,
+                                         max_seq_len=16), device="cpu"),
+            megakernel=True, **geo),
+        "megakernel_kv_quant": lambda: ContinuousBatchingEngine(
+            gpt, megakernel=True, kv_quant=True, **geo),
+        "megakernel_weight_only": lambda: ContinuousBatchingEngine(
+            weight_only_quantize(gpt), megakernel=True, **geo),
+        "weight_only_int4": lambda: weight_only_quantize(
+            gpt, algo="weight_only_int4"),
+    }
+    with pytest.raises(NotImplementedError, match=slice_name):
+        calls[case]()
+
+
+def test_chip_smoke_llama_serve_phases_rehearse_on_cpu():
+    """chip_smoke's LLaMA serve phases at a tiny LlamaConfig on the CPU:
+    the weight-only int8 model with int8 KV pages (weights drawn and
+    quantized layer by layer, the teacher-forced check against the plain
+    forward that replays the quantization) and the fp model."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=96)
+    q = chip_smoke.llama_serve_phase(0, cfg=cfg, device="cpu",
+                                     quantized=True)
+    assert q["tokens"] == 16 * 32 and q["kv_quant"] and q["quantized"]
+    assert set(q["counts"].values()) == {0}
+    fp = chip_smoke.llama_serve_phase(0, cfg=cfg, device="cpu",
+                                      quantized=False)
+    assert fp["tokens"] == 16 * 32 and not fp["kv_quant"]

@@ -1,0 +1,377 @@
+"""The port's quantization arithmetic and its two kernels' plain versions
+against the JAX package.
+
+* ``weight_quantize`` and ``kv_quantize``/``kv_dequantize``: BITWISE
+  (the same fp32 division, round half to even, clip), zero columns and
+  zero vectors included;
+* ``weight_only_matmul`` (plain, on the CPU) against the JAX package's
+  ``quant_matmul_jnp`` and its Pallas kernel in interpret mode, with
+  bias and leading dims: rtol = atol = 1e-5 (fp32, another summation
+  order);
+* the int8-pool ragged and decode paged attention (plain) against the
+  JAX entries in interpret mode with scale pools: 1e-5;
+* ``generation.rope_at`` against a JITTED JAX ``rope_at`` (traced
+  positions, the float32 angles of the JAX serving programs): 1e-5.
+
+On a card (``-m gpu``) each CUDA kernel is held against its plain
+version. JAX is imported inside fixtures, so this file also collects on
+the card's machine, where only the ``gpu`` tests run.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch import quantization as tq
+from paddle_tpu_torch.models.generation import rope_at
+from paddle_tpu_torch.ops.cuda.paged_attention import (
+    paged_decode_attention, ragged_paged_attention,
+    ragged_paged_attention_plain)
+from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul_plain,
+                                                    weight_only_matmul)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tests share the machine's cores with
+    other test workers, and PyTorch's thread pool, spinning on small ops
+    against them, slowed these CPU runs by two orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jq():
+    pytest.importorskip("jax")
+    from paddle_tpu import quantization
+    return quantization
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _weights(seed, k, n, zero_cols=()):
+    rng = np.random.default_rng(seed)
+    w = (rng.normal(size=(k, n)) * 0.05).astype(np.float32)
+    w[:, list(zero_cols)] = 0.0
+    return w
+
+
+# --------------------------------------------------------- arithmetic --
+@pytest.mark.parametrize("k,n,zero_cols", [(64, 48, (5,)), (33, 17, (0, 16)),
+                                           (8, 3, ())])
+def test_weight_quantize_bitwise(jq, k, n, zero_cols):
+    import paddle_tpu as paddle
+    w = _weights(k * n, k, n, zero_cols)
+    # exact .5 ties of w / scale: round half to even on both sides
+    w[1, 1] = 0.0
+    jqw, js = jq.weight_quantize(paddle.to_tensor(w))
+    qw, s = tq.weight_quantize(torch.tensor(w))
+    assert qw.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(qw.numpy(), np.asarray(jqw.numpy()))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js.numpy()))
+    for c in zero_cols:
+        assert s[c] == 1.0 and not qw[:, c].any()
+    jdq = jq.weight_dequantize(jqw, js)
+    np.testing.assert_array_equal(tq.weight_dequantize(qw, s).numpy(),
+                                  np.asarray(jdq.numpy()))
+
+
+def test_weight_quantize_rounds_half_to_even():
+    w = torch.tensor([[127.0, 2.5, -2.5, 0.5], [1.5, 1.0, 3.5, -0.5]])
+    # column absmax: 127, 2.5, 3.5, 0.5 -> scale 1 for column 0
+    q, s = tq.weight_quantize(w)
+    assert q[1, 0] == 2 and s[0] == 1.0     # 1.5 -> 2 (even)
+    w = torch.tensor([[254.0], [5.0], [3.0], [-3.0]])  # scale 2: 2.5, 1.5
+    q, s = tq.weight_quantize(w)
+    assert s.item() == 2.0 and q[:, 0].tolist() == [127, 2, 2, -2]
+
+
+def test_kv_quantize_bitwise(jq):
+    import jax.numpy as jnp
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 5, 16)).astype(np.float32) * 3
+    x[1, 2] = 0.0                                  # an all-zero vector
+    jqv, jsc = jq.kv_quantize(jnp.asarray(x))
+    qv, sc = tq.kv_quantize(torch.tensor(x))
+    np.testing.assert_array_equal(qv.numpy(), np.asarray(jqv))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+    assert sc[1, 2] == 1.0 and not qv[1, 2].any()
+    np.testing.assert_array_equal(
+        tq.kv_dequantize(qv, sc).numpy(),
+        np.asarray(jq.kv_dequantize(jqv, jsc)))
+    assert tq.KV_QUANT_QMAX == jq.KV_QUANT_QMAX
+
+
+# ------------------------------------------------------- weight matmul --
+MATMUL = {
+    # name: (x shape, K, N, bias)
+    "decode_m8": ((8, 128), 128, 96, False),
+    "odd_k_n_bias": ((3, 70), 70, 33, True),
+    "lead_dims_bias": ((2, 5, 64), 64, 40, True),
+    "m1": ((1, 48), 48, 130, False),
+    "mixed_m40": ((40, 96), 96, 64, True),
+}
+
+
+def _matmul_inputs(name):
+    shape, k, n, has_bias = MATMUL[name]
+    rng = np.random.default_rng(len(name))
+    x = rng.normal(size=shape).astype(np.float32)
+    qw = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+    s = rng.uniform(0.01, 0.1, size=(n,)).astype(np.float32)
+    b = rng.normal(size=(n,)).astype(np.float32) if has_bias else None
+    return x, qw, s, b
+
+
+@pytest.mark.parametrize("name", sorted(MATMUL))
+def test_weight_only_matmul_matches_jax(name):
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas import quant_matmul as qm
+    x, qw, s, b = _matmul_inputs(name)
+    jb = None if b is None else jnp.asarray(b)
+    ref_jnp = np.asarray(qm.weight_only_matmul(x, qw, s, bias=jb,
+                                               impl="jnp"))
+    ref_pl = np.asarray(qm.weight_only_matmul(x, qw, s, bias=jb,
+                                              impl="pallas_interpret"))
+    tb = None if b is None else torch.tensor(b)
+    out = weight_only_matmul(torch.tensor(x), torch.tensor(qw),
+                             torch.tensor(s), bias=tb)
+    assert out.shape == x.shape[:-1] + (qw.shape[1],)
+    np.testing.assert_allclose(out.numpy(), ref_jnp, **TOL)
+    np.testing.assert_allclose(out.numpy(), ref_pl, **TOL)
+    # the transposed view of an [N, K] buffer is the same weight
+    view = torch.tensor(np.ascontiguousarray(qw.T)).t()
+    np.testing.assert_allclose(
+        weight_only_matmul(torch.tensor(x), view, torch.tensor(s),
+                           bias=tb).numpy(), ref_jnp, **TOL)
+
+
+def test_weight_only_linear_layer_matches_jax(jq):
+    import jax.numpy as jnp
+
+    import paddle_tpu as paddle
+    from paddle_tpu.nn.layers import Linear as JLinear
+    rng = np.random.default_rng(9)
+    w = _weights(1, 24, 20, (3,))
+    b = rng.normal(size=(20,)).astype(np.float32)
+    x = rng.normal(size=(2, 3, 24)).astype(np.float32)
+    jl = JLinear(24, 20)
+    jl.weight._write(jnp.asarray(w))
+    jl.bias._write(jnp.asarray(b))
+    jwl = jq.WeightOnlyLinear(jl)
+    lin = torch.nn.Linear(24, 20)
+    with torch.no_grad():
+        lin.weight.copy_(torch.tensor(w.T))
+        lin.bias.copy_(torch.tensor(b))
+    wl = tq.WeightOnlyLinear(lin)
+    assert wl.qweight.shape == (20, 24) and wl.qweight.is_contiguous()
+    np.testing.assert_array_equal(wl.qweight.numpy().T,
+                                  np.asarray(jwl.qweight.numpy()))
+    np.testing.assert_array_equal(wl.scale.numpy(),
+                                  np.asarray(jwl.scale.numpy()))
+    ref = np.asarray(jwl(paddle.to_tensor(x)).numpy())
+    np.testing.assert_allclose(wl(torch.tensor(x)).detach().numpy(), ref,
+                               **TOL)
+
+
+def test_weight_only_quantize_swaps_every_linear():
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    m = LlamaForCausalLM(LlamaConfig(vocab_size=64, hidden_size=32,
+                                     num_layers=2, num_heads=4,
+                                     num_kv_heads=2, max_seq_len=32),
+                         device="cpu")
+    tq.weight_only_quantize(m)
+    lin = [n for n, mod in m.named_modules()
+           if isinstance(mod, torch.nn.Linear)]
+    wol = [n for n, mod in m.named_modules()
+           if isinstance(mod, tq.WeightOnlyLinear)]
+    assert lin == [] and len(wol) == 7 * 2 + 1
+    # min_features skips narrow inputs, as the JAX function does
+    m2 = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.Linear(8, 2))
+    tq.weight_only_quantize(m2, min_features=8)
+    assert isinstance(m2[0], torch.nn.Linear)
+    assert isinstance(m2[1], tq.WeightOnlyLinear)
+
+
+def test_unported_quantization_names_its_slice():
+    lin = torch.nn.Linear(4, 4)
+    for call in (lambda: tq.weight_quantize(torch.ones(4, 4),
+                                            algo="weight_only_int4"),
+                 lambda: tq.WeightOnlyLinear(lin, algo="weight_only_int4"),
+                 lambda: tq.weight_only_quantize(lin,
+                                                 algo="weight_only_int4"),
+                 lambda: tq.weight_only_linear(torch.ones(1, 4),
+                                               torch.ones(4, 4, dtype=torch.int8),
+                                               torch.ones(4),
+                                               weight_dtype="int4")):
+        with pytest.raises(NotImplementedError, match="int4"):
+            call()
+    for call in (lambda: tq.fake_quant(torch.ones(2), 1.0), tq.QAT, tq.PTQ):
+        with pytest.raises(NotImplementedError,
+                           match="quantized-training slice"):
+            call()
+
+
+def test_matmul_refusals():
+    x, qw, s = torch.ones(2, 4), torch.ones(4, 3, dtype=torch.int8), \
+        torch.ones(3)
+    with pytest.raises(ValueError, match="K dim"):
+        weight_only_matmul(torch.ones(2, 5), qw, s)
+    with pytest.raises(TypeError, match="int8"):
+        weight_only_matmul(x, qw.float(), s)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        weight_only_matmul(x.to("meta"), qw.to("meta"), s.to("meta"))
+    before = weight_only_matmul.launches
+    weight_only_matmul(x, qw, s)            # CPU: plain, counts nothing
+    assert weight_only_matmul.launches == before
+
+
+# ----------------------------------------------------- int8 attention --
+def _int8_case(seed, kv_lens, q_lens, hq, hk, d, ps, q_block):
+    rng = np.random.default_rng(seed)
+    B = len(kv_lens)
+    npg = [-(-kv // ps) for kv in kv_lens]
+    NP = max(npg) + 1
+    P = 1 + sum(npg) + 2
+    perm = rng.permutation(np.arange(1, P))
+    bt = np.zeros((B, NP), np.int32)
+    at = 0
+    for b in range(B):
+        bt[b, :npg[b]] = perm[at:at + npg[b]]
+        at += npg[b]
+    k = rng.integers(-127, 128, size=(hk, P, ps, d)).astype(np.int8)
+    v = rng.integers(-127, 128, size=(hk, P, ps, d)).astype(np.int8)
+    ks = rng.uniform(0.002, 0.03, size=(hk, P, ps)).astype(np.float32)
+    vs = rng.uniform(0.002, 0.03, size=(hk, P, ps)).astype(np.float32)
+    segs = [-(-ql // q_block) * q_block for ql in q_lens]
+    starts = np.cumsum([0] + segs[:-1])
+    T = sum(segs) + q_block
+    q = rng.normal(size=(T, hq, d)).astype(np.float32)
+    rows = np.concatenate([np.arange(s, s + n)
+                           for s, n in zip(starts, q_lens)])
+    return (q, k, v, bt, np.asarray(kv_lens, np.int32),
+            np.asarray(q_lens, np.int32), ks, vs, rows)
+
+
+INT8_CASES = {
+    # name: (kv_lens, q_lens, hq, hk, d, page_size, q_block)
+    "mixed_qb2": ([13, 6, 21, 1], [5, 1, 9, 1], 4, 4, 16, 8, 2),
+    "zero_qlen_slot": ([10, 9, 12], [2, 0, 3], 2, 2, 16, 8, 2),
+    "gqa_rep4_page16": ([26, 9, 40], [9, 2, 3], 8, 2, 32, 16, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+def test_int8_ragged_matches_jax(name):
+    pytest.importorskip("jax")
+    from paddle_tpu.ops.pallas import paged_attention as pga
+    kv_lens, q_lens, hq, hk, d, ps, qb = INT8_CASES[name]
+    q, k, v, bt, kvl, ql, ks, vs, rows = _int8_case(
+        5, kv_lens, q_lens, hq, hk, d, ps, qb)
+    ref = np.asarray(pga.ragged_paged_attention(
+        q, k, v, bt, kvl, ql, q_block=qb, interpret=True, k_scales=ks,
+        v_scales=vs))
+    args = [torch.tensor(a) for a in (q, k, v, bt, kvl, ql)]
+    out = ragged_paged_attention(*args, q_block=qb,
+                                 k_scales=torch.tensor(ks),
+                                 v_scales=torch.tensor(vs)).numpy()
+    np.testing.assert_allclose(out[rows], ref[rows], **TOL)
+    assert not out[len(q) - qb:].any()
+
+
+def test_int8_decode_matches_jax():
+    pytest.importorskip("jax")
+    from paddle_tpu.ops.pallas import paged_attention as pga
+    q, k, v, bt, kvl, _, ks, vs, _ = _int8_case(3, [1, 7, 8, 9, 25],
+                                                [1] * 5, 8, 2, 16, 8, 1)
+    q = q[:5]
+    ref = np.asarray(pga.paged_decode_attention(
+        q, k, v, bt, kvl, interpret=True, k_scales=ks, v_scales=vs))
+    out = paged_decode_attention(
+        *(torch.tensor(a) for a in (q, k, v, bt, kvl)),
+        k_scales=torch.tensor(ks), v_scales=torch.tensor(vs)).numpy()
+    np.testing.assert_allclose(out, ref, **TOL)
+
+
+def test_int8_attention_refusals():
+    q, k, v, bt, kvl, ql, ks, vs, _ = (torch.tensor(a) for a in _int8_case(
+        1, [5], [2], 2, 2, 16, 8, 2))
+    with pytest.raises(ValueError, match="both k_scales and v_scales"):
+        ragged_paged_attention(q, k, v, bt, kvl, ql, q_block=2, k_scales=ks)
+    with pytest.raises(TypeError, match="int8 pools take"):
+        ragged_paged_attention(q, k, v, bt, kvl, ql, q_block=2)
+    with pytest.raises(ValueError, match="k_scales must be"):
+        ragged_paged_attention(q, k, v, bt, kvl, ql, q_block=2,
+                               k_scales=ks[:, :1], v_scales=vs)
+
+
+# --------------------------------------------------------------- rope --
+@pytest.mark.parametrize("shape,npos", [((3, 1, 4, 16), 3), ((1, 7, 2, 8), 7),
+                                        ((2, 1, 4, 16), 1)])
+def test_rope_at_matches_jitted_jax(shape, npos):
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu.models.generation import rope_at as jrope_at
+    rng = np.random.default_rng(npos)
+    x = rng.normal(size=shape).astype(np.float32)
+    pos = rng.integers(0, 4096, size=(npos,)).astype(np.int32)
+    for theta in (10000.0, 500000.0):
+        ref = jax.jit(lambda a, p, t=theta: jrope_at.raw(a, p, theta=t))(
+            jnp.asarray(x), jnp.asarray(pos))
+        out = rope_at(torch.tensor(x), torch.tensor(pos).long(), theta)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# ------------------------------------------------------------- on card --
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 4096, 11008),
+                                   (8, 11008, 4096), (16, 96, 130),
+                                   (17, 4096, 512), (128, 4096, 4096),
+                                   (5, 77, 33), (40, 70, 33)])
+def test_weight_only_matmul_kernel_matches_plain(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + n)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    qw = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                       dtype=torch.int8).t()
+    s = torch.rand(n, generator=g, device=cuda) * 0.1 + 0.01
+    b = torch.randn(n, generator=g, device=cuda)
+    before = weight_only_matmul.launches
+    out = weight_only_matmul(x, qw, s, bias=b)
+    ref = quant_matmul_plain(x, qw, s, bias=b)
+    torch.cuda.synchronize()
+    assert weight_only_matmul.launches == before + 1
+    # fp32, another summation order: 2e-5 of each output's sum of
+    # |x| |q| s, plus the bias's rounding
+    mag = (x.abs() @ qw.float().abs()) * s + b.abs()
+    assert ((out - ref).abs() <= 2e-5 * mag + 1e-6).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(INT8_CASES))
+def test_int8_attention_kernel_matches_plain(cuda, name):
+    kv_lens, q_lens, hq, hk, d, ps, qb = INT8_CASES[name]
+    q, k, v, bt, kvl, ql, ks, vs, rows = _int8_case(
+        5, kv_lens, q_lens, hq, hk, d, ps, qb)
+    args = [torch.tensor(a, device=cuda) for a in (q, k, v, bt, kvl, ql)]
+    sc = dict(k_scales=torch.tensor(ks, device=cuda),
+              v_scales=torch.tensor(vs, device=cuda))
+    before = ragged_paged_attention.launches
+    out = ragged_paged_attention(*args, q_block=qb, **sc)
+    ref = ragged_paged_attention_plain(*args, q_block=qb, **sc)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    np.testing.assert_allclose(out.cpu().numpy()[rows],
+                               ref.cpu().numpy()[rows], rtol=2e-5,
+                               atol=2e-5)
