@@ -21,7 +21,11 @@ the fused residual + RMSNorm forward and backward
 weight-only int8 projections (``quantization.weight_only_quantize``,
 the weight-only matmul ``ops/cuda/csrc/quant_matmul.cu``) and int8 KV
 pages (the engine's ``kv_quant``, the int8 variant of the paged
-attention).
+attention); and the norm family, one row template
+(``ops/cuda/csrc/row_norm.cuh``): GPT's glue fusion through the fused
+residual + LayerNorm pair, and the norm kernels
+(``ops/cuda/csrc/norms.cu``) behind ``PDTPU_NORM_BACKEND=pallas`` and
+the incubate fused norms.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device=`` they raise (:func:`resolve_device`).

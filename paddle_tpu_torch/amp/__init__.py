@@ -14,6 +14,16 @@ dtype; black-listed ops (``layer_norm``, ``rms_norm``,
 ``cross_entropy``, ``softmax``, ...) run in fp32. Under O1 only
 white-listed ops are cast down.
 
+Under O2 a parameter that an op casts to another dtype gets its grad
+in that dtype, as the JAX tape gives it: a bf16 RMSNorm weight that
+reaches the black-listed ``rms_norm`` gets a float32 grad, and an fp32
+LayerNorm weight that reaches ``fused_residual_norm`` a bf16 one.
+PyTorch keeps ``.grad`` in its parameter's dtype, so such a grad
+accumulates in ``param.main_grad`` instead (:class:`_ParamCast`), and
+:func:`grad_of` is the parameter's grad either way. The optimizer
+updates from it: the master update takes the fp32 grad, not a bf16
+rounding of it.
+
 The state is per thread. Backward runs on autograd's threads, outside
 the ``auto_cast`` block, so ``distributed.fleet.recompute`` captures the
 state when the forward runs and restores it (:func:`restored`) while the
@@ -32,7 +42,7 @@ from torch import nn
 from ..core.dtype import to_torch_dtype
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_state",
-           "amp_cast_inputs", "decorate", "restored"]
+           "amp_cast_inputs", "decorate", "grad_of", "restored"]
 
 # Ops that are numerically safe and bound by matrix products: low dtype.
 WHITE_LIST = {
@@ -111,9 +121,48 @@ def restored(snap):
         st.restore(old)
 
 
+class _ParamCast(torch.autograd.Function):
+    """A parameter cast to an op's dtype whose grad keeps that dtype: it
+    accumulates in ``param.main_grad`` (promoting, as the JAX tape adds
+    grads), and ``param.grad`` gets nothing from this use."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        ctx.param = p
+        return p.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.param
+        mg = getattr(p, "main_grad", None)
+        p.main_grad = g if mg is None else mg + g
+        return None, None
+
+
+def grad_of(p):
+    """``p``'s gradient in the dtype the JAX package gives it: its
+    ``main_grad`` (filled under O2 where an op cast it), plus its
+    ``.grad`` when it has one too; ``None`` without either."""
+    mg = getattr(p, "main_grad", None)
+    if mg is None:
+        return p.grad
+    return mg if p.grad is None else mg + p.grad
+
+
+def _cast(v, target, o2):
+    # parameters only (the optimizer reads main_grad): any other leaf, a
+    # caller's input or the detached input block recompute replays,
+    # keeps PyTorch's grad in .grad
+    if o2 and isinstance(v, nn.Parameter) and v.requires_grad and \
+            torch.is_grad_enabled():
+        return _ParamCast.apply(v, target)
+    return v.to(target)
+
+
 def amp_cast_inputs(name, vals):
     """``vals`` cast per the active AMP lists for op ``name`` (a list;
-    non-float values and ``None`` pass through)."""
+    non-float values and ``None`` pass through). Under O2 a cast
+    parameter's grad keeps the op's dtype (:class:`_ParamCast`)."""
     st = amp_state()
     if not st.enabled:
         return list(vals)
@@ -128,8 +177,10 @@ def amp_cast_inputs(name, vals):
         target = st.dtype
     else:
         return list(vals)
-    return [v.to(target) if torch.is_tensor(v) and v.is_floating_point()
-            and v.dtype != target else v for v in vals]
+    o2 = st.level == "O2"
+    return [_cast(v, target, o2) if torch.is_tensor(v)
+            and v.is_floating_point() and v.dtype != target else v
+            for v in vals]
 
 
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",

@@ -1,15 +1,20 @@
 """``paddle.incubate.nn.functional`` of the port (the port of
 ``paddle_tpu/incubate/nn/functional/__init__.py``): the fused functionals
-the LLaMA training path calls, each cast by the AMP rule.
+the training paths call, each cast by the AMP rule.
 
 * :func:`fused_rotary_position_embedding` ends in the rope kernel
   (``ops/cuda/rope.py``), as the JAX function always ends in the Pallas
   rope kernel;
-* :func:`swiglu` is ``silu(x) * y``, plain PyTorch, as it is jnp there.
+* :func:`swiglu` is ``silu(x) * y``, plain PyTorch, as it is jnp there;
+* :func:`fused_rms_norm` and :func:`fused_layer_norm` pre-add ``bias``
+  and ``residual`` and return ``(out, residual_out)``; on a card they
+  take the norm kernels (``ops/cuda/norms.py``, kernels #13 and #15)
+  under the JAX package's conditions (the last axis; RMS without a
+  ``norm_bias``, Layer with weight and bias), as the JAX functions take
+  the Pallas norms on a TPU, and otherwise the plain composition. The
+  ``quant_*`` arguments are ignored, as the JAX functions ignore them.
 
-``fused_rms_norm``, ``fused_layer_norm``, ``fused_dropout_add`` and
-``fused_matmul_bias`` are not ported: the first two reach the Pallas
-norms (kernels #13-#16) only on a TPU and arrive with the norms slice.
+``fused_dropout_add`` and ``fused_matmul_bias`` are not ported.
 """
 from __future__ import annotations
 
@@ -17,9 +22,12 @@ import torch
 import torch.nn.functional as F
 
 from ....amp import amp_cast_inputs
+from ....nn.functional import norm as _norm
+from ....ops.cuda import norms as _norms
 from ....ops.cuda import rope as _rope
 
-__all__ = ["fused_rotary_position_embedding", "swiglu"]
+__all__ = ["fused_rotary_position_embedding", "swiglu", "fused_rms_norm",
+           "fused_layer_norm"]
 
 
 def _default_angles(positions, d, interleaved):
@@ -96,3 +104,70 @@ def swiglu(x, y=None, name=None):
         a, b = vals[0].chunk(2, dim=-1)
         return F.silu(a) * b
     return F.silu(vals[0]) * vals[1]
+
+
+def _pre_add(v, bias, residual):
+    """``v + bias + residual`` (the absent terms left out)."""
+    if bias is not None:
+        v = v + bias
+    if residual is not None:
+        v = v + residual
+    return v
+
+
+def _axis(begin_norm_axis, ndim):
+    return begin_norm_axis if begin_norm_axis >= 0 else \
+        ndim + begin_norm_axis
+
+
+def fused_rms_norm(x, norm_weight, norm_bias, epsilon, begin_norm_axis,
+                   bias=None, residual=None, quant_scale=-1,
+                   quant_round_type=0, quant_max_bound=0, quant_min_bound=0):
+    """RMSNorm of ``x + bias + residual`` over the axes from
+    ``begin_norm_axis`` on: ``(out, residual_out)`` with
+    ``residual_out`` the pre-added input. On a card, over the last axis
+    and without ``norm_bias``, the kernel (``x * rstd * w`` in fp32, cast
+    once); otherwise ``(x * rsqrt(ms + eps))`` cast, ``* w`` and ``+
+    norm_bias``."""
+    v, w, b, r, nb = amp_cast_inputs(
+        "fused_rms_norm", (x, norm_weight, bias, residual, norm_bias))
+    v = _pre_add(v, b, r)
+    axis = _axis(begin_norm_axis, v.dim())
+    if _norm.on_card(v.device) and axis == v.dim() - 1 and nb is None:
+        return _norms.rms_norm(v, w, epsilon), v
+    v32 = v.float()
+    ms = v32.square().mean(dim=tuple(range(axis, v.dim())), keepdim=True)
+    out = (v32 * torch.rsqrt(ms + epsilon)).to(v.dtype) * w
+    if nb is not None:
+        out = out + nb
+    return out, v
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon, residual_alpha=1.0,
+                     begin_norm_axis=1, bias=None, residual=None,
+                     quant_scale=-1, quant_round_type=0, quant_max_bound=0,
+                     quant_min_bound=0):
+    """LayerNorm of ``x + bias + residual_alpha * residual`` over the axes
+    from ``begin_norm_axis`` on: ``(out, residual_out)``. Without weight
+    and bias ``out`` is the pre-added input itself. On a card, over the
+    last axis with both, the kernel; otherwise two-pass fp32 stats, the
+    normalized value cast, then ``* w`` and ``+ norm_bias``."""
+    v, w, nb, b, r = amp_cast_inputs(
+        "fused_layer_norm", (x, norm_weight, norm_bias, bias, residual))
+    v = _pre_add(v, b, None if r is None else residual_alpha * r)
+    if w is None and nb is None:
+        return v, v
+    axis = _axis(begin_norm_axis, v.dim())
+    if (_norm.on_card(v.device) and axis == v.dim() - 1
+            and w is not None and nb is not None):
+        return _norms.layer_norm(v, w, nb, epsilon), v
+    v32 = v.float()
+    dims = tuple(range(axis, v.dim()))
+    mean = v32.mean(dim=dims, keepdim=True)
+    var = (v32 - mean).square().mean(dim=dims, keepdim=True)
+    out = ((v32 - mean) * torch.rsqrt(var + epsilon)).to(v.dtype)
+    if w is not None:
+        out = out * w
+    if nb is not None:
+        out = out + nb
+    return out, v

@@ -13,8 +13,10 @@ full-sequence forward through the port's functionals (each cast by the
 AMP rule), the flash-attention kernel and, with ``cfg.recompute``, block
 recompute under ``cfg.recompute_policy``. The model starts in training
 mode, as the JAX ``Layer`` does; the serving engine switches it to eval.
-The glue-fused forward (``train_glue_fusion``, the fused residual +
-LayerNorm kernels #9-#10) and MoE are not ported.
+With ``train_glue_fusion`` on, training runs the glue-fused forward
+(``GPTBlock.forward_fused``): each residual add and the LayerNorm after
+it are one fused residual + LayerNorm kernel (#9-#10). MoE is not
+ported.
 """
 from __future__ import annotations
 
@@ -58,9 +60,6 @@ class GPTConfig:
         return self.hidden_size // self.num_heads
 
 
-_GLUE = ("train_glue_fusion for GPT (the fused residual + LayerNorm "
-         "kernels #9-#10 of paddle_tpu/ops/pallas/fused_residual_norm.py) "
-         "arrives with the port's GPT glue-fusion slice; turn the flag off")
 _MOE = "GPT MoE (num_experts > 0) arrives with the port's MoE slice"
 
 
@@ -128,8 +127,34 @@ class GPTBlock(nn.Module):
             return recompute(self._inner, x, policy=self._recompute_policy)
         return self._inner(x)
 
+    def _inner_fused(self, x, pending=None):
+        """Glue-fused twin of ``_inner`` (``train_glue_fusion``). A
+        pre-norm block cannot fuse its own ln1 with a residual add: the
+        add that feeds ln1 belongs to the previous block. So the model
+        loop threads the previous block's un-added MLP branch in as
+        ``pending``: (x + pending -> ln1) and (x + attn -> ln2) each run
+        as one fused kernel, and the block returns its own MLP branch
+        un-added for the next block (the last one fuses with ln_f)."""
+        drop = self.dropout
+        if pending is None:
+            h1 = _ln(self.ln1, x)
+        else:
+            x, h1 = F.fused_residual_norm(x, pending, self.ln1.weight,
+                                          self.ln1.bias, epsilon=self.ln1.eps)
+        a = F.dropout(self.attn(h1), drop, self.training)
+        x, h2 = F.fused_residual_norm(x, a, self.ln2.weight, self.ln2.bias,
+                                      epsilon=self.ln2.eps)
+        return x, F.dropout(self.mlp(h2), drop, self.training)
+
     def forward_fused(self, x, pending=None):
-        raise NotImplementedError(_GLUE)
+        """``(x, pending) -> (x, pending')`` for the glue-fused train
+        loop; under block recompute the pending branch rides as a second
+        checkpointed argument."""
+        if self._recompute and self.training:
+            args = (x,) if pending is None else (x, pending)
+            return recompute(self._inner_fused, *args,
+                             policy=self._recompute_policy)
+        return self._inner_fused(x, pending)
 
 
 def _ln(mod, x):
@@ -155,8 +180,16 @@ class GPTModel(nn.Module):
         x = ops.add(F.embedding(input_ids, self.wte.weight),
                     F.embedding(pos, self.wpe.weight))
         x = F.dropout(x, self.cfg.dropout, self.training)
-        if self.training and state.get_flag("train_glue_fusion"):
-            raise NotImplementedError(_GLUE)
+        if self.training and self.blocks and \
+                state.get_flag("train_glue_fusion"):
+            pending = None
+            for blk in self.blocks:
+                x, pending = blk.forward_fused(x, pending)
+            # the last block's MLP branch fuses into the final norm
+            _, h = F.fused_residual_norm(x, pending, self.ln_f.weight,
+                                         self.ln_f.bias,
+                                         epsilon=self.ln_f.eps)
+            return h
         for blk in self.blocks:
             x = blk(x)
         return _ln(self.ln_f, x)

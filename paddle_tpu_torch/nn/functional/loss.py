@@ -20,7 +20,12 @@ _LATER = ("arrives with a later slice of the port (the GPT path uses hard "
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
+    ax = axis if axis >= 0 else input.dim() + axis
+    # soft exactly where the JAX package calls a label soft: a float
+    # label of the logits' rank with n_class entries on the class axis
+    # (a float [N, 1] label is a hard one)
     if soft_label or (label.dim() == input.dim()
+                      and label.shape[ax] == input.shape[ax]
                       and label.is_floating_point()):
         raise NotImplementedError(f"cross_entropy: soft labels {_LATER}")
     if weight is not None:
@@ -33,7 +38,6 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         raise ValueError(f"cross_entropy: reduction must be mean, sum or "
                          f"none, got {reduction!r}")
     (logits,) = amp_cast_inputs("cross_entropy", (input,))
-    ax = axis if axis >= 0 else logits.dim() + axis
     if ax != logits.dim() - 1:
         logits = logits.movedim(ax, -1)
     idx = label

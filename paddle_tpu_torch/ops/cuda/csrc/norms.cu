@@ -1,0 +1,67 @@
+// RMSNorm and LayerNorm over the last axis, forward and backward, for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/norms.py:
+// `_rms_call` (`_rms_fwd_kernel`), `_rms2d_bwd` (`_rms_bwd_kernel`),
+// `_ln_call` (`_ln_fwd_kernel`) and `_ln2d_bwd` (`_ln_bwd_kernel`):
+//   RMS   out = x * rstd * w in fp32, cast once, rstd = rsqrt(mean(x^2)
+//         + eps); dx = rstd * (wg - xhat * mean(wg * xhat)), wg = g * w,
+//         xhat = x * rstd; dw = sum over rows of g * xhat;
+//   Layer out = (x - mean) * rstd * w + b, two-pass fp32 stats;
+//         dx = rstd * (wg - mean(wg) - xhat * mean(wg * xhat)),
+//         xhat = (x - mean) * rstd; dw as RMS, db = sum over rows of g.
+// They are the row kernels of the fused residual pairs without the
+// residual input (row_norm.cuh, design notes there).
+//
+// What bounds it on an H100: bytes. At the GPT-124M training shape
+// under the norm backend (x [8192, 768] fp32) the Layer forward moves
+// 25.2 MB in and 25.2 MB out (~0.015 ms at 3.35 TB/s); at LLaMA-7B
+// width (x [4096, 4096] fp32) the RMS forward 67.1 MB each way.
+//
+// Plain C interface (bound with ctypes); the wrapper in norms.py checks
+// shapes, types and contiguity and allocates the outputs and the
+// partials.
+
+#include "row_norm.cuh"
+
+extern "C" {
+
+// norm: 0 RMS, 1 Layer. dtype: 0 float32, 1 bfloat16 (x, out, g, dx);
+// wdtype the same for w and b, and for dw and db; mean, rstd and the
+// partials are fp32. All row-major and
+// contiguous. b and mean are read and written only by the Layer norm.
+// `vec`: the caller checked 16-byte alignment and h a multiple of 16
+// bytes of the type. Launch on `stream` (a cudaStream_t); return a
+// cudaError_t as int.
+int pdt_norm_fwd(int norm, int dtype, int wdtype, const void* x,
+                 const void* w, const void* b, void* out, float* mean,
+                 float* rstd, int n, int h, float eps, int vec, void* stream) {
+  return row_norm_fwd<false>(norm, dtype, wdtype, x, nullptr, w, b, nullptr,
+                             out, mean, rstd, n, h, eps, vec,
+                             (cudaStream_t)stream);
+}
+
+// Partial rows of the backward for n rows: `part` is [this, h] (RMS) or
+// [2, this, h] (Layer: dw's, then db's), fp32; `dwdb` is [h] or [2, h]
+// in w's type.
+int pdt_norm_bwd_blocks(int n) {
+  const int r = bwd_rows_per_cta(n);
+  return (n + r - 1) / r;
+}
+
+int pdt_norm_bwd(int norm, int dtype, int wdtype, const void* x,
+                 const void* w, const float* mean, const float* rstd,
+                 const void* g, void* dx, float* part, void* dwdb, int n,
+                 int h, int vec, void* stream) {
+  return row_norm_bwd(norm, dtype, wdtype, x, w, mean, rstd, nullptr, g, dx,
+                      part, dwdb, n, h, vec, (cudaStream_t)stream);
+}
+
+// The largest row width the kernels take for a dtype and load width.
+int pdt_norm_max_h(int dtype, int vec) { return row_norm_max_h(dtype, vec); }
+
+const char* pdt_cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,10 +1,8 @@
-"""Fused residual add + RMSNorm, forward and backward, for Hopper.
+"""Fused residual add + norm, forward and backward, for Hopper.
 
-Replaces the Pallas TPU kernels ``fused_residual_rms_norm_fwd`` and
-``fused_residual_rms_norm_bwd`` of
-``paddle_tpu/ops/pallas/fused_residual_norm.py`` (the RMS half; the
-LayerNorm twins, kernels #9-#10, arrive with GPT's glue-fusion slice),
-with the same entries and arithmetic:
+Replaces the Pallas TPU kernels of
+``paddle_tpu/ops/pallas/fused_residual_norm.py``, with the same entries
+and arithmetic:
 
 * :func:`fused_residual_rms_norm_fwd` ``(x, y, w, eps)`` on 2-D ``[rows,
   h]`` -> ``(res, normed, rstd)``: ``res = x + y`` in the input dtype,
@@ -13,19 +11,22 @@ with the same entries and arithmetic:
 * :func:`fused_residual_rms_norm_bwd` ``(res, w, rstd, dres, dnormed)``
   -> ``(d, dw)``: ``d`` the shared cotangent of x and y, ``dw`` summed
   over rows in fp32 and cast to w's dtype; ``dres=None`` is zero;
-* :func:`fused_residual_rms_norm` ``(x, y, weight, eps)`` over the last
-  axis, differentiable: a ``torch.library`` custom op whose autograd
-  rule saves ``(res, w, rstd)`` (not x and y), as the JAX custom_vjp
-  does, and returns ``d`` for both x and y.
+* :func:`fused_residual_layer_norm_fwd` ``(x, y, w, b, eps)`` -> ``(res,
+  normed, mean, rstd)``: LayerNorm of ``res`` with two-pass fp32 stats;
+* :func:`fused_residual_layer_norm_bwd` ``(res, w, mean, rstd, dres,
+  dnormed)`` -> ``(d, dw, db)``;
+* :func:`fused_residual_rms_norm` ``(x, y, weight, eps)`` and
+  :func:`fused_residual_layer_norm` ``(x, y, weight, bias, eps)`` over
+  the last axis, differentiable: ``torch.library`` custom ops whose
+  autograd rule saves ``(res, w, rstd)`` / ``(res, w, mean, rstd)`` (not
+  x and y), as the JAX custom_vjps do, and returns ``d`` for both x and
+  y.
 
-The kernels (``csrc/fused_residual_norm.cu``; design notes in the
-source) read each row once. CPU tensors take the plain versions
-(:func:`fused_residual_rms_norm_fwd_plain`,
-:func:`fused_residual_rms_norm_bwd_plain`); CUDA tensors launch the
-kernels (counted in ``fused_residual_rms_norm_fwd.launches`` and
-``fused_residual_rms_norm_bwd.launches``, one per call: the backward's
-call is its row kernel and the small kernel that sums the dw partials)
-or raise.
+The kernels (``csrc/fused_residual_norm.cu``, the row kernels of
+``csrc/row_norm.cuh``) read each row once. CPU tensors take the plain
+versions (``*_plain``); CUDA tensors launch the kernels (counted in each
+wrapper's ``launches``, one per call: a backward's call is its row
+kernel and the small kernel that sums the dw/db partials) or raise.
 """
 from __future__ import annotations
 
@@ -33,11 +34,15 @@ import ctypes
 
 import torch
 
+from . import norms as _n
+
 __all__ = ["fused_residual_rms_norm", "fused_residual_rms_norm_fwd",
            "fused_residual_rms_norm_bwd", "fused_residual_rms_norm_fwd_plain",
-           "fused_residual_rms_norm_bwd_plain", "FUSED_RMS_FWD_OP"]
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+           "fused_residual_rms_norm_bwd_plain", "FUSED_RMS_FWD_OP",
+           "fused_residual_layer_norm", "fused_residual_layer_norm_fwd",
+           "fused_residual_layer_norm_bwd",
+           "fused_residual_layer_norm_fwd_plain",
+           "fused_residual_layer_norm_bwd_plain", "FUSED_LN_FWD_OP"]
 
 _fns = None
 
@@ -62,8 +67,20 @@ def _kernels():
         lib.pdt_rms_max_h.restype = ctypes.c_int
         lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
+        lfwd = lib.pdt_rln_fwd
+        lfwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                                 ctypes.c_void_p])
+        lfwd.restype = ctypes.c_int
+        lbwd = lib.pdt_rln_bwd
+        lbwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lbwd.restype = ctypes.c_int
+        lib.pdt_rln_bwd_blocks.argtypes = [ctypes.c_int]
+        lib.pdt_rln_bwd_blocks.restype = ctypes.c_int
         _fns = (fwd, bwd, lib.pdt_rms_bwd_rows(), lib.pdt_rms_max_h,
-                lib.pdt_cuda_error_string)
+                lib.pdt_cuda_error_string, lfwd, lbwd,
+                lib.pdt_rln_bwd_blocks)
     return _fns
 
 
@@ -71,65 +88,40 @@ def _kernels():
 def fused_residual_rms_norm_fwd_plain(x, y, w, eps=1e-6):
     """Plain PyTorch forward (any device): ``_rrms_fwd_block``."""
     r = x + y
-    r32 = r.float()
-    rstd = torch.rsqrt(r32.square().mean(dim=1, keepdim=True) + eps)
-    return r, (r32 * rstd * w.float()).to(r.dtype), rstd
+    normed, rstd = _n.rms_norm_fwd_plain(r, w, eps)
+    return r, normed, rstd
 
 
 def fused_residual_rms_norm_bwd_plain(res, w, rstd, dres, dnormed):
     """Plain PyTorch backward (any device): ``_rrms_bwd_block`` over all
     rows at once; ``dres=None`` is zero."""
-    xhat = res.float() * rstd
-    g = dnormed.float()
-    wg = g * w.float()
-    c = (wg * xhat).mean(dim=1, keepdim=True)
-    d = rstd * (wg - xhat * c)
+    d, dw, _ = _n.norm_bwd32(res, w, None, rstd, dnormed)
     if dres is not None:
         d = dres.float() + d
-    return d.to(res.dtype), (g * xhat).sum(dim=0).to(w.dtype)
+    return d.to(res.dtype), dw.to(w.dtype)
+
+
+def fused_residual_layer_norm_fwd_plain(x, y, w, b, eps=1e-5):
+    """Plain PyTorch forward (any device): ``_rln_fwd_block``."""
+    r = x + y
+    normed, mean, rstd = _n.layer_norm_fwd_plain(r, w, b, eps)
+    return r, normed, mean, rstd
+
+
+def fused_residual_layer_norm_bwd_plain(res, w, mean, rstd, dres,
+                                        dnormed):
+    """Plain PyTorch backward (any device): ``_rln_bwd_block`` over all
+    rows at once; ``dres=None`` is zero."""
+    d, dw, db = _n.norm_bwd32(res, w, mean, rstd, dnormed)
+    if dres is not None:
+        d = dres.float() + d
+    return d.to(res.dtype), dw.to(w.dtype), db.to(w.dtype)
 
 
 # ------------------------------------------------------------ kernels --
-def _check_rows(name, tensors, h, dtype):
-    for tname, t in tensors:
-        if t.dim() != 2 or t.shape[1] != h:
-            raise ValueError(f"{name}: {tname} must be [rows, {h}], got "
-                             f"{tuple(t.shape)}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {tname} is {t.dtype}, not {dtype}")
-
-
-def _vec_ok(tensors, h):
-    per = 16 // tensors[0].element_size()
-    return h % per == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
-def _device(name, tensors):
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: inputs on several devices "
-                         f"{sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    return dev
-
-
-def _raise_rc(what, rc, err_str):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{err_str(rc).decode()} (cudaError {rc})")
-
-
-def _kernel_ready(name, tensors, h, vec, max_h):
-    dt = tensors[0].dtype
-    if dt not in _DTYPE_CODE:
-        raise TypeError(f"{name}: float32 or bfloat16 rows, got {dt}")
-    limit = max_h(_DTYPE_CODE[dt], int(vec))
-    if h > limit:
-        raise ValueError(f"{name}: row width {h} exceeds the kernel's "
-                         f"{limit} for {dt} rows"
-                         + ("" if vec else " not 16-byte aligned"))
+def _bwd_rows(res, dres, dnormed):
+    return (("res", res), ("dnormed", dnormed)) + (
+        () if dres is None else (("dres", dres),))
 
 
 def fused_residual_rms_norm_fwd(x, y, w, eps=1e-6):
@@ -137,26 +129,25 @@ def fused_residual_rms_norm_fwd(x, y, w, eps=1e-6):
     rstd)`` as :func:`fused_residual_rms_norm_fwd_plain` gives them."""
     name = "fused_residual_rms_norm_fwd"
     n, h = x.shape
-    _check_rows(name, (("x", x), ("y", y)), h, x.dtype)
-    if tuple(w.shape) != (h,):
-        raise ValueError(f"{name}: w must be [{h}], got {tuple(w.shape)}")
-    dev = _device(name, (x, y, w))
+    _n.check_rows(name, (("x", x), ("y", y)), h, x.dtype)
+    _n.check_vectors(name, (("w", w),), h)
+    dev = _n.device_of(name, (x, y, w))
     if dev.type == "cpu":
         return fused_residual_rms_norm_fwd_plain(x, y, w, eps)
-    fwd, _, _, max_h, err_str = _kernels()
+    fwd, _, _, max_h, err_str = _kernels()[:5]
     x, y = x.contiguous(), y.contiguous()
-    vec = _vec_ok((x, y), h)
-    _kernel_ready(name, (x,), h, vec, max_h)
+    vec = _n.vec_ok((x, y), h)
+    _n.kernel_ready(name, x, h, vec, max_h)
     w32 = w.float().contiguous()
     res = torch.empty_like(x)
     normed = torch.empty_like(x)
     rstd = torch.empty(n, 1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fwd(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
+        rc = fwd(_n.DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
                  w32.data_ptr(), res.data_ptr(), normed.data_ptr(),
                  rstd.data_ptr(), n, h, float(eps), int(vec), stream)
-    _raise_rc(name, rc, err_str)
+    _n.raise_rc(name, rc, err_str)
     fused_residual_rms_norm_fwd.launches += 1
     return res, normed, rstd
 
@@ -170,35 +161,30 @@ def fused_residual_rms_norm_bwd(res, w, rstd, dres, dnormed):
     is zero (the kernel reads no residual cotangent then)."""
     name = "fused_residual_rms_norm_bwd"
     n, h = res.shape
-    rows = (("dnormed", dnormed),) + (() if dres is None
-                                      else (("dres", dres),))
-    _check_rows(name, rows, h, res.dtype)
-    if tuple(w.shape) != (h,) or tuple(rstd.shape) != (n, 1) or \
-            rstd.dtype != torch.float32:
-        raise ValueError(f"{name}: w must be [{h}] and rstd float32 "
-                         f"[{n}, 1], got {tuple(w.shape)}, {rstd.dtype} "
-                         f"{tuple(rstd.shape)}")
-    dev = _device(name, [res, w, rstd, dnormed]
-                  + ([] if dres is None else [dres]))
+    _n.check_rows(name, _bwd_rows(res, dres, dnormed), h, res.dtype)
+    _n.check_vectors(name, (("w", w),), h)
+    _n.check_stats(name, (("rstd", rstd),), n)
+    dev = _n.device_of(name, [res, w, rstd, dnormed]
+                       + ([] if dres is None else [dres]))
     if dev.type == "cpu":
         return fused_residual_rms_norm_bwd_plain(res, w, rstd, dres, dnormed)
-    _, bwd, brows, max_h, err_str = _kernels()
+    _, bwd, brows, max_h, err_str = _kernels()[:5]
     res, dnormed = res.contiguous(), dnormed.contiguous()
     dres = None if dres is None else dres.contiguous()
     rows_t = [res, dnormed] + ([] if dres is None else [dres])
-    vec = _vec_ok(rows_t, h)
-    _kernel_ready(name, (res,), h, vec, max_h)
+    vec = _n.vec_ok(rows_t, h)
+    _n.kernel_ready(name, res, h, vec, max_h)
     w32, rstd = w.float().contiguous(), rstd.contiguous()
     d = torch.empty_like(res)
     part = torch.empty(-(-n // brows), h, dtype=torch.float32, device=dev)
     dw = torch.empty(h, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = bwd(_DTYPE_CODE[res.dtype], res.data_ptr(), w32.data_ptr(),
+        rc = bwd(_n.DTYPE_CODE[res.dtype], res.data_ptr(), w32.data_ptr(),
                  rstd.data_ptr(), None if dres is None else dres.data_ptr(),
                  dnormed.data_ptr(), d.data_ptr(), part.data_ptr(),
                  dw.data_ptr(), n, h, int(vec), stream)
-    _raise_rc(name, rc, err_str)
+    _n.raise_rc(name, rc, err_str)
     fused_residual_rms_norm_bwd.launches += 1
     return d, dw.to(w.dtype)
 
@@ -206,7 +192,83 @@ def fused_residual_rms_norm_bwd(res, w, rstd, dres, dnormed):
 fused_residual_rms_norm_bwd.launches = 0
 
 
-# ------------------------------------------------ autograd custom op --
+def fused_residual_layer_norm_fwd(x, y, w, b, eps=1e-5):
+    """The forward kernel's wrapper on 2-D ``[rows, h]``: ``(res, normed,
+    mean, rstd)`` as :func:`fused_residual_layer_norm_fwd_plain` gives
+    them."""
+    name = "fused_residual_layer_norm_fwd"
+    n, h = x.shape
+    _n.check_rows(name, (("x", x), ("y", y)), h, x.dtype)
+    _n.check_vectors(name, (("w", w), ("b", b)), h)
+    dev = _n.device_of(name, (x, y, w, b))
+    if dev.type == "cpu":
+        return fused_residual_layer_norm_fwd_plain(x, y, w, b, eps)
+    _, _, _, max_h, err_str, fwd, _, _ = _kernels()
+    x, y = x.contiguous(), y.contiguous()
+    vec = _n.vec_ok((x, y), h)
+    _n.kernel_ready(name, x, h, vec, max_h)
+    wdt, w, b = _n.weight_vectors(w, b)
+    res = torch.empty_like(x)
+    normed = torch.empty_like(x)
+    mean = torch.empty(n, 1, dtype=torch.float32, device=dev)
+    rstd = torch.empty_like(mean)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fwd(_n.DTYPE_CODE[x.dtype], _n.DTYPE_CODE[wdt], x.data_ptr(),
+                 y.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(),
+                 normed.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, h,
+                 float(eps), int(vec), stream)
+    _n.raise_rc(name, rc, err_str)
+    fused_residual_layer_norm_fwd.launches += 1
+    return res, normed, mean, rstd
+
+
+fused_residual_layer_norm_fwd.launches = 0
+
+
+def fused_residual_layer_norm_bwd(res, w, mean, rstd, dres, dnormed):
+    """The backward kernels' wrapper: ``(d, dw, db)`` as
+    :func:`fused_residual_layer_norm_bwd_plain` gives them;
+    ``dres=None`` is zero (the kernel reads no residual cotangent
+    then)."""
+    name = "fused_residual_layer_norm_bwd"
+    n, h = res.shape
+    _n.check_rows(name, _bwd_rows(res, dres, dnormed), h, res.dtype)
+    _n.check_vectors(name, (("w", w),), h)
+    _n.check_stats(name, (("mean", mean), ("rstd", rstd)), n)
+    dev = _n.device_of(name, [res, w, mean, rstd, dnormed]
+                       + ([] if dres is None else [dres]))
+    if dev.type == "cpu":
+        return fused_residual_layer_norm_bwd_plain(res, w, mean, rstd, dres,
+                                                   dnormed)
+    _, _, _, max_h, err_str, _, bwd, blocks = _kernels()
+    res, dnormed = res.contiguous(), dnormed.contiguous()
+    dres = None if dres is None else dres.contiguous()
+    rows_t = [res, dnormed] + ([] if dres is None else [dres])
+    vec = _n.vec_ok(rows_t, h)
+    _n.kernel_ready(name, res, h, vec, max_h)
+    wdt, wk, _ = _n.weight_vectors(w)
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    d = torch.empty_like(res)
+    part = torch.empty(2, blocks(n), h, dtype=torch.float32, device=dev)
+    dwdb = torch.empty(2, h, dtype=wdt, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = bwd(_n.DTYPE_CODE[res.dtype], _n.DTYPE_CODE[wdt],
+                 res.data_ptr(), wk.data_ptr(), mean.data_ptr(),
+                 rstd.data_ptr(),
+                 None if dres is None else dres.data_ptr(),
+                 dnormed.data_ptr(), d.data_ptr(), part.data_ptr(),
+                 dwdb.data_ptr(), n, h, int(vec), stream)
+    _n.raise_rc(name, rc, err_str)
+    fused_residual_layer_norm_bwd.launches += 1
+    return d, dwdb[0].to(w.dtype), dwdb[1].to(w.dtype)
+
+
+fused_residual_layer_norm_bwd.launches = 0
+
+
+# ----------------------------------------------- autograd custom ops --
 @torch.library.custom_op("paddle_tpu_torch::fused_residual_rms_norm_fwd",
                          mutates_args=())
 def _rms_fwd_op(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -250,16 +312,70 @@ def fused_residual_rms_norm(x, y, weight, eps=1e-6, rows=None,
     ``(res, normed)``, differentiable (the fused backward kernel).
     ``rows`` (the TPU row block) is accepted for API parity and not
     read; ``interpret`` (a Pallas mode) is refused."""
+    return _residual_entry("fused_residual_rms_norm", x, y, interpret,
+                           lambda a, b: _rms_fwd_op(a, b, weight,
+                                                    float(eps))[:2])
+
+
+def _residual_entry(name, x, y, interpret, op):
+    """x, y ``[..., h]`` (promoted to one dtype) through ``op`` on their
+    ``[rows, h]`` views -> ``(res, normed)`` in x's shape."""
     if interpret:
-        raise ValueError("fused_residual_rms_norm: interpret= is a Pallas "
-                         "mode; the port runs the plain PyTorch version "
-                         "for CPU tensors")
+        raise ValueError(f"{name}: interpret= is a Pallas mode; the port "
+                         f"runs the plain PyTorch version for CPU tensors")
     shape = x.shape
     if y.shape != shape:
-        raise ValueError(f"fused_residual_rms_norm: x {tuple(shape)} and y "
+        raise ValueError(f"{name}: x {tuple(shape)} and y "
                          f"{tuple(y.shape)} differ")
     dt = torch.promote_types(x.dtype, y.dtype)
     h = shape[-1]
-    r, o, _ = _rms_fwd_op(x.to(dt).reshape(-1, h), y.to(dt).reshape(-1, h),
-                          weight, float(eps))
+    r, o = op(x.to(dt).reshape(-1, h), y.to(dt).reshape(-1, h))
     return r.reshape(shape), o.reshape(shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_residual_layer_norm_fwd",
+                         mutates_args=())
+def _ln_fwd_op(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor, eps: float) -> tuple[
+                   torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return fused_residual_layer_norm_fwd(x, y, w, b, eps)
+
+
+@_ln_fwd_op.register_fake
+def _(x, y, w, b, eps):
+    stat = x.new_empty(x.shape[0], 1, dtype=torch.float32)
+    return (x.new_empty(x.shape), x.new_empty(x.shape), stat,
+            stat.new_empty(stat.shape))
+
+
+def _ln_setup_context(ctx, inputs, output):
+    _, _, w, _, _ = inputs
+    res, _, mean, rstd = output
+    ctx.save_for_backward(res, w, mean, rstd)
+    # a None cotangent of res (GPT's final norm discards it): no dres
+    ctx.set_materialize_grads(False)
+
+
+def _ln_backward(ctx, dres, dnormed, _dmean, _drstd):
+    res, w, mean, rstd = ctx.saved_tensors
+    if dnormed is None:
+        dnormed = torch.zeros_like(res)
+    d, dw, db = fused_residual_layer_norm_bwd(res, w, mean, rstd, dres,
+                                              dnormed)
+    return d, d, dw, db, None
+
+
+_ln_fwd_op.register_autograd(_ln_backward, setup_context=_ln_setup_context)
+
+FUSED_LN_FWD_OP = torch.ops.paddle_tpu_torch.fused_residual_layer_norm_fwd \
+    .default
+
+
+def fused_residual_layer_norm(x, y, weight, bias, eps=1e-5, rows=None,
+                              interpret=None):
+    """Fused residual + LayerNorm over the last axis: x, y ``[..., h]`` ->
+    ``(res, normed)``, differentiable (the fused backward kernel).
+    ``rows`` and ``interpret`` as :func:`fused_residual_rms_norm`."""
+    return _residual_entry("fused_residual_layer_norm", x, y, interpret,
+                           lambda a, b: _ln_fwd_op(a, b, weight, bias,
+                                                   float(eps))[:2])

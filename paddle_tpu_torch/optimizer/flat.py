@@ -15,18 +15,27 @@ kernel's in-place write is the update: nothing is copied back.
 Gradients are the exception. Autograd's ``AccumulateGrad`` replaces a
 ``None`` ``.grad`` with a fresh tensor, so a grad can never stay bound
 as a view once ``clear_grad()`` drops it. :meth:`FlatGroup.gather_grads`
-therefore copies this step's ``p.grad`` of every member into the flat
-grad buffer with ONE ``torch.cat`` per bucket, as the JAX package
-gathers them with one concat. The buffers are padded to a multiple of
-``ALIGN`` elements, whose padding stays zero.
+therefore copies this step's grad of every member into the flat grad
+buffer with ONE ``torch.cat`` per bucket, as the JAX package gathers
+them with one concat (a bf16 grad of an fp32 member widens exactly).
+The buffers are padded to a multiple of ``ALIGN`` elements, whose
+padding stays zero.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ALIGN", "FlatGroup", "FlatMismatch"]
+__all__ = ["ALIGN", "FlatGroup", "FlatMismatch", "grad_fits"]
 
 ALIGN = 1024
+
+
+def grad_fits(g, dtype):
+    """A grad of ``g``'s dtype goes into a ``dtype`` bucket unrounded:
+    the same dtype, or a narrower float widened into an fp32 bucket."""
+    return g.dtype == dtype or (dtype == torch.float32
+                                and g.is_floating_point()
+                                and g.element_size() < 4)
 
 
 class FlatMismatch(RuntimeError):
@@ -99,11 +108,12 @@ class FlatGroup:
         ``torch.cat`` (into a buffer kept across steps)."""
         gs = [gmap[p] for p in self.params]
         for i, g in enumerate(gs):
-            if g.dtype != self.dtype or tuple(g.shape) != self.shapes[i]:
+            if not grad_fits(g, self.dtype) or \
+                    tuple(g.shape) != self.shapes[i]:
                 raise FlatMismatch(
                     f"member {i} grad {g.dtype} {tuple(g.shape)} does not "
                     f"match its slot {self.dtype} {self.shapes[i]}")
-        pieces = [g.reshape(-1) for g in gs]
+        pieces = [g.reshape(-1).to(self.dtype) for g in gs]
         pad = self.padded - self.total
         if pad:
             if self._pad is None:

@@ -17,9 +17,14 @@ Two paths, as in the JAX package:
 
 ``multi_precision`` (set by ``amp.decorate``) keeps fp32 master weights
 for bf16/fp16 parameters; a bucket's masters are made from the
-bf16-cast parameters, as the JAX flat path makes them. Learning-rate
-schedulers, ``state_dict`` and the other optimizers of the JAX package
-are not ported yet.
+bf16-cast parameters, as the JAX flat path makes them. Each param's
+grad is ``amp.grad_of(p)``. Under O2 a norm weight's grad may be wider
+than the param (the fp32 grad of a bf16 RMSNorm weight): that param
+takes the per-param path, so its master update reads the fp32 grad. A
+narrower grad (the bf16 grad of an fp32 LayerNorm weight under glue
+fusion) widens exactly into its fp32 bucket. Learning-rate schedulers,
+``state_dict`` and the other optimizers of the JAX package are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import warnings
 
 import torch
 
+from ..amp import grad_of
 from ..core import state as _state
 from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm
 from ..ops.cuda import fused_optimizer as _fo
@@ -135,8 +141,11 @@ class Optimizer:
 
     # --- step -----------------------------------------------------------
     def _collect(self):
-        return [(p, p.grad) for p in self._parameters
-                if p.requires_grad and p.grad is not None]
+        """``(param, grad)`` for each param with a grad this step, the
+        grad in the dtype the JAX package gives it (``amp.grad_of``)."""
+        pairs = [(p, grad_of(p)) for p in self._parameters
+                 if p.requires_grad]
+        return [(p, g) for p, g in pairs if g is not None]
 
     def _apply_decay_to_grad(self, p, g32):
         """L2/L1 regularization folded into the gradient (not AdamW's
@@ -226,11 +235,13 @@ class Optimizer:
         clip_active = isinstance(self._grad_clip, ClipGradByGlobalNorm)
         moments = self._FUSED_MOMENTS[kind]
         by_key: dict = {}
-        for p, _g in pairs:
+        for p, g in pairs:
             if not self._fusable_param(p, clip_active):
                 continue
             dt = p.dtype
-            if dt not in _KERNEL_DTYPES:
+            if dt not in _KERNEL_DTYPES or not _flat.grad_fits(g, dt):
+                # a grad wider than its param (an O2 norm weight's fp32
+                # grad) takes the per-param path, unrounded
                 continue
             if dt != torch.float32 and moments and not self._use_master(p):
                 # per-param accumulators stay in the param dtype without
@@ -386,6 +397,12 @@ class Optimizer:
         place instead). The fused path copies grads into its own buffer,
         so either is safe for it."""
         for p in self._parameters:
+            mg = getattr(p, "main_grad", None)
+            if mg is not None:
+                if set_to_zero:
+                    mg.zero_()
+                else:
+                    p.main_grad = None
             if p.grad is None:
                 continue
             if set_to_zero:

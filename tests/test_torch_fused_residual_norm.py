@@ -1,12 +1,15 @@
-"""The port's fused residual + RMSNorm against the JAX package's.
+"""The port's fused residual + RMSNorm and residual + LayerNorm against
+the JAX package's.
 
 On the CPU the port's wrappers run their plain PyTorch versions. They are
 held against ``paddle_tpu.ops.pallas.fused_residual_norm``'s
-``fused_residual_rms_norm_fwd`` / ``_bwd`` run in interpret mode, as the
-JAX tests run them on the CPU, and the port's differentiable entry
-against ``jax.vjp`` of the JAX one, on the same numpy inputs. 300 rows
-are not a multiple of the TPU kernel's 256-row block (the JAX side pads
-a tail block).
+``fused_residual_rms_norm_fwd`` / ``_bwd`` and
+``fused_residual_layer_norm_fwd`` / ``_bwd`` run in interpret mode, as
+the JAX tests run them on the CPU, and the port's differentiable entries
+against ``jax.vjp`` of the JAX ones, on the same numpy inputs. 300 rows
+are not a multiple of the TPU kernels' 256-row block (the JAX side pads
+a tail block); 1 row is the smallest. The LayerNorm pair's JAX outputs
+are built once per module.
 
 Tolerances: fp32 1e-5 max abs (another summation order in the row
 reductions) and dw, a sum over rows, 1e-5 of its largest value; bf16 one
@@ -138,6 +141,100 @@ def test_differentiable_entry_matches_jax_grads(jax_mods, use_res):
     assert torch.equal(tx.grad, ty.grad)      # the shared cotangent
 
 
+LN_EPS = 1e-5
+LN_SHAPES = [(1, 96), (300, 96)]
+
+
+def _ln_inputs(n, h):
+    x, y, w, dres, dn = _inputs(n + 2 * h, n, h)
+    b = np.random.default_rng(n).normal(size=h).astype(np.float32)
+    return x, y, 1.0 + 0.1 * w, b, dres, dn
+
+
+@pytest.fixture(scope="module")
+def jax_layer_pair(jax_mods):
+    """The JAX LayerNorm pair's outputs, interpret mode, for every (rows,
+    h, dtype), built once: ``(res, normed, mean, rstd, d, dw, db)`` as
+    fp32 numpy, the backward from the forward's own saved values."""
+    _, jnp, jfr = jax_mods
+    out = {}
+    for n, h in LN_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            jdt = getattr(jnp, dtype)
+            x, y, w, b, dres, dn = (jnp.asarray(a, jdt)
+                                    for a in _ln_inputs(n, h))
+            res, normed, mean, rstd = jfr.fused_residual_layer_norm_fwd(
+                x, y, w, b, eps=LN_EPS, interpret=True)
+            d, dw, db = jfr.fused_residual_layer_norm_bwd(
+                res, w, mean, rstd, dres, dn, eps=LN_EPS, interpret=True)
+            out[(n, h, dtype)] = [np.asarray(a.astype(jnp.float32)) for a in
+                                  (res, normed, mean, rstd, d, dw, db)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h", LN_SHAPES)
+def test_layer_kernels_plain_versions_match_jax(jax_layer_pair, n, h,
+                                                dtype):
+    jres, jnormed, jmean, jrstd, jd, jdw, jdb = jax_layer_pair[(n, h, dtype)]
+    tx, ty, tw, tb, tdr, tdn = (_t(a, dtype) for a in _ln_inputs(n, h))
+    res, normed, mean, rstd = tfr.fused_residual_layer_norm_fwd(
+        tx, ty, tw, tb, LN_EPS)
+    assert res.dtype == normed.dtype == tx.dtype
+    assert mean.dtype == rstd.dtype == torch.float32
+    assert tuple(mean.shape) == tuple(rstd.shape) == (n, 1)
+    _close(res.float(), jres, dtype, "res")
+    _close(normed.float(), jnormed, dtype, "normed")
+    # stats are fp32 but, with bf16 rows, functions of the bf16 residual
+    # sum: the bf16 tolerance there
+    _close(mean, jmean, dtype, "mean")
+    _close(rstd, jrstd, dtype, "rstd", rel=True)
+    d, dw, db = tfr.fused_residual_layer_norm_bwd(
+        _t(jres, dtype), tw, torch.tensor(jmean), torch.tensor(jrstd), tdr,
+        tdn)
+    assert d.dtype == tx.dtype and dw.dtype == db.dtype == tw.dtype
+    _close(d.float(), jd, dtype, "d")
+    _close(dw.float(), jdw, dtype, "dw", rel=True)
+    _close(db.float(), jdb, dtype, "db", rel=True)
+    d0, dw0, db0 = tfr.fused_residual_layer_norm_bwd(
+        _t(jres, dtype), tw, torch.tensor(jmean), torch.tensor(jrstd), None,
+        tdn)
+    dz = tfr.fused_residual_layer_norm_bwd(
+        _t(jres, dtype), tw, torch.tensor(jmean), torch.tensor(jrstd),
+        torch.zeros_like(tdn), tdn)
+    assert all(torch.equal(p, q) for p, q in zip((d0, dw0, db0), dz))
+
+
+@pytest.mark.parametrize("use_res", [True, False])
+def test_layer_entry_matches_jax_grads(jax_mods, use_res):
+    """Grads of x, y, w and b through ``fused_residual_layer_norm`` (the
+    custom op) against ``jax.vjp`` of the JAX entry; without ``use_res``
+    the residual output is discarded (GPT's final norm)."""
+    jax, jnp, jfr = jax_mods
+    x, y, w, b, dres, dn = (a.reshape((3, 100, 64)) if a.ndim == 2 else a
+                            for a in _ln_inputs(300, 64))
+    if not use_res:
+        dres = np.zeros_like(dres)
+    (jr, jo), vjp = jax.vjp(
+        lambda *a: jfr.fused_residual_layer_norm(*a, eps=LN_EPS,
+                                                 interpret=True),
+        *(jnp.asarray(a) for a in (x, y, w, b)))
+    jgrads = vjp((jnp.asarray(dres), jnp.asarray(dn)))
+
+    targs = [torch.tensor(a).requires_grad_() for a in (x, y, w, b)]
+    r, o = tfr.fused_residual_layer_norm(*targs, eps=LN_EPS)
+    assert r.shape == o.shape == (3, 100, 64)
+    _close(r.detach(), jr, "float32", "res")
+    _close(o.detach(), jo, "float32", "normed")
+    loss = (o * torch.tensor(dn)).sum()
+    if use_res:
+        loss = loss + (r * torch.tensor(dres)).sum()
+    loss.backward()
+    for name, t, jg in zip(("dx", "dy", "dw", "db"), targs, jgrads):
+        _close(t.grad, jg, "float32", name, rel=name in ("dw", "db"))
+    assert torch.equal(targs[0].grad, targs[1].grad)   # shared cotangent
+
+
 def test_backward_without_dres_is_zero_dres():
     x, y, w, dres, dn = (torch.tensor(a) for a in _inputs(3, 20, 32))
     res, _, rstd = tfr.fused_residual_rms_norm_fwd(x, y, w, EPS)
@@ -159,8 +256,17 @@ def test_fused_residual_norm_functional():
     with tamp.auto_cast(level="O2", dtype="bfloat16"):
         r, o = TF.fused_residual_norm(x, y, w, norm="rms")
     assert r.dtype == o.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="#9-#10"):
-        TF.fused_residual_norm(x, y, w, torch.zeros(16), norm="layer")
+    # norm="layer": the fused residual + LayerNorm pair
+    b = torch.linspace(-1.0, 1.0, 16)
+    r, o = TF.fused_residual_norm(x, y, w, b, norm="layer")
+    rr, ro, _, _ = tfr.fused_residual_layer_norm_fwd_plain(x, y, w, b, 1e-5)
+    assert torch.equal(r, rr) and torch.equal(o, ro)
+    torch.testing.assert_close(
+        o, torch.nn.functional.layer_norm(x + y, (16,), w, b), rtol=0,
+        atol=1e-5)
+    with tamp.auto_cast(level="O2", dtype="bfloat16"):
+        r, o = TF.fused_residual_norm(x, y, w, b, norm="layer")
+    assert r.dtype == o.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="requires bias"):
         TF.fused_residual_norm(x, y, w, norm="layer")
     with pytest.raises(ValueError, match="'layer' or 'rms'"):
@@ -180,18 +286,25 @@ def test_rms_norm_runs_in_fp32_under_amp():
 
 def test_wrappers_refuse_devices_without_a_kernel():
     wrappers = (tfr.fused_residual_rms_norm_fwd,
-                tfr.fused_residual_rms_norm_bwd)
+                tfr.fused_residual_rms_norm_bwd,
+                tfr.fused_residual_layer_norm_fwd,
+                tfr.fused_residual_layer_norm_bwd)
     before = [f.launches for f in wrappers]
     m = torch.zeros(4, 16, device="meta")
     w = torch.zeros(16, device="meta")
+    s = torch.zeros(4, 1, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tfr.fused_residual_rms_norm_fwd(m, m, w)
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        tfr.fused_residual_rms_norm_bwd(m, w, torch.zeros(4, 1,
-                                                          device="meta"),
-                                        None, m)
+        tfr.fused_residual_rms_norm_bwd(m, w, s, None, m)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfr.fused_residual_layer_norm_fwd(m, m, w, w)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfr.fused_residual_layer_norm_bwd(m, w, s, s, None, m)
     with pytest.raises(ValueError, match="interpret"):
         tfr.fused_residual_rms_norm(m, m, w, interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        tfr.fused_residual_layer_norm(m, m, w, w, interpret=True)
     assert [f.launches for f in wrappers] == before
 
 
@@ -238,3 +351,70 @@ def test_kernels_match_plain_on_card(cuda, n, h, dtype):
     colsum = float((f32[4] * res.float() * rstd).abs().sum(0).max())
     dw_lim = lim(rdw) if bf else 1e-5 * colsum
     assert float((dw.float() - rdw).abs().max()) <= dw_lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h", [(8192, 768), (8191, 768), (37, 203)])
+def test_layer_kernels_match_plain_on_card(cuda, n, h, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=cuda)
+    x, y, dres, dn = (rn(n, h).to(dtype) for _ in range(4))
+    w, b = (1.0 + 0.1 * rn(h)).to(dtype), rn(h).to(dtype)
+    fb = [tfr.fused_residual_layer_norm_fwd.launches,
+          tfr.fused_residual_layer_norm_bwd.launches]
+    res, normed, mean, rstd = tfr.fused_residual_layer_norm_fwd(x, y, w, b,
+                                                                1e-5)
+    d, dw, db = tfr.fused_residual_layer_norm_bwd(res, w, mean, rstd, dres,
+                                                  dn)
+    torch.cuda.synchronize()
+    assert [tfr.fused_residual_layer_norm_fwd.launches,
+            tfr.fused_residual_layer_norm_bwd.launches] == [fb[0] + 1,
+                                                            fb[1] + 1]
+    f32 = [t.float() for t in (x, y, w, b, dres, dn)]
+    rres, rnormed, rmean, _ = tfr.fused_residual_layer_norm_fwd_plain(
+        *f32[:4], 1e-5)
+    rd, rdw, rdb = tfr.fused_residual_layer_norm_bwd_plain(
+        res.float(), f32[2], mean, rstd, f32[4], f32[5])
+    bf = dtype == torch.bfloat16
+
+    def lim(ref, roundings=1):
+        return (roundings * 2.0 ** -8 * float(ref.abs().max()) + 1e-6
+                if bf else 1e-5)
+    for got, ref, k in ((res, rres, 1), (normed, rnormed, 2),
+                        (mean, rmean, 1), (d, rd, 1)):
+        assert float((got.float() - ref).abs().max()) <= lim(ref, k)
+    xhat = (res.float() - mean) * rstd
+    for got, ref, terms in ((dw, rdw, f32[5] * xhat), (db, rdb, f32[5])):
+        tol = lim(ref) if bf else 1e-5 * float(terms.abs().sum(0).max())
+        assert float((got.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_kernels_read_weights_in_their_own_dtype_on_card(cuda, dtype,
+                                                               wdtype):
+    """The fused LayerNorm pair with weights of either dtype beside rows
+    of either: bitwise the kernels on the weights widened to fp32, and
+    dw, db in the weights' dtype."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=cuda)
+    x, y, dres, dn = (rn(8191, 768).to(dtype) for _ in range(4))
+    w, b = (1.0 + 0.1 * rn(768)).to(wdtype), rn(768).to(wdtype)
+    got = tfr.fused_residual_layer_norm_fwd(x, y, w, b, 1e-5)
+    ref = tfr.fused_residual_layer_norm_fwd(x, y, w.float(), b.float(),
+                                            1e-5)
+    assert all(torch.equal(p, q) for p, q in zip(got, ref))
+    res, _, mean, rstd = got
+    d, dw, db = tfr.fused_residual_layer_norm_bwd(res, w, mean, rstd, dres,
+                                                  dn)
+    rd, rdw, rdb = tfr.fused_residual_layer_norm_bwd(res, w.float(), mean,
+                                                     rstd, dres, dn)
+    assert torch.equal(d, rd)
+    assert dw.dtype == db.dtype == wdtype
+    assert torch.equal(dw, rdw.to(wdtype)) and torch.equal(db, rdb.to(wdtype))

@@ -19,6 +19,13 @@ the port runs the kernels' plain versions.
 * O2 (bf16 params with the RMSNorm weights, fp32 master weights):
   losses over 2 steps within 2e-2 relative (the two frameworks round to
   bf16 at other places);
+* the dtype of every parameter's grad after one O2 backward, glue off
+  and on, equals the JAX package's (a bf16 RMSNorm weight that reaches
+  the black-listed ``rms_norm`` gets an fp32 grad), and the fp32
+  masters of the RMSNorm weights after 3 O2 steps (glue off) are within
+  2e-4 of the JAX package's: each step moves them by at most lr = 1e-3,
+  and a grad element near zero can point either way after the two
+  frameworks' other bf16 roundings;
 * ``rope_theta=500000`` changes the logits as it does in JAX;
 * the weight round trip is exact.
 """
@@ -75,8 +82,14 @@ def jax_weights():
     return _jax_weights(CFG)
 
 
+def _dtype_name(dt):
+    return str(dt).split(".")[-1]
+
+
 def _jax_train(weights, steps, cfg=CFG, o2=False, glue=False, lr=1e-3):
-    """JAX losses, final params and the first step's logits and grads."""
+    """JAX losses, final params and the first step's logits, grads and
+    grad dtypes; with ``o2`` also the RMSNorm weights' fp32 masters after
+    the last step (``first["norm_masters"]``)."""
     import paddle_tpu as paddle
     from paddle_tpu import amp
     from paddle_tpu.core import state as jstate
@@ -107,7 +120,9 @@ def _jax_train(weights, steps, cfg=CFG, o2=False, glue=False, lr=1e-3):
                                                .numpy()),
                              grads={n: np.asarray(p.grad.astype("float32")
                                                   .numpy())
-                                    for n, p in jm.named_parameters()})
+                                    for n, p in jm.named_parameters()},
+                             grad_dtypes={n: _dtype_name(p.grad.dtype)
+                                          for n, p in jm.named_parameters()})
             if steps > 1:
                 opt.step()
             opt.clear_grad()
@@ -116,6 +131,10 @@ def _jax_train(weights, steps, cfg=CFG, o2=False, glue=False, lr=1e-3):
         jstate.set_flags({"train_glue_fusion": old})
     final = {k: np.asarray(v.astype("float32").numpy())
              for k, v in jm.state_dict().items()}
+    if o2:
+        first["norm_masters"] = {
+            n: np.asarray(opt._master_weights[id(p)]._read())
+            for n, p in jm.named_parameters() if "norm" in n}
     return losses, final, first
 
 
@@ -127,6 +146,16 @@ def jax_fp32_run(jax_weights):
 @pytest.fixture(scope="module")
 def jax_glue_step(jax_weights):
     return _jax_train(jax_weights, 1, glue=True)
+
+
+@pytest.fixture(scope="module")
+def jax_o2_run(jax_weights):
+    return _jax_train(jax_weights, 3, o2=True)
+
+
+@pytest.fixture(scope="module")
+def jax_o2_glue_run(jax_weights):
+    return _jax_train(jax_weights, 2, o2=True, glue=True)
 
 
 class _Glue:
@@ -251,8 +280,8 @@ def test_adamw_trajectory_fp32_matches_jax(jax_weights, jax_fp32_run):
                                    err_msg=k)
 
 
-def test_o2_losses_match_jax(jax_weights):
-    jl, _, _ = _jax_train(jax_weights, 2, o2=True, glue=True)
+def test_o2_losses_match_jax(jax_weights, jax_o2_glue_run):
+    jl, _, _ = jax_o2_glue_run
     tm = _port_model(jax_weights, recompute=True,
                      recompute_policy="dots_and_kernels_saveable")
     opt = topt.AdamW(learning_rate=1e-3, parameters=tm.parameters())
@@ -352,3 +381,61 @@ def test_eval_forward_ignores_glue(jax_weights, monkeypatch):
         logits = tm(ids)
     assert calls["rms"] == 0 and calls["rope"] == 2 * CFG["num_layers"]
     assert torch.equal(logits, train_logits)
+
+
+def _port_o2(weights, steps, glue):
+    """The port's O2 AdamW run: the first step's grad dtypes (JAX names)
+    and the optimizer after ``steps`` steps."""
+    tm = _port_model(weights, recompute=True,
+                     recompute_policy="dots_and_kernels_saveable")
+    opt = topt.AdamW(learning_rate=1e-3, parameters=tm.parameters())
+    tm, opt = tamp.decorate(models=tm, optimizers=opt, level="O2",
+                            dtype="bfloat16", master_weight=True)
+    params = list(tm.named_parameters())
+    jnames = llama_state_to_jax({n: torch.zeros(1) for n, _ in params})
+    dtypes = None
+    with _Glue(glue):
+        for ids, lab in _batches(steps):
+            with tamp.auto_cast(level="O2", dtype="bfloat16"):
+                loss = tm(torch.tensor(ids), torch.tensor(lab))
+            loss.backward()
+            if dtypes is None:
+                dtypes = {j: _dtype_name(tamp.grad_of(p).dtype)
+                          for j, (_, p) in zip(jnames, params)}
+            opt.step()
+            opt.clear_grad()
+    return dtypes, dict(zip(jnames, (p for _, p in params))), opt
+
+
+@pytest.mark.parametrize("glue", [False, True])
+def test_o2_grad_dtypes_match_jax(jax_weights, jax_o2_run, jax_o2_glue_run,
+                                  glue):
+    """Every grad's dtype after one O2 backward equals the JAX package's:
+    the RMSNorm weights that reach the black-listed ``rms_norm`` (all of
+    them with glue off, layer 0's input_norm with glue on) get fp32
+    grads, the rest bf16."""
+    want = (jax_o2_glue_run if glue else jax_o2_run)[2]["grad_dtypes"]
+    dtypes, _, _ = _port_o2(jax_weights, 1, glue)
+    assert dtypes == want
+    wide = sorted(k for k, v in want.items() if v == "float32")
+    L = CFG["num_layers"]
+    assert wide == (["llama.layer_0.input_norm.weight"] if glue else sorted(
+        [f"llama.layer_{i}.{n}.weight" for i in range(L)
+         for n in ("input_norm", "post_norm")] + ["llama.norm.weight"]))
+
+
+def test_o2_norm_masters_match_jax(jax_weights, jax_o2_run):
+    """After 3 O2 steps (glue off) the RMSNorm weights' fp32 masters,
+    updated from their fp32 grads on the per-param path, agree with the
+    JAX package's within 2e-4 (see the module docstring)."""
+    want = jax_o2_run[2]["norm_masters"]
+    _, params, opt = _port_o2(jax_weights, 3, False)
+    assert len(want) == 2 * CFG["num_layers"] + 1
+    for name, w in want.items():
+        got = opt._master_weights[params[name]]
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=2e-4,
+                                   err_msg=name)
+    # the other params stay in one fused bf16 bucket with fp32 masters
+    assert [(str(g.dtype), g.use_master) for g in opt._flat] == [
+        ("torch.bfloat16", True)]

@@ -336,3 +336,73 @@ def test_fused_path_reads_this_steps_grads():
     # the parameters are views of the flat param buffer
     grp = of._flat[0]
     assert all(grp.owns(p, i) for i, p in enumerate(ps_f))
+
+
+def _main_grad_step(name, w0, g, q0, qg):
+    """One step of ``name`` over a bf16 param given ``g`` as its fp32
+    ``main_grad`` (the grad of an O2 norm weight) beside a bf16 param
+    with a bf16 ``.grad``; master weights on. Returns the optimizer and
+    the two params."""
+    from paddle_tpu_torch import optimizer as topt
+    p = torch.nn.Parameter(torch.tensor(w0).to(torch.bfloat16))
+    q = torch.nn.Parameter(torch.tensor(q0).to(torch.bfloat16))
+    o = _main_grad_opt(topt, name, [p, q], multi_precision=True)
+    p.main_grad = torch.tensor(g)
+    q.grad = torch.tensor(qg).to(torch.bfloat16)
+    o.step()
+    return o, p, q
+
+
+def _main_grad_opt(topt, name, ps, multi_precision=False):
+    # AdamW's epsilon of 1: the first step is lr * g / (|g| + 1), which
+    # moves with g's low bits (with the usual epsilon it is lr * sign(g))
+    return {"sgd": lambda: topt.SGD(1.0, parameters=ps,
+                                    multi_precision=multi_precision),
+            "adamw": lambda: topt.AdamW(0.5, epsilon=1.0, parameters=ps,
+                                        weight_decay=0.1,
+                                        multi_precision=multi_precision),
+            }[name]()
+
+
+def _reference_master(name, w0, g):
+    """The fp32 update of fp32 ``w0`` by fp32 grad ``g`` (per-param)."""
+    from paddle_tpu_torch import optimizer as topt
+    r = torch.nn.Parameter(torch.tensor(w0).to(torch.bfloat16).float())
+    o = _main_grad_opt(topt, name, [r])
+    r.grad = torch.tensor(g)
+    o.step()
+    return r.detach().numpy()
+
+
+@pytest.mark.parametrize("name", ["sgd", "adamw"])
+def test_master_update_reads_the_unrounded_fp32_main_grad(name, fused):
+    """Under O2 a bf16 norm weight's grad is fp32 (``main_grad``), and
+    the master update takes it unrounded: the fp32 master equals the
+    fp32 update by the fp32 grad (to 1e-7 relative), and the update by
+    its bf16 rounding lies far outside that. The grad carries bits below
+    bf16's 8-bit mantissa, so a rounding moves every element's update by
+    about 2^-9 relative. The bf16 param with a bf16 grad beside it takes
+    the flat bucket when the fused path is on; the fp32-grad one stays
+    per-param either way."""
+    rng = np.random.default_rng(11)
+    w0 = rng.normal(size=64).astype(np.float32)
+    g = (1.0 + rng.uniform(2.0 ** -12, 2.0 ** -9, size=64)) \
+        * np.where(rng.random(64) < 0.5, -1.0, 1.0)
+    g = g.astype(np.float32)
+    g_bf16 = torch.tensor(g).to(torch.bfloat16).float().numpy()
+    assert (g_bf16 != g).all()
+    q0 = rng.normal(size=32).astype(np.float32)
+    qg = rng.normal(size=32).astype(np.float32)
+    o, p, q = _main_grad_step(name, w0, g, q0, qg)
+    assert bool(o._flat) == fused
+    assert all(p is not m for grp in o._flat or () for m in grp.params)
+    master = o._master_weights[p].numpy()
+    want = _reference_master(name, w0, g)
+    rounded = _reference_master(name, w0, g_bf16)
+    lim = 1e-7 * np.abs(want)
+    np.testing.assert_array_less(np.abs(master - want), lim + 1e-30)
+    # the check tells the fp32 grad from its bf16 rounding
+    assert (np.abs(rounded - want) > 100 * lim).all()
+    np.testing.assert_array_equal(
+        p.detach().float().numpy(),
+        torch.tensor(master).to(torch.bfloat16).float().numpy())

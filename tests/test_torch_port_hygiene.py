@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,6 +57,7 @@ def test_import_pulls_in_no_jax():
             "import paddle_tpu_torch.ops.cuda.fused_decode_mlp\n"
             "import paddle_tpu_torch.ops.cuda.rope\n"
             "import paddle_tpu_torch.ops.cuda.fused_residual_norm\n"
+            "import paddle_tpu_torch.ops.cuda.norms\n"
             "import paddle_tpu_torch.ops.cuda.quant_matmul\n"
             "import paddle_tpu_torch.quantization\n"
             "import paddle_tpu_torch.incubate.nn.functional\n"
@@ -70,9 +72,10 @@ def test_import_pulls_in_no_jax():
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n"
             "from paddle_tpu_torch.ops.cuda import _build, rope, "
-            "fused_residual_norm, quant_matmul\n"
+            "fused_residual_norm, norms, quant_matmul\n"
             "assert _build._loaded == {}, _build._loaded\n"
             "assert rope._fn is None and fused_residual_norm._fns is None\n"
+            "assert norms._fns is None\n"
             "assert quant_matmul._fn is None\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -293,6 +296,42 @@ def test_chip_smoke_llama_train_phase_rehearses_on_cpu(glue):
     assert state.get_flag("train_glue_fusion") is False
 
 
+@pytest.mark.parametrize("phase", ["gpt_glue", "gpt_norm_backend",
+                                   "llama_norm_backend"])
+def test_chip_smoke_glue_and_norm_backend_phases_rehearse_on_cpu(phase):
+    """chip_smoke's GPT glue-on train phase and its norm-backend phases
+    (GPT and LLaMA, ``PDTPU_NORM_BACKEND=pallas`` set for the phase) at a
+    tiny width on the CPU, where the switch takes the plain path; the
+    flag and the variable are restored after."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from paddle_tpu_torch.core import state
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
+
+    small = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
+                 max_seq_len=32, recompute=True,
+                 recompute_policy="dots_and_kernels_saveable")
+    env = os.environ.get("PDTPU_NORM_BACKEND")
+    kw = dict(device="cpu", batch=2, seq=32, warmup=1, steps=2)
+    if phase == "llama_norm_backend":
+        out = chip_smoke.llama_train_phase(
+            0, False, cfg=LlamaConfig(num_kv_heads=2, **small),
+            norm_backend=True, **kw)
+        assert out["buckets"] == 1 and out["norm_backend"]
+    else:
+        glue = phase == "gpt_glue"
+        out = chip_smoke.train_phase(0, cfg=GPTConfig(**small), glue=glue,
+                                     norm_backend=not glue, **kw)
+        assert out["buckets"] == 2 and out["glue"] is glue
+    assert len(out["losses"]) == 3 and all(np.isfinite(out["losses"]))
+    assert out["mfu"] is None and set(out["counts"].values()) == {0}
+    assert state.get_flag("train_glue_fusion") is False
+    assert os.environ.get("PDTPU_NORM_BACKEND") == env
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -305,8 +344,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert "sm_90a" in str(ei.value)
     assert _build.sources() == ["flash_attention", "fused_decode_mlp",
                                 "fused_decode_qkv", "fused_optimizer",
-                                "fused_residual_norm", "paged_attention",
-                                "quant_matmul", "rope"]
+                                "fused_residual_norm", "norms",
+                                "paged_attention", "quant_matmul", "rope"]
 
 
 def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
@@ -328,7 +367,7 @@ def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", ["flash_attention", "fused_optimizer",
                                   "fused_decode_qkv", "fused_decode_mlp",
                                   "rope", "fused_residual_norm",
-                                  "quant_matmul"])
+                                  "quant_matmul", "norms"])
 def test_failed_build_of_training_kernels_raises(monkeypatch, tmp_path,
                                                  name):
     fake = tmp_path / "nvcc"
