@@ -1,10 +1,12 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
     python3 chip_ab.py {flash,decode,train,glue,rms} ROOT [ROOT ...]
+    python3 chip_ab.py groups ROOT
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
-ms per case, forward and backward), its fused decode kernel cases
-(``decode``: kernel ms of each) or its train phase (``train``: step
+ms per case, forward and backward), its GPT-124M fused decode kernel
+cases (``decode``: kernel ms of each, and a sha256 of the three fp32
+kernels' outputs on fixed inputs) or its train phase (``train``: step
 ms, and the device busy ms and launches of the profiled step; ``glue``
 the same with ``train_glue_fusion`` on), or the fused residual
 + RMSNorm kernels on fixed inputs (``rms``: a sha256 of every output's
@@ -13,12 +15,27 @@ launch), from each ROOT in the order given, each in a process of its
 own, and prints one ``AB`` JSON line per run. Give the roots in turns (old, new, new, old) so that
 drift of the card or its host shows. Needs a card; the kernels build
 in each ROOT.
+
+``groups`` builds copies of ROOT's port under ``ROOT/_chipcopy/groups/``
+that differ only in how many weight rows a warp dots at once
+(``GROUPS``: the per-head ingress, the SwiGLU egress, the epilogue) and
+prints, for each copy, that kernel's ms at the LLaMA-7B decode shapes
+(B = 8 and 1; the epilogue also at GPT-124M's) and a sha256 of its
+outputs.
 """
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
+from pathlib import Path
+
+# kernel: (source, the constant that sets the group, the sizes tried)
+GROUPS = {"qkv": ("fused_decode_qkv.cu", "kHeadCols", (1, 2, 4)),
+          "swiglu": ("fused_decode_mlp.cu", "kGroup", (2, 4)),
+          "epilogue": ("fused_decode_mlp.cu", "kEpiGroup", (1, 2, 4))}
 
 
 def _one(what, root):
@@ -28,15 +45,21 @@ def _one(what, root):
     import chip_smoke
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    chip_smoke.build()
+    if what not in GROUPS:    # a group copy builds its one source at use
+        chip_smoke.build()
     if what == "flash":
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
         fwd, bwd = chip_smoke.flash_cases(0, "", flush)
         out = {"fwd": {r["case"]: r["ms"] for r in fwd},
                "bwd": {r["case"]: r["ms"] for r in bwd}}
     elif what == "decode":
-        rows = chip_smoke.decode_kernel_phase(0, "")
-        out = {name: r[0]["ms"] for name, r in rows.items()}
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+        rows = chip_smoke.decode_kernel_cases(0, "", flush)
+        out = {name: {r["case"]: r["ms"] for r in rs}
+               for name, rs in rows.items()}
+        out["sha256"] = _decode_digests()
+    elif what in GROUPS:
+        out = _group_times(chip_smoke, what)
     elif what == "rms":
         out = _rms_digests(chip_smoke)
     else:
@@ -87,9 +110,165 @@ def _rms_digests(chip_smoke):
     return out
 
 
+def _digest(ts):
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _decode_digests():
+    """sha256 of the GPT-124M fused decode kernels' outputs over fp32
+    pools (ingress q and pools, egress, epilogue logits, nxt and bad with
+    one NaN-poisoned row) on inputs drawn from seed 0 at the megakernel
+    serve's shapes."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, H, nh, hd, V, ps, NP = 8, 768, 12, 64, 50304, 16, 64
+    P = 1 + B * NP
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    x, att = rn(B, H), rn(B, H)
+    lw, lb = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
+    pos = torch.randint(0, 1024, (B,), generator=gen, device="cuda")
+    bt = (torch.randperm(P - 1, generator=gen, device="cuda")[:B * NP]
+          + 1).reshape(B, NP).to(torch.int32)
+    kp, vp = rn(nh, P, ps, hd), rn(nh, P, ps, hd)
+    q, kp, vp = fq.fused_decode_qkv(
+        x, lw, lb, rn(3 * H, H, std=0.02), rn(3 * H, std=0.02), pos, bt, kp,
+        vp, eps=1e-5, n_heads=nh, n_kv_heads=nh, head_dim=hd)
+    y = fm.fused_decode_mlp(x, att, rn(H, H, std=0.02), rn(H, std=0.02), lw,
+                            lb, rn(4 * H, H, std=0.02), rn(4 * H, std=0.02),
+                            rn(H, 4 * H, std=0.02), rn(H, std=0.02),
+                            eps=1e-5)
+    poison = torch.zeros(B, device="cuda")
+    poison[2] = float("nan")
+    lg, nxt, bad = fm.fused_decode_epilogue(x, lw, lb, rn(V, H, std=0.02),
+                                            None, poison, eps=1e-5,
+                                            transpose_lm=True)
+    torch.cuda.synchronize()
+    return {"qkv": _digest((q, kp, vp)), "mlp": _digest((y,)),
+            "epilogue": _digest((lg, nxt, bad))}
+
+
+def _group_times(chip_smoke, what):
+    """ms (behind the device spin, L2 flushed) and a sha256 of the outputs
+    of one fused decode kernel at the LLaMA-7B decode shapes, B = 8 and
+    1, fp32 (the epilogue also at GPT-124M's LayerNorm and tied head)."""
+    import torch
+
+    from paddle_tpu_torch.models.generation import _rope_tables
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, nh, hd, inter, V, ps = 4096, 32, 128, 11008, 32000, 16
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    nw = 1.0 + rn(H, std=0.1)
+    if what == "qkv":
+        ws = [rn(nh * hd, H, std=0.02) for _ in range(3)]
+        P = 1 + 8 * 128
+        pools = [rn(nh, P, ps, hd) for _ in range(2)]
+    elif what == "swiglu":
+        ws = (rn(H, H, std=0.005), rn(inter, H, std=0.02),
+              rn(inter, H, std=0.02), rn(H, inter, std=0.005))
+    else:
+        w_lm = rn(V, H, std=0.02)
+    out = {}
+    for B in (8, 1):
+        x = rn(B, H)
+        if what == "qkv":
+            pos = torch.randint(0, 2048, (B,), generator=gen, device="cuda")
+            bt = torch.arange(1, 1 + B * 128, device="cuda",
+                              dtype=torch.int32).reshape(B, 128)
+            kw = dict(eps=1e-6, n_heads=nh, n_kv_heads=nh, head_dim=hd,
+                      norm="rms", rope=_rope_tables(pos, hd, 1e4))
+
+            def fn():
+                return fq.fused_decode_qkv(x, nw, None, ws, [], pos, bt,
+                                           *pools, **kw)
+        elif what == "swiglu":
+            att = rn(B, H)
+
+            def fn():
+                return (fm.fused_decode_mlp(
+                    x, att, ws[0], None, nw, None, ws[1], None, ws[3], None,
+                    ws[2], arch="llama", norm="rms", eps=1e-6),)
+        else:
+            zero = torch.zeros(B, device="cuda")
+
+            def fn():
+                return fm.fused_decode_epilogue(x, nw, None, w_lm, None,
+                                                zero, norm="rms", eps=1e-6)
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"llama7b_b{B}"] = {
+            "ms": chip_smoke._time_ms(fn, 30, flush, spin=True),
+            "sha256": _digest(res)}
+    if what == "epilogue":
+        del w_lm
+        Hg, B = 768, 8
+        x, wte = rn(B, Hg), rn(50304, Hg, std=0.02)
+        lw, lb, zero = 1.0 + rn(Hg, std=0.1), rn(Hg, std=0.1), \
+            torch.zeros(B, device="cuda")
+
+        def fn():
+            return fm.fused_decode_epilogue(x, lw, lb, wte, None, zero,
+                                            eps=1e-5, transpose_lm=True)
+        res = fn()
+        torch.cuda.synchronize()
+        out["gpt124m_b8"] = {
+            "ms": chip_smoke._time_ms(fn, 50, flush, spin=True),
+            "sha256": _digest(res)}
+    return out
+
+
+def _group_copies(root):
+    """One copy of ROOT's port a group size, under ROOT/_chipcopy/groups:
+    [(kernel, size, copy root)]."""
+    base = Path(root).resolve()
+    out = []
+    for what, (src, const, sizes) in GROUPS.items():
+        for n in sizes:
+            dst = base / "_chipcopy" / "groups" / f"{what}{n}"
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(base / "paddle_tpu_torch", dst / "paddle_tpu_torch",
+                            ignore=shutil.ignore_patterns("build",
+                                                          "__pycache__"))
+            shutil.copy(base / "chip_smoke.py", dst / "chip_smoke.py")
+            cu = dst / "paddle_tpu_torch" / "ops" / "cuda" / "csrc" / src
+            text, k = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {n};",
+                              cu.read_text())
+            if k != 1:
+                raise RuntimeError(f"{src}: {k} definitions of {const}")
+            cu.write_text(text)
+            out.append((what, n, str(dst)))
+    return out
+
+
 def main(argv):
     if len(argv) >= 3 and argv[0] == "--one":
         _one(argv[1], argv[2])
+        return 0
+    if len(argv) == 2 and argv[0] == "groups":
+        for what, n, root in _group_copies(argv[1]):
+            print("GROUP", json.dumps({"kernel": what, "group": n}),
+                  flush=True)
+            subprocess.run([sys.executable, __file__, "--one", what, root],
+                           check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
                                         "rms"):

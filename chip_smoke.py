@@ -31,10 +31,16 @@ card.
      fp32 state within 1e-6 of its largest value, bf16 weights within
      one bf16 rounding;
    * ``fused_decode_qkv``, ``fused_decode_mlp`` and
-     ``fused_decode_epilogue`` at the megakernel serve phase's shapes
-     (x ``[8, 768]``, pools ``[12, 513, 16, 64]``, tables ``[8, 64]``,
-     the tied embedding ``[50304, 768]``): values within 2e-5, tokens and
-     bad flags equal except on near ties, a NaN-poisoned row bad with
+     ``fused_decode_epilogue`` at the LLaMA-7B megakernel serve's shapes
+     (hidden 4096, 32 heads of 128, intermediate 11008, the untied head
+     ``[32000, 4096]``, pools ``[32, 1025, 16, 128]`` fp32 or int8 with
+     scale pools, tables ``[B, 128]``) at B = 8 (the main case), 1 and 5
+     and with GQA (32 q heads on 8 kv heads), and at the GPT megakernel
+     serve phase's (x ``[8, 768]``, pools ``[12, 513, 16, 64]``, tables
+     ``[8, 64]``, the tied embedding ``[50304, 768]``): values within
+     2e-5 of the plain version's largest, int8 pool bytes within one
+     step (the count reported) and scales within 1e-6 relative, tokens
+     and bad flags equal except on near ties, a NaN-poisoned row bad with
      token 0; each beside the unfused eager chain it replaces;
    * ``rope`` at the LLaMA train phase's q ``[2, 2048, 32, 128]`` bf16
      with ``[2048, 128]`` half-pairing tables, forward and the
@@ -76,7 +82,11 @@ card.
    ``megakernel=True`` under the same checks; every decode step (the
    warm-up's single step and each step of a window) must launch
    ``fused_decode_qkv``, the attention and ``fused_decode_mlp`` once per
-   layer and ``fused_decode_epilogue`` once.
+   layer and ``fused_decode_epilogue`` once. After the two paths in
+   turns, the megakernel serves them once more over int8 KV pages
+   (``kv_quant=True``; the teacher replays the quantization, near-tie
+   margin twice GPT-124M's own logit gap along the fused decode path,
+   measured first).
 3b. LLaMA serve phases: LLaMA-7B (``LlamaConfig()``: vocab 32000, hidden
    4096, 32 layers of 32 heads of 128, intermediate 11008) at full depth
    with every projection and the untied ``lm_head`` weight-only int8
@@ -89,8 +99,14 @@ card.
    replays the quantization (dequantized weights, each K/V vector
    through ``kv_quantize`` -> ``kv_dequantize``) except near ties (a
    top-2 gap below MARGIN_KV8, whose reason is written beside it); one
-   profiled run and one profiled decode window. Then the fp32 model
-   (fp32 pools) at LLaMA-7B width and 4 layers under the same checks.
+   profiled run and one profiled decode window. Then the fp32 LLaMA-7B
+   at full depth (27 GB of weights, drawn on the card) with fp32 pools,
+   unfused and then with ``megakernel=True`` (every decode step 32
+   ``fused_decode_qkv``, 32 attention, 32 ``fused_decode_mlp`` and one
+   ``fused_decode_epilogue`` launch), both again in turns (megakernel,
+   unfused), then with int8 pools unfused and through the megakernel;
+   each under the same checks (teacher margin MARGIN over fp32 pools,
+   MARGIN_KV8 over int8 ones) with one profiled decode window.
 4. Train phase: GPT-124M in ``bench.py``'s training configuration
    (batch 8 x 1024, recompute ``dots_and_kernels_saveable``, AdamW lr
    1e-4, AMP O2 bf16 with fp32 master weights) through the Paddle entry
@@ -127,8 +143,9 @@ card.
 7. LLaMA parity: one fp32 AdamW step with glue on (LLaMA-7B widths, 1
    layer, batch 1 x 256) on the card against a CPU copy.
 8. Prints the ``train`` JSON line, the ``kernels`` JSON line (seventeen
-   kernels, each with the launches of its own path, with the serve
-   phases), then
+   kernels, each with the launches of its own path: the three fused
+   decode kernels those of the fp32 LLaMA-7B megakernel serve, with every
+   megakernel path's count beside it; with the serve phases), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed phase
    raises: the exit code is not 0 and no result line is printed.
    Without a card it exits 2 at once.
@@ -156,7 +173,8 @@ MARGIN = 1e-4                # teacher-forced near-tie margin
 # of them to the neighbouring int8 step, and the served path's logits
 # sit up to ~0.05 from the plain forward's at LLaMA-7B, 32 layers (the
 # LLaMA serve phase measures it: ``logit_gap``); a pick may differ only
-# where the top-2 gap is below twice that (PERF.md, PR 5)
+# where the top-2 gap is below twice that (PERF.md). GPT-124M's
+# int8 serve takes twice its own reading instead (``serve_phase``).
 MARGIN_KV8 = 0.1
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's ~2 GHz clock
 
@@ -680,7 +698,260 @@ def _pick_err(name, nxt, bad, ref_nxt, ref_bad, ref_lg):
 def decode_kernel_phase(seed, power):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = decode_kernel_cases(seed, power, flush)
+    for kname, extra in llama_decode_kernel_cases(seed, power,
+                                                  flush).items():
+        rows[kname] = extra + rows[kname]   # the LLaMA-7B rows first
     del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _decode_row(name, errs, ms, plain_ms, unfused_ms, nbytes, flops, shape,
+                power, kname):
+    """One kernel case's row and its log line; ``errs`` is (max abs
+    error, the plain version's largest |value|) and the case holds when
+    the error is within TOL of that largest value."""
+    err, largest = errs
+    if not err <= TOL * max(largest, 1.0):
+        raise AssertionError(f"{kname} {name}: kernel vs plain max abs error "
+                             f"{err:.3g} > {TOL} x {largest:.3g}")
+    bound_ms, bound_by = _fp32_bound(nbytes, flops)
+    log(f"kernel {kname} {name} {shape}: max_abs_err {err:.3g} (largest "
+        f"{largest:.3g}), {ms:.4f} ms (plain {plain_ms:.4f} ms, unfused "
+        f"chain {unfused_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, {bound_ms / ms:.1%} of bound) on {power}")
+    return dict(case=name, max_abs_err=err, largest=largest, ms=ms,
+                plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, flops=flops,
+                library_ms=None, library="none: no single call",
+                shape=shape)
+
+
+def _max_err(got, ref):
+    return (float((got.float() - ref.float()).abs().max()),
+            float(ref.float().abs().max()))
+
+
+def _pool_errs(kname, name, got, ref):
+    """Pools after the kernel against the plain version's: fp32 values
+    as values; int8 bytes within one step (a rounding tie of
+    ``kv_quantize`` on K/V vectors from another summation order), the
+    scales within 1e-6 relative. Returns (errs for the values, int8
+    bytes off by one)."""
+    if got[0].dtype != torch.int8:
+        e = [_max_err(g, r) for g, r in zip(got, ref)]
+        return (max(a for a, _ in e), max(b for _, b in e)), 0
+    off = 0
+    for g, r in zip(got[:2], ref[:2]):
+        d = (g.int() - r.int()).abs()
+        if int(d.max()) > 1:
+            raise AssertionError(f"{kname} {name}: int8 pool bytes differ by "
+                                 f"{int(d.max())} > 1")
+        off += int((d > 0).sum())
+    rel = max(float(((g - r).abs() / r.abs()).max())
+              for g, r in zip(got[2:], ref[2:]))
+    if not rel <= 1e-6:
+        raise AssertionError(f"{kname} {name}: scales differ by {rel:.3g} "
+                             f"relative > 1e-6")
+    return (0.0, 0.0), off
+
+
+def llama_decode_kernel_cases(seed, power, flush):
+    """The three fused decode kernels' LLaMA branches against their plain
+    versions at the LLaMA-7B megakernel serve's shapes (``GEO``; hidden
+    4096, 32 heads of 128, intermediate 11008, vocab 32000, pools
+    ``[32, 1025, 16, 128]`` fp32 or int8 with scale pools, tables ``[B,
+    128]``): B = 8 (the engine's slots; the first row of each kernel, its
+    main case), 1 and 5, both pool types, and GQA (32 q heads on 8 kv
+    heads). Values within TOL of the plain version's largest; int8 pool
+    bytes within one step (the count reported), scales within 1e-6
+    relative; tokens and bad flags equal except on near ties, a
+    NaN-poisoned row bad with token 0. Each case is timed behind the
+    device spin, beside the unfused eager chain of the unfused decode
+    path (``_llama_decode``'s ops: norm, cuBLAS projections, rope, the
+    page write, SiLU, the head and ``guarded_argmax``)."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.models.generation import (_apply_rope,
+                                                    _rope_tables,
+                                                    _slot_page_write,
+                                                    guarded_argmax)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    ps, H, nh, hd, inter, V, L = GEO["page_size"], 4096, 32, 128, 11008, \
+        32000, 32
+    NP, eps, theta = 2048 // ps, 1e-6, 1e4
+    resid = 0.02 / np.sqrt(2 * L)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def timed(fn, n):
+        return _time_ms(fn, n, flush, spin=True)
+
+    rows = {"fused_decode_qkv": [], "fused_decode_mlp": [],
+            "fused_decode_epilogue": []}
+    norm_w = 1.0 + rn(H, std=0.1)
+    wq = rn(nh * hd, H, std=0.02)
+
+    # ingress: RMSNorm + q/k/v + rope + paged append (+ int8 quantize)
+    for B, hk, int8 in ((8, 32, False), (8, 32, True), (8, 8, True),
+                        (1, 32, False), (1, 32, True), (5, 32, False),
+                        (5, 32, True)):
+        name = (f"llama7b_{'gqa_' if hk < nh else ''}decode_b{B}_"
+                f"{'int8' if int8 else 'fp32'}")
+        P = 1 + GEO["max_slots"] * NP
+        x = rn(B, H)
+        wk, wv = rn(hk * hd, H, std=0.02), rn(hk * hd, H, std=0.02)
+        ws = [wq, wk, wv]
+        pos = torch.randint(0, 2048, (B,), generator=gen, device=dev)
+        bt = (torch.randperm(P - 1, generator=gen, device=dev)[:B * NP]
+              + 1).reshape(B, NP).to(torch.int32)
+        shape = (hk, P, ps, hd)
+        if int8:
+            pools = [torch.randint(-127, 128, shape, generator=gen,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(2)]
+            pools += [torch.rand(shape[:3], generator=gen, device=dev) * 0.1
+                      + 0.01 for _ in range(2)]
+        else:
+            pools = [rn(*shape) for _ in range(2)]
+        mine = [t.clone() for t in pools]
+        rope = _rope_tables(pos, hd, theta)
+        kw = dict(eps=eps, n_heads=nh, n_kv_heads=hk, head_dim=hd,
+                  norm="rms", rope=rope)
+        out = fq.fused_decode_qkv(x, norm_w, None, ws, [], pos, bt, *mine,
+                                  **kw)
+        ref = fq.fused_decode_qkv_plain(x, norm_w, None, ws, [], pos, bt,
+                                        *pools, **kw)
+        torch.cuda.synchronize()
+        (perr, plargest), off = _pool_errs("fused_decode_qkv", name,
+                                           out[1:], ref[1:])
+        qerr, qlargest = _max_err(out[0], ref[0])
+        errs = (max(qerr, perr), max(qlargest, plargest))
+        nk = hk * hd
+        kv_bytes = (2 * B * nk + 2 * 4 * B * hk) if int8 else 8 * B * nk
+        # the three weights, x and the norm's weight read, q and K/V
+        # (and their scales) written; the rope tables, positions and one
+        # table entry per row read
+        nbytes = (4 * (nh * hd + 2 * nk) * H + 4 * B * H + 4 * H
+                  + 4 * B * nh * hd + kv_bytes + 8 * B * hd + 12 * B)
+        flops = 2 * B * (nh * hd + 2 * nk) * H + 6 * B * (nh * hd + nk)
+        ks, vs = (mine[2], mine[3]) if int8 else (None, None)
+
+        def unfused_qkv():
+            h = F.rms_norm(x, norm_w, epsilon=eps)
+            q = tF.linear(h, ws[0]).reshape(B, 1, nh, hd)
+            k = tF.linear(h, ws[1]).reshape(B, 1, hk, hd)
+            v = tF.linear(h, ws[2]).reshape(B, 1, hk, hd)
+            cos, sin = _rope_tables(pos, hd, theta)
+            cos, sin = cos[:, None, None, :], sin[:, None, None, :]
+            q, k = _apply_rope(q, cos, sin), _apply_rope(k, cos, sin)
+            _slot_page_write(k[:, 0].transpose(0, 1),
+                             v[:, 0].transpose(0, 1), mine[0], mine[1],
+                             bt, pos, ks, vs)
+            return q
+
+        ms = timed(lambda: fq.fused_decode_qkv(
+            x, norm_w, None, ws, [], pos, bt, *mine, **kw), 30)
+        plain_ms = timed(lambda: fq.fused_decode_qkv_plain(
+            x, norm_w, None, ws, [], pos, bt, *pools, **kw), 5)
+        unfused_ms = timed(unfused_qkv, 10)
+        rows["fused_decode_qkv"].append(_decode_row(
+            name, errs, ms, plain_ms, unfused_ms, nbytes, flops,
+            dict(x=[B, H], wq=list(wq.shape), wk=list(wk.shape),
+                 pools=list(shape), dtype="int8" if int8 else "fp32",
+                 tables=list(bt.shape), int8_bytes_off_by_one=off),
+            power, "fused_decode_qkv"))
+        del x, wk, wv, ws, pools, mine, out, ref
+    del wq
+    torch.cuda.empty_cache()
+
+    # egress: o_proj + residual + RMSNorm + gate/up + SiLU + down +
+    # residual
+    wo = rn(H, H, std=resid)
+    wg, wu = rn(inter, H, std=0.02), rn(inter, H, std=0.02)
+    wd = rn(H, inter, std=resid)
+    for B in (8, 1, 5):
+        x, att = rn(B, H), rn(B, H)
+        margs = (x, att, wo, None, norm_w, None, wg, None, wd, None, wu)
+        mkw = dict(arch="llama", norm="rms", eps=eps)
+        out = fm.fused_decode_mlp(*margs, **mkw)
+        ref = fm.fused_decode_mlp_plain(*margs, **mkw)
+        torch.cuda.synchronize()
+
+        def unfused_mlp():
+            y = x + tF.linear(att, wo)
+            h = F.rms_norm(y, norm_w, epsilon=eps)
+            return y + tF.linear(tF.silu(tF.linear(h, wg))
+                                 * tF.linear(h, wu), wd)
+
+        ms = timed(lambda: fm.fused_decode_mlp(*margs, **mkw), 30)
+        plain_ms = timed(lambda: fm.fused_decode_mlp_plain(*margs,
+                                                           **mkw), 5)
+        unfused_ms = timed(unfused_mlp, 10)
+        # the four weights, x, att and the norm's weight read, the output
+        # written
+        rows["fused_decode_mlp"].append(_decode_row(
+            f"llama7b_decode_b{B}", _max_err(out, ref), ms, plain_ms,
+            unfused_ms, 4 * (H * H + 3 * inter * H + 3 * B * H + H),
+            2 * B * (H * H + 3 * inter * H) + 8 * B * inter,
+            dict(x=[B, H], wo=[H, H], w_gate=[inter, H], w_up=[inter, H],
+                 w_down=[H, inter],
+                 grid=fm.swiglu_grid(B, H, H, inter, dev)),
+            power, "fused_decode_mlp"))
+        del x, att, margs, out, ref
+    del wo, wg, wu, wd
+    torch.cuda.empty_cache()
+
+    # epilogue: final RMSNorm + untied head + guarded argmax
+    w_lm = rn(V, H, std=0.02)
+    for B in (8, 1, 5):
+        x = rn(B, H)
+        zero = torch.zeros(B, device=dev)
+        ekw = dict(norm="rms", eps=eps)
+        lg, nxt, bad = fm.fused_decode_epilogue(x, norm_w, None, w_lm, None,
+                                                zero, **ekw)
+        rlg, rnxt, rbad = fm.fused_decode_epilogue_plain(
+            x, norm_w, None, w_lm, None, zero, transpose_lm=False, **ekw)
+        torch.cuda.synchronize()
+        name = f"llama7b_decode_b{B}"
+        ties = _pick_err(f"fused_decode_epilogue {name}", nxt, bad, rnxt,
+                         rbad, rlg)
+        poison = zero.clone()
+        poison[B // 2] = float("nan")
+        _, pn, pb = fm.fused_decode_epilogue(x, norm_w, None, w_lm, None,
+                                             poison, **ekw)
+        if pb.tolist() != [r == B // 2 for r in range(B)] \
+                or int(pn[B // 2]) != 0 \
+                or not torch.equal(pn[~pb], nxt[~pb]):
+            raise AssertionError(f"fused_decode_epilogue {name} poison "
+                                 f"drill: nxt {pn.tolist()}, bad "
+                                 f"{pb.tolist()}")
+
+        def unfused_epilogue():
+            h = F.rms_norm(x, norm_w, epsilon=eps)
+            return guarded_argmax(tF.linear(h, w_lm), zero)
+
+        ms = timed(lambda: fm.fused_decode_epilogue(
+            x, norm_w, None, w_lm, None, zero, **ekw), 20)
+        plain_ms = timed(lambda: fm.fused_decode_epilogue_plain(
+            x, norm_w, None, w_lm, None, zero, transpose_lm=False,
+            **ekw), 5)
+        unfused_ms = timed(unfused_epilogue, 10)
+        # the head, x, the norm's weight and the poison lane read; the
+        # logits, nxt (int64) and bad (bool) written
+        rows["fused_decode_epilogue"].append(_decode_row(
+            name, _max_err(lg, rlg), ms, plain_ms, unfused_ms,
+            4 * (V * H + B * H + H + B + B * V) + 9 * B,
+            2 * B * V * H + 6 * B * H,
+            dict(x=[B, H], w_lm=[V, H], near_ties=ties), power,
+            "fused_decode_epilogue"))
+        del x, lg, rlg
+    del w_lm, norm_w
     torch.cuda.empty_cache()
     return rows
 
@@ -689,7 +960,10 @@ def decode_kernel_cases(seed, power, flush):
     """The three fused decode kernels against their plain versions at the
     megakernel serve phase's shapes (GPT-124M, ``GEO``): x ``[8, 768]``,
     pools ``[12, 513, 16, 64]``, tables ``[8, 64]``, the tied embedding
-    ``[50304, 768]``. Each row also times the unfused eager chain the
+    ``[50304, 768]``; the ingress also over int8 pools with their
+    ``[12, 513, 16]`` scale pools at B = 8 and 1 (q within TOL of the
+    plain version's largest value, int8 bytes within one step with the
+    count reported, scales within 1e-6 relative). Each row also times the unfused eager chain the
     kernel replaces on the unfused decode path (``unfused_ms``); no single
     library call computes any of these functions (``library_ms`` null).
     All are timed with the device spin of :func:`_time_ms`: a chain's
@@ -772,7 +1046,54 @@ def decode_kernel_cases(seed, power, flush):
         2 * B * n_out * H + 8 * B * H,
         dict(x=[B, H], w=[n_out, H], pools=list(k0.shape),
              tables=list(bt.shape)))
-    del kk, vk, kp, vp, w, b
+    del kk, vk, kp, vp
+
+    # ... over int8 pools with scale pools (the per-head kernel: the
+    # fused weight and bias cut into q/k/v views, quantize-on-write), as
+    # the megakernel serve over int8 pools gives it
+    qkv8_rows = []
+    for b8 in (B, 1):
+        x8, pos8, bt8 = x[:b8], pos[:b8], bt[:b8]
+        pools = [torch.randint(-127, 128, k0.shape, generator=gen,
+                               device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        pools += [torch.rand(k0.shape[:3], generator=gen, device=dev) * 0.1
+                  + 0.01 for _ in range(2)]
+        mine = [t.clone() for t in pools]
+        out8 = fq.fused_decode_qkv(x8, ln_w, ln_b, w, b, pos8, bt8, *mine,
+                                   **kw)
+        ref8 = fq.fused_decode_qkv_plain(x8, ln_w, ln_b, w, b, pos8, bt8,
+                                         *pools, **kw)
+        torch.cuda.synchronize()
+        name = f"gpt124m_decode_b{b8}_int8"
+        _, off = _pool_errs("fused_decode_qkv", name, out8[1:], ref8[1:])
+
+        def unfused_qkv8():
+            h = tF.layer_norm(x8, (H,), ln_w, ln_b, eps)
+            qkv = tF.linear(h, w, b).reshape(b8, 1, 3, nh, hd)
+            _, k, v = qkv.unbind(2)
+            _slot_page_write(k[:, 0].transpose(0, 1),
+                             v[:, 0].transpose(0, 1), mine[0], mine[1], bt8,
+                             pos8, mine[2], mine[3])
+
+        # W and its bias, x, the norm's w and b read; q, the K/V bytes and
+        # their scales written; positions and one table entry per row read
+        qkv8_rows.append(_decode_row(
+            name, _max_err(out8[0], ref8[0]),
+            timed(lambda: fq.fused_decode_qkv(x8, ln_w, ln_b, w, b, pos8,
+                                              bt8, *mine, **kw), 50),
+            timed(lambda: fq.fused_decode_qkv_plain(
+                x8, ln_w, ln_b, w, b, pos8, bt8, *pools, **kw), 10),
+            timed(unfused_qkv8, 20),
+            4 * (n_out * H + n_out + b8 * H + 2 * H + b8 * H)
+            + 2 * b8 * H + 2 * 4 * b8 * nh + 8 * b8 + 4 * b8,
+            2 * b8 * n_out * H + 8 * b8 * H + 6 * b8 * 2 * H,
+            dict(x=[b8, H], w=[n_out, H], pools=list(k0.shape),
+                 dtype="int8", tables=list(bt8.shape),
+                 int8_bytes_off_by_one=off),
+            power, "fused_decode_qkv"))
+        del pools, mine, out8, ref8
+    del w, b
 
     # egress: out-proj + residual + LayerNorm + fc1 + GELU + fc2 + residual
     wo, bo = rn(H, H, std=resid), rn(H, std=0.02)
@@ -846,7 +1167,8 @@ def decode_kernel_cases(seed, power, flush):
         dict(x=[B, H], w_lm=[V, H], near_ties=ties))
     del wte, k0, v0
     torch.cuda.empty_cache()
-    return {"fused_decode_qkv": [qkv_row], "fused_decode_mlp": [mlp_row],
+    return {"fused_decode_qkv": [qkv_row] + qkv8_rows,
+            "fused_decode_mlp": [mlp_row],
             "fused_decode_epilogue": [epi_row]}
 
 
@@ -886,9 +1208,11 @@ def jax_layout_gpt_weights(cfg, seed):
 
 
 @torch.no_grad()
-def teacher_forced_logits(model, ids):
+def teacher_forced_logits(model, ids, kv_quant=False):
     """Plain fp32 forward over one whole sequence: the same GPT blocks
-    with the plain attention version (no kernel), one prefill chunk."""
+    with the plain attention version (no kernel), one prefill chunk; with
+    ``kv_quant``, over int8 pools (each K/V vector through
+    ``kv_quantize`` as it is written, dequantized as it is read)."""
     from paddle_tpu_torch.models.generation import _gpt_ragged_forward
     from paddle_tpu_torch.ops.cuda.paged_attention import \
         ragged_paged_attention_plain
@@ -896,8 +1220,13 @@ def teacher_forced_logits(model, ids):
     cfg, ps, qb = model.cfg, 16, 8
     S = len(ids)
     npg = -(-S // ps)
-    caches = [torch.zeros(cfg.num_heads, npg + 1, ps, cfg.head_dim,
-                          device=dev) for _ in range(2 * cfg.num_layers)]
+    shape = (cfg.num_heads, npg + 1, ps, cfg.head_dim)
+    caches = [torch.zeros(shape, device=dev, dtype=torch.int8 if kv_quant
+                          else torch.float32)
+              for _ in range(2 * cfg.num_layers)]
+    if kv_quant:
+        caches += [torch.zeros(shape[:3], device=dev)
+                   for _ in range(2 * cfg.num_layers)]
     bt = torch.arange(1, npg + 1, dtype=torch.int32, device=dev)[None]
     pos = torch.arange(S, device=dev)
     logits, _ = _gpt_ragged_forward(
@@ -955,10 +1284,12 @@ def serve_turns(model, seed, order=(False, True, True, False)):
                          tokens_per_s=eng.stats["tokens_generated"] / wall,
                          mixed_step_ms=float(np.mean(step_ms["mixed"])),
                          decode_dispatch_ms=float(np.mean(step_ms["decode"]))))
-    log("serve in turns (unfused, megakernel, megakernel, unfused): "
-        + "; ".join(f"{r['tokens_per_s']:.1f} tokens/s, mixed "
-                    f"{r['mixed_step_ms']:.2f} ms, decode "
-                    f"{r['decode_dispatch_ms']:.2f} ms" for r in runs))
+    log(f"{model.cfg.num_layers}-layer {type(model).__name__} served in "
+        f"turns: " + "; ".join(
+            f"{'megakernel' if r['megakernel'] else 'unfused'} "
+            f"{r['tokens_per_s']:.1f} tokens/s, mixed "
+            f"{r['mixed_step_ms']:.2f} ms, decode "
+            f"{r['decode_dispatch_ms']:.2f} ms" for r in runs))
     return runs
 
 
@@ -1014,35 +1345,60 @@ def _drive(eng, on_card):
     return done, launches, step_ms
 
 
-def _gpt_teacher(model, prompts, seqs):
+def _gpt_teacher(model, prompts, seqs, kv_quant=False):
     """The plain fp32 forward's logits at each sequence's generated
     positions (:func:`teacher_forced_logits`, one sequence at a time)."""
-    return [teacher_forced_logits(model, seq)[p.size - 1:seq.size - 1]
+    return [teacher_forced_logits(model, seq, kv_quant)[p.size - 1:
+                                                        seq.size - 1]
             for p, seq in zip(prompts, seqs)]
 
 
-def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None):
+def _gpt_teacher_kv8(model, prompts, seqs):
+    return _gpt_teacher(model, prompts, seqs, kv_quant=True)
+
+
+def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None,
+                kv_quant=False):
     """Serve 16 requests through the engine and check them, with the
-    decode path unfused or (``megakernel``) fused. ``cfg`` defaults to
-    GPT-124M; a smaller one (with ``device="cpu"``) rehearses this phase
-    without a card, and without launch checks or the device-time
-    breakdown (:func:`profile_serve`). ``model`` reuses a model from
+    decode path unfused or (``megakernel``) fused, over fp32 pools or
+    (``kv_quant``) int8 pools, whose teacher replays the quantization.
+    Over int8 pools the near-tie margin is twice this model's own
+    :func:`logit_gap` along the served decode path, measured first (at
+    least MARGIN; MARGIN_KV8 is LLaMA-7B's reading), and the gap is
+    returned as ``logit_gap``. ``cfg`` defaults to GPT-124M; a
+    smaller one (with ``device="cpu"``) rehearses this phase without a
+    card, and without launch checks or the device-time breakdown
+    (:func:`profile_serve`). ``model`` reuses a model from
     :func:`serve_model`."""
     model = serve_model(seed, cfg, device) if model is None else model
-    return _serve_run(model, seed, device,
-                      "megakernel serve" if megakernel else "serve",
-                      _gpt_teacher, megakernel=megakernel)
+    tag = "megakernel serve" if megakernel else "serve"
+    if kv_quant:
+        tag += " (int8 KV)"
+        gap = logit_gap(model, seed, True, megakernel=megakernel)
+        log(f"{tag}: the served path's logits vs the plain forward's, 4 "
+            f"prompts + {NEW_TOKENS} tokens"
+            + (", each a fused decode step" if megakernel else
+               " as one prefill")
+            + f": max |difference| {gap:.4g}; near-tie margin twice that")
+        out = _serve_run(model, seed, device, tag, _gpt_teacher_kv8,
+                         margin=max(MARGIN, 2 * gap), megakernel=megakernel,
+                         kv_quant=True)
+        out["logit_gap"] = gap
+        return out
+    return _serve_run(model, seed, device, tag, _gpt_teacher,
+                      megakernel=megakernel)
 
 
 def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
-               **engine_kw):
+               full_profile=True, **engine_kw):
     """The serve phases' drive and checks: a warm-up engine, then the 16
     requests of :func:`serve_prompts` on a fresh engine (``GEO`` and
     ``engine_kw``) with exact launches per dispatch (:func:`_drive`),
     every request finished by length, the page pool conserved, every
     served token the pick of ``teacher(model, prompts, sequences)`` (the
     logits at the generated positions) except near ties below ``margin``;
-    on the card a profiled run and a profiled decode window."""
+    on the card a profiled decode window and, with ``full_profile``, a
+    profiled run. One engine's pools exist at a time."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
 
     on_card = device == "cuda"
@@ -1056,6 +1412,7 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
     warm = ContinuousBatchingEngine(model, **geo)
     warm.add_request(prompts[0][:16], 8)
     _drive(warm, on_card)
+    del warm
 
     eng = ContinuousBatchingEngine(model, **geo)
     rids = [eng.add_request(p, NEW_TOKENS) for p in prompts]
@@ -1080,6 +1437,7 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
     if st["pages_in_use"] != 0 or (st["pages_free"] + st["cached_pages"]
                                    != eng.total_pages - 1):
         raise AssertionError(f"page pool not conserved: {st}")
+    del eng
     if on_card and not (by_step["mixed"]["ragged_paged_attention"] > 0
                         and by_step["decode"]["ragged_paged_attention"] > 0):
         raise AssertionError(f"kernel launches by step kind: {by_step}")
@@ -1129,8 +1487,9 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
                decode_dispatch_ms=float(np.mean(step_ms["decode"])),
                decode_dispatches=len(step_ms["decode"]))
     if on_card:
-        out["profile"] = profile_serve(model, prompts, NEW_TOKENS, geo,
-                                       wall)
+        if full_profile:
+            out["profile"] = profile_serve(model, prompts, NEW_TOKENS, geo,
+                                           wall)
         out["window"] = profile_window(model, prompts, NEW_TOKENS, geo)
     return out
 
@@ -2278,67 +2637,130 @@ def llama_teacher(kv_quant):
 
 
 @torch.no_grad()
-def logit_gap(model, seed, kv_quant, n=4):
-    """Largest |logit| difference between the served path's forward (the
-    engine's ``_llama_ragged_forward``: the kernels, fp32 or int8 pools)
-    and :func:`llama_teacher`'s plain forward, over the last
+def logit_gap(model, seed, kv_quant, n=4, megakernel=False):
+    """Largest |logit| difference between the served path (the kernels,
+    fp32 or int8 pools) and the plain teacher of the model's family
+    (:func:`llama_teacher`, :func:`_gpt_teacher`), over the last
     ``NEW_TOKENS`` positions of ``n`` of the serve prompts each followed
-    by ``NEW_TOKENS`` random tokens, each sequence one prefill."""
-    from paddle_tpu_torch.models.generation import _llama_ragged_forward
+    by ``NEW_TOKENS`` random tokens. Each sequence goes through the
+    engine's ragged forward as one prefill or, with ``megakernel``, its
+    prompt as one prefill and every further token as one fused decode
+    step (``_decode_fused_fn``): the path whose picks a megakernel serve
+    checks."""
+    from paddle_tpu_torch.models.generation import (_decode_fused_fn,
+                                                    _ragged_fn)
     cfg, dev = model.cfg, model.device
+    llama = hasattr(model, "llama")
     rng = np.random.default_rng(seed + 13)
     prompts = serve_prompts(seed, cfg)[:n]
     seqs = [np.concatenate([p, rng.integers(0, cfg.vocab_size, NEW_TOKENS)
                             .astype(np.int32)]) for p in prompts]
-    ref = llama_teacher(kv_quant)(model, prompts, seqs)
+    teacher = llama_teacher(kv_quant) if llama else \
+        _gpt_teacher_kv8 if kv_quant else _gpt_teacher
+    ref = teacher(model, prompts, seqs)
+    ragged = _ragged_fn(model)
+    fused = _decode_fused_fn(model) if megakernel else None
     ps, L = GEO["page_size"], cfg.num_layers
+    hk = getattr(cfg, "num_kv_heads", cfg.num_heads)
     gap = 0.0
     for p, s, r in zip(prompts, seqs, ref):
         S = s.size
         npg = -(-S // ps)
-        pshape = (cfg.num_kv_heads, npg + 1, ps, cfg.head_dim)
+        pshape = (hk, npg + 1, ps, cfg.head_dim)
         caches = [torch.zeros(pshape, device=dev, dtype=torch.int8
                               if kv_quant else torch.float32)
                   for _ in range(2 * L)]
         if kv_quant:
             caches += [torch.zeros(pshape[:3], device=dev)
                        for _ in range(2 * L)]
-        pos = torch.arange(S, device=dev)
-        lens = torch.tensor([S], dtype=torch.int32, device=dev)
-        lg, _ = _llama_ragged_forward(
-            model, torch.as_tensor(s, device=dev)[None].long(), pos,
-            torch.zeros_like(pos), torch.ones_like(pos), lens, lens,
-            torch.arange(1, npg + 1, dtype=torch.int32, device=dev)[None],
-            caches, GEO["q_block"])
-        gap = max(gap, float((lg[p.size - 1:S - 1] - r).abs().max()))
+        ids = torch.as_tensor(s, device=dev)[None].long()
+        bt = torch.arange(1, npg + 1, dtype=torch.int32, device=dev)[None]
+        T = p.size if megakernel else S
+        pos = torch.arange(T, device=dev)
+        lens = torch.tensor([T], dtype=torch.int32, device=dev)
+        lg, caches = ragged(model, ids[:, :T], pos, torch.zeros_like(pos),
+                            torch.ones_like(pos), lens, lens, bt, caches,
+                            GEO["q_block"])
+        lg = lg[p.size - 1:S - 1]
+        if megakernel:
+            rows, zero = [lg[0]], torch.zeros(1, device=dev)
+            for t in range(p.size, S - 1):
+                step, _, _, caches = fused(
+                    model, ids[:, t:t + 1],
+                    torch.tensor([t], device=dev), bt, caches, zero)
+                rows.append(step[0])
+            lg = torch.stack(rows)
+        gap = max(gap, float((lg - r).abs().max()))
     return gap
 
 
 def llama_serve_phase(seed, cfg=None, device="cuda", quantized=True,
-                      model=None):
+                      model=None, megakernel=False, kv_quant=None, gap=True,
+                      full_profile=True):
     """Serve the 16 requests of the GPT serve phases through
-    ``ContinuousBatchingEngine`` on LLaMA: with ``quantized`` (the main
-    path of this slice) the weight-only int8 model of
-    :func:`llama_serve_model` with ``kv_quant=True`` (int8 KV pages),
-    else the fp32 model with fp32 pools; the megakernel off. The checks
+    ``ContinuousBatchingEngine`` on LLaMA: with ``quantized`` the
+    weight-only int8 model of :func:`llama_serve_model`, else the fp32
+    model; ``kv_quant`` (default: ``quantized``) int8 KV pages, else fp32
+    pools; the decode path unfused or (``megakernel``) fused. The checks
     of :func:`_serve_run`, with exact launches per dispatch (a forward of
-    L layers: L attentions, and 7 L + 1 weight-only matmuls when
-    quantized) and the teacher of :func:`llama_teacher`. ``cfg`` defaults
-    to LLaMA-7B; a small one with ``device="cpu"`` rehearses the phase."""
+    L layers: L attentions, 7 L + 1 weight-only matmuls when quantized;
+    a megakernel decode step L ingress, L egress and one epilogue launch)
+    and the teacher of :func:`llama_teacher` (near-tie margin MARGIN_KV8
+    over int8 pools, MARGIN over fp32 ones); with ``gap``, the served
+    path's :func:`logit_gap`. ``cfg`` defaults to LLaMA-7B; a small one
+    with ``device="cpu"`` rehearses the phase."""
+    kv_quant = quantized if kv_quant is None else kv_quant
     if model is None:
         model = llama_serve_model(seed, cfg, device, quantized)
     L = model.cfg.num_layers
     tag = (f"llama serve ({L} layers, "
-           + ("weight-only int8, int8 KV)" if quantized else "fp32)"))
-    out = _serve_run(model, seed, device, tag, llama_teacher(quantized),
-                     margin=MARGIN_KV8 if quantized else MARGIN,
-                     kv_quant=quantized)
-    gap = logit_gap(model, seed, quantized)
-    log(f"{tag}: the served path's logits vs the plain forward's, 4 "
-        f"prompts + {NEW_TOKENS} tokens as one prefill: max |difference| "
-        f"{gap:.4g}")
-    return dict(out, quantized=quantized, layers=L,
-                hidden=model.cfg.hidden_size, logit_gap=gap)
+           + ("weight-only int8" if quantized else "fp32")
+           + (", int8 KV" if kv_quant else "")
+           + (", megakernel" if megakernel else "") + ")")
+    out = _serve_run(model, seed, device, tag, llama_teacher(kv_quant),
+                     margin=MARGIN_KV8 if kv_quant else MARGIN,
+                     full_profile=full_profile, kv_quant=kv_quant,
+                     megakernel=megakernel)
+    out.update(quantized=quantized, layers=L, hidden=model.cfg.hidden_size,
+               logit_gap=None)
+    if gap:
+        out["logit_gap"] = logit_gap(model, seed, kv_quant,
+                                     megakernel=megakernel)
+        log(f"{tag}: the served path's logits vs the plain forward's, 4 "
+            f"prompts + {NEW_TOKENS} tokens"
+            + (", each a fused decode step" if megakernel else
+               " as one prefill")
+            + f": max |difference| {out['logit_gap']:.4g}")
+    return out
+
+
+def llama_megakernel_phases(seed, model, device="cuda"):
+    """The fp32 LLaMA (LLaMA-7B at full depth on the card) served with
+    fp32 pools unfused and through the megakernel, each with the checks
+    of :func:`llama_serve_phase` and a profiled decode window; on the
+    card both again in turns (megakernel, unfused: the four runs go
+    unfused, megakernel, megakernel, unfused); then with int8 pools
+    unfused and through the megakernel. Returns the runs by name."""
+    runs = {}
+    for name, mk, kvq in (("fp32", False, False),
+                          ("fp32_megakernel", True, False),
+                          ("turns", None, None), ("int8_kv", False, True),
+                          ("int8_kv_megakernel", True, True)):
+        if name == "turns":
+            if device == "cuda":
+                runs["turns"] = serve_turns(model, seed, order=(True, False))
+            continue
+        runs[name] = llama_serve_phase(
+            seed, device=device, quantized=False, model=model,
+            megakernel=mk, kv_quant=kvq, full_profile=False)
+    if device == "cuda":
+        log("llama megakernel vs unfused, decode step (device launches, "
+            "device ms, wall ms): " + "; ".join(
+                f"{n} {r['window']['launches_per_step']:.1f}, "
+                f"{r['window']['device_ms_per_step']:.3f}, "
+                f"{r['window']['wall_ms_per_step']:.3f}"
+                for n, r in runs.items() if n != "turns"))
+    return runs
 
 
 def quant_matmul_cases(seed, power):
@@ -2412,15 +2834,16 @@ def quant_matmul_cases(seed, power):
 
 
 def llama_serve_phases(seed):
-    """The quantized LLaMA-7B serve at full depth (the slice's main path),
-    then the fp32 LLaMA serve at LLaMA-7B width and 4 layers."""
+    """The quantized LLaMA-7B serve at full depth, then the fp32
+    LLaMA-7B at full depth (27 GB of weights) unfused and through the
+    megakernel (:func:`llama_megakernel_phases`)."""
     quant = llama_serve_phase(seed, quantized=True)
     torch.cuda.empty_cache()
-    from paddle_tpu_torch.models import LlamaConfig
-    fp = llama_serve_phase(seed, cfg=LlamaConfig(num_layers=4),
-                           quantized=False)
+    model = llama_serve_model(seed, quantized=False)
+    runs = llama_megakernel_phases(seed, model)
+    del model
     torch.cuda.empty_cache()
-    return quant, fp
+    return quant, runs
 
 
 def main(argv=None):
@@ -2445,6 +2868,8 @@ def main(argv=None):
     serve = serve_phase(args.seed, model=model)
     serve_mk = serve_phase(args.seed, megakernel=True, model=model)
     turns = serve_turns(model, args.seed)
+    serve_mk8 = serve_phase(args.seed, megakernel=True, model=model,
+                            kv_quant=True)
     del model
     torch.cuda.empty_cache()
     log(f"megakernel vs unfused serve: {serve_mk['tokens_per_s']:.1f} vs "
@@ -2456,6 +2881,7 @@ def main(argv=None):
         f"{serve_mk['profile']['busy_share']:.1%} vs "
         f"{serve['profile']['busy_share']:.1%}")
     llama_q, llama_fp = llama_serve_phases(args.seed)
+    llama_mk = llama_fp["fp32_megakernel"]
     train, train_glue, train_nb = gpt_train_phases(args.seed, smi_line)
     parity = train_parity(args.seed)
     parity_glue = train_parity(args.seed, glue=True)
@@ -2484,15 +2910,15 @@ def main(argv=None):
         ("fused_decode_qkv", "fused_decode_qkv.cu",
          "paddle_tpu/ops/pallas/fused_decode_qkv.py:131",
          dec_rows["fused_decode_qkv"],
-         serve_mk["counts"]["fused_decode_qkv"]),
+         llama_mk["counts"]["fused_decode_qkv"]),
         ("fused_decode_mlp", "fused_decode_mlp.cu",
          "paddle_tpu/ops/pallas/fused_decode_mlp.py:55",
          dec_rows["fused_decode_mlp"],
-         serve_mk["counts"]["fused_decode_mlp"]),
+         llama_mk["counts"]["fused_decode_mlp"]),
         ("fused_decode_epilogue", "fused_decode_mlp.cu",
          "paddle_tpu/ops/pallas/fused_decode_mlp.py:75",
          dec_rows["fused_decode_epilogue"],
-         serve_mk["counts"]["fused_decode_epilogue"]),
+         llama_mk["counts"]["fused_decode_epilogue"]),
         ("rope", "rope.cu", "paddle_tpu/ops/pallas/rope.py:53",
          llama_rows["rope"], llama_on["counts"]["rope"]),
         ("fused_residual_rms_norm_fwd", "fused_residual_norm.cu",
@@ -2523,12 +2949,26 @@ def main(argv=None):
         ("layer_norm_bwd", "norms.cu", "paddle_tpu/ops/pallas/norms.py:202",
          norm_rows["layer_norm_bwd"], train_nb["counts"]["layer_norm_bwd"]),
     ]
-    # every serve path's own count of the attention launches
+    # every serve path's own count of the attention launches, and of the
+    # fused decode kernels'
     attn_paths = {"gpt_serve": serve["launches"],
-                  "llama7b_int8_serve": llama_q["launches"],
-                  "llama7b_4l_fp32_serve": llama_fp["launches"]}
-    if min(attn_paths.values()) <= 0:
-        raise AssertionError(f"attention launches by path: {attn_paths}")
+                  "gpt_serve_megakernel": serve_mk["launches"],
+                  "gpt_serve_megakernel_int8_kv": serve_mk8["launches"],
+                  "llama7b_int8_serve": llama_q["launches"]}
+    attn_paths.update({f"llama7b_fp32_serve_{n}": r["launches"]
+                       for n, r in llama_fp.items() if n != "turns"})
+    mk_runs = {"gpt_serve_megakernel": serve_mk,
+               "gpt_serve_megakernel_int8_kv": serve_mk8,
+               "llama7b_fp32_serve_fp32_megakernel": llama_mk,
+               "llama7b_fp32_serve_int8_kv_megakernel":
+                   llama_fp["int8_kv_megakernel"]}
+    fused_paths = {k: {p: r["counts"][k] for p, r in mk_runs.items()}
+                   for k in ("fused_decode_qkv", "fused_decode_mlp",
+                             "fused_decode_epilogue")}
+    if min(attn_paths.values()) <= 0 or min(
+            n for paths in fused_paths.values() for n in paths.values()) <= 0:
+        raise AssertionError(f"launches by path: attention {attn_paths}, "
+                             f"fused decode {fused_paths}")
     out = []
     for kname, source, replaces, cases, launches in specs:
         if launches <= 0:
@@ -2545,8 +2985,11 @@ def main(argv=None):
             "shape": main_row["case"], "cases": cases})
         if kname == "ragged_paged_attention":
             out[-1]["launches_by_path"] = attn_paths
+        if kname in fused_paths:
+            out[-1]["launches_by_path"] = fused_paths[kname]
     print(json.dumps({"kernels": out, "serve": serve,
                       "serve_megakernel": serve_mk, "serve_turns": turns,
+                      "serve_megakernel_int8_kv": serve_mk8,
                       "llama_serve": llama_q, "llama_serve_fp32": llama_fp,
                       "power": smi_line}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -27,13 +27,14 @@ requests:
   it has decoded with, and a second engine on the same model skips the
   single step just as the JAX one does.)
 * ``megakernel`` (kwarg, or the ``serving_megakernel`` flag): each
-  decode step runs as three fused launches per layer (norm + QKV +
-  paged append, the paged attention, out-proj + residual + MLP +
-  residual) plus one epilogue (final norm + LM head + guarded argmax),
-  ``models.generation._gpt_decode_fused``. The single step and the
-  window take the epilogue's token and bad flag, so there is no host
-  argmax; token streams are the unfused path's. The switch is part of
-  the decode geometry.
+  decode step runs as three fused launches per layer (norm + QKV (+
+  rope) + paged append, quantized on write with ``kv_quant``; the paged
+  attention; out-proj + residual + MLP + residual) plus one epilogue
+  (final norm + LM head + guarded argmax),
+  ``models.generation._gpt_decode_fused`` or ``_llama_decode_fused``.
+  The single step and the window take the epilogue's token and bad flag,
+  so there is no host argmax; token streams are the unfused path's. The
+  switch is part of the decode geometry.
 * On-demand paging with preemption (latest-admitted victim) and
   requeue, eager ``PageBudgetError`` (PDT-E016), bounded queue with the
   ``reject`` (``QueueFullError`` PDT-E017) or ``block`` policy,
@@ -45,13 +46,15 @@ requests:
 
 The engine serves ``GPTForCausalLM`` and ``LlamaForCausalLM``, with
 float or weight-only int8 projections (``quantization.
-weight_only_quantize``); the megakernel path serves GPT with float
-weights and fp32 pools. Greedy decoding only. Subsystems of the JAX
-engine that later slices port raise ``NotImplementedError`` when
-switched on: ``megakernel`` with ``kv_quant``, with LLaMA or with
-weight-only projections, ``spec_decode``, ``mesh``/``tp_axis``, ``slo``
-and ``watchdog_ms``. Request export/import/snapshot/restore,
-``metrics()`` and tracing are not here yet either.
+weight_only_quantize``); the megakernel path serves both families with
+float weights, over fp32 or int8 pools. As in the JAX package, the fused
+kernels read dense projections only: ``megakernel`` with weight-only
+projections raises ``NotImplementedError``. Greedy decoding only.
+Subsystems of the JAX engine that later slices port raise
+``NotImplementedError`` when switched on: ``spec_decode``,
+``mesh``/``tp_axis``, ``slo`` and ``watchdog_ms``. Request
+export/import/snapshot/restore, ``metrics()`` and tracing are not here
+yet either.
 """
 from __future__ import annotations
 
@@ -244,12 +247,6 @@ class ContinuousBatchingEngine:
         self.megakernel = _parse_on_off(
             "megakernel", _state.get_flag("serving_megakernel")
             if megakernel is None else megakernel)
-        if self.megakernel and self.kv_quant:
-            raise NotImplementedError(
-                "megakernel with kv_quant is not ported yet: the int8 "
-                "branches of the fused decode kernels (rows 4, 5 and 7: "
-                "quantize-on-write in the ingress, int8 pools in the "
-                "attention) arrive with a later slice")
         self._decode, _, self._hard_limit = _decode_fn(model)
         self._decode_mk = _decode_fused_fn(model) if self.megakernel else None
         self._ragged = _ragged_fn(model)

@@ -3,9 +3,10 @@ page writes (fp32 pools, or int8 pools quantized on write into f32 scale
 side-pools), the two attention steps the continuous-batching engine
 runs (per-slot decode and the ragged mixed prefill+decode step), the
 guarded greedy pick, the GPT and LLaMA forwards over them (LLaMA's rope
-at device positions through :func:`rope_at`), and the GPT megakernel
-decode step (``fused_qkv_step`` -> ``paged_attend`` -> ``fused_mlp_step``
-per layer, then ``fused_decode_logits``).
+at device positions through :func:`rope_at`), and the GPT and LLaMA
+megakernel decode steps (``fused_qkv_step`` -> ``paged_attend`` ->
+``fused_mlp_step`` per layer, then ``fused_decode_logits``), over fp32
+or int8 pools.
 
 Page pools are updated IN PLACE (the JAX package threads them
 functionally and donates the buffers; here an ``index_put_`` writes
@@ -21,8 +22,8 @@ serving appends the scale pools ``[ks0, vs0, ...]`` (``_split_caches``).
 A weight-only-quantized model (``quantization.weight_only_quantize``)
 serves unchanged: every projection is called as a module.
 
-``generate()`` and its contiguous KV cache, the LLaMA megakernel and
-the tensor-parallel paths arrive with later slices.
+``generate()`` and its contiguous KV cache and the tensor-parallel
+paths arrive with later slices.
 """
 from __future__ import annotations
 
@@ -182,13 +183,18 @@ def guarded_argmax(lg, poison):
 def fused_qkv_step(x, norm_params, weights, biases, positions,
                    block_tables, k_pages, v_pages, k_scales=None,
                    v_scales=None, norm="layer", eps=1e-5, n_heads=1,
-                   n_kv_heads=1, head_dim=1, rope_theta=None, rows=None):
-    """Megakernel INGRESS: pre-attention norm + QKV projection + paged-KV
-    append as ONE fused launch (``ops/cuda/fused_decode_qkv.py``).
-    ``x`` [B, H] residual stream, ``norm_params`` [w] or [w, b],
-    ``weights`` one fused ``[3 nh hd, H]`` projection (``[out, in]``),
-    ``biases`` a matching list or []. Returns ``(q [B, nh, hd], k_pages,
-    v_pages)``, the pools written in place."""
+                   n_kv_heads=1, head_dim=1, rope_theta=None, rope=None,
+                   rows=None):
+    """Megakernel INGRESS: pre-attention norm + QKV projection (+ rope) +
+    paged-KV append (+ int8 quantize-on-write) as ONE fused launch
+    (``ops/cuda/fused_decode_qkv.py``). ``x`` [B, H] residual stream,
+    ``norm_params`` [w] or [w, b], ``weights`` one fused ``[3 nh hd, H]``
+    projection (GPT) or ``[wq, wk, wv]`` (LLaMA; ``[out, in]``),
+    ``biases`` a matching list or []; ``rope_theta`` rotates q and k
+    (or instead ``rope``: their cos/sin tables, made once for all
+    layers). Returns
+    ``(q [B, nh, hd], k_pages, v_pages[, k_scales, v_scales])``, the
+    pools written in place."""
     nw = norm_params[0]
     nb = norm_params[1] if len(norm_params) > 1 else None
     return fused_decode_qkv(
@@ -196,7 +202,7 @@ def fused_qkv_step(x, norm_params, weights, biases, positions,
         block_tables, k_pages, v_pages, k_scales=k_scales,
         v_scales=v_scales, norm=norm, eps=eps, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=head_dim, rope_theta=rope_theta,
-        rows=rows)
+        rope=rope, rows=rows)
 
 
 def paged_attend(q, k_pages, v_pages, block_tables, positions, scale=None,
@@ -206,18 +212,16 @@ def paged_attend(q, k_pages, v_pages, block_tables, positions, scale=None,
     megakernel path appends K/V inside :func:`fused_qkv_step`). ``q``
     [B, nh, hd]; the lengths are ``positions + 1`` as in
     ``paged_slot_attention``. ``seq_lens`` (int32 [B]) passes those
-    lengths in when the caller made them once for every layer."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "paged_attend: the megakernel path over int8 KV pools "
-            "(kv_quant) arrives with the slice of the int8 branches of the "
-            "fused decode kernels (rows 4, 5 and 7)")
+    lengths in when the caller made them once for every layer.
+    ``k_scales``/``v_scales`` read int8 pools (the int8 attention)."""
+    _both_or_neither("paged_attend", k_scales, v_scales)
     if seq_lens is None:
         seq_lens = (positions.reshape(-1) + 1).to(torch.int32)
     out = paged_decode_attention(q, k_pages, v_pages,
                                  block_tables.to(torch.int32), seq_lens,
                                  scale=scale,
-                                 pages_per_block=pages_per_block)
+                                 pages_per_block=pages_per_block,
+                                 k_scales=k_scales, v_scales=v_scales)
     return out.to(q.dtype)
 
 
@@ -402,35 +406,58 @@ def _llama_decode(model, ids_t, pos, caches, attend):
     return logits.reshape(logits.shape[0], -1), new + new_sc
 
 
+def _fused_layer_cache(data, scales, li):
+    """One layer's ``(k, v, k_scales, v_scales)`` pools; the scales are
+    None for fp32 pools."""
+    if scales:
+        return (data[2 * li], data[2 * li + 1], scales[2 * li],
+                scales[2 * li + 1])
+    return data[2 * li], data[2 * li + 1], None, None
+
+
+def _fused_attend(outs, bt, p, lens, pages_per_block, new, new_sc):
+    """The attention launch after a fused ingress: attends ``outs``'s q
+    (``fused_qkv_step``'s return) over the pools it wrote, and records
+    them in ``new`` (and their scale pools in ``new_sc``)."""
+    q, kc, vc = outs[:3]
+    ks, vs = outs[3:] if len(outs) == 5 else (None, None)
+    new.extend((kc, vc))
+    if ks is not None:
+        new_sc.extend((ks, vs))
+    return paged_attend(q, kc, vc, bt, p, pages_per_block=pages_per_block,
+                        k_scales=ks, v_scales=vs, seq_lens=lens)
+
+
 def _gpt_decode_fused(model, ids_t, pos, bt, caches, poison,
                       pages_per_block=None):
     """Megakernel decode step for GPTForCausalLM: one-token forward in
     three launches per layer (:func:`fused_qkv_step` ->
     :func:`paged_attend` -> :func:`fused_mlp_step`) plus the
     :func:`fused_decode_logits` epilogue, against the serving engine's
-    per-slot page pools (written in place). ``bt`` [B, NP] and ``pos``
-    [B] are data; ``poison`` is the decode guard's [B] lane. The
-    attention lengths are made once for all layers. Returns ``(logits
-    [B, V], nxt [B], bad [B] bool, caches)``."""
+    per-slot page pools (written in place; int8 pools with their scale
+    pools appended to the cache list, quantized on write by the
+    ingress). ``bt`` [B, NP] and ``pos`` [B] are data; ``poison`` is the
+    decode guard's [B] lane. The attention lengths are made once for all
+    layers. Returns ``(logits [B, V], nxt [B], bad [B] bool, caches)``."""
     gpt = model.gpt
-    data, _ = _split_caches(caches, len(gpt.blocks))
+    data, scales = _split_caches(caches, len(gpt.blocks))
     p = pos.reshape(-1)
     x = gpt.wte(ids_t) + gpt.wpe(p.reshape(-1, 1))
     b = x.shape[0]
     x = x.reshape(b, x.shape[-1])
     bt = bt.to(torch.int32)
     lens = (p + 1).to(torch.int32)
-    new = []
+    new, new_sc = [], []
     for li, blk in enumerate(gpt.blocks):
         a = blk.attn
-        q, kc, vc = fused_qkv_step(
+        kc, vc, ks, vs = _fused_layer_cache(data, scales, li)
+        outs = fused_qkv_step(
             x, [blk.ln1.weight, blk.ln1.bias], [a.qkv.weight],
-            [a.qkv.bias], p, bt, data[2 * li], data[2 * li + 1],
+            [a.qkv.bias], p, bt, kc, vc, k_scales=ks, v_scales=vs,
             norm="layer", eps=blk.ln1.eps, n_heads=a.num_heads,
             n_kv_heads=a.num_heads, head_dim=a.head_dim)
-        new.extend((kc, vc))
-        att = paged_attend(q, kc, vc, bt, p,
-                           pages_per_block=pages_per_block, seq_lens=lens)
+        att = _fused_attend(outs, bt, p, lens, pages_per_block,
+                            new, new_sc)
         x = fused_mlp_step(x, att.reshape(b, -1), a.proj.weight,
                            [blk.ln2.weight, blk.ln2.bias],
                            blk.mlp.fc1.weight, blk.mlp.fc2.weight,
@@ -444,7 +471,52 @@ def _gpt_decode_fused(model, ids_t, pos, bt, caches, poison,
     logits, nxt, bad = fused_decode_logits(
         x, [gpt.ln_f.weight, gpt.ln_f.bias], w_lm, poison, norm="layer",
         eps=gpt.ln_f.eps, transpose_lm=tr)
-    return logits, nxt, bad, new
+    return logits, nxt, bad, new + new_sc
+
+
+def _llama_decode_fused(model, ids_t, pos, bt, caches, poison,
+                        pages_per_block=None):
+    """Megakernel decode step for LlamaForCausalLM, the JAX package's
+    ``_llama_decode_fused``: RMSNorm, the three projections, GQA and
+    rope fold into the ingress (the rope tables made once for all
+    layers, as :func:`_llama_decode` makes them), SwiGLU into the
+    egress, the final RMSNorm and the head into the epilogue; see
+    :func:`_gpt_decode_fused`."""
+    lm = model.llama
+    data, scales = _split_caches(caches, len(lm.layers))
+    p = pos.reshape(-1)
+    x = lm.embed_tokens(ids_t)
+    b = x.shape[0]
+    x = x.reshape(b, x.shape[-1])
+    bt = bt.to(torch.int32)
+    lens = (p + 1).to(torch.int32)
+    a0 = lm.layers[0].attn
+    rope = _rope_tables(p, a0.head_dim, a0.rope_theta)
+    new, new_sc = [], []
+    for li, layer in enumerate(lm.layers):
+        a, mlp = layer.attn, layer.mlp
+        kc, vc, ks, vs = _fused_layer_cache(data, scales, li)
+        outs = fused_qkv_step(
+            x, [layer.input_norm.weight],
+            [a.q_proj.weight, a.k_proj.weight, a.v_proj.weight], [], p, bt,
+            kc, vc, k_scales=ks, v_scales=vs, norm="rms",
+            eps=layer.input_norm._epsilon, n_heads=a.num_heads,
+            n_kv_heads=a.num_kv_heads, head_dim=a.head_dim, rope=rope)
+        att = _fused_attend(outs, bt, p, lens, pages_per_block,
+                            new, new_sc)
+        x = fused_mlp_step(x, att.reshape(b, -1), a.o_proj.weight,
+                           [layer.post_norm.weight], mlp.gate_proj.weight,
+                           mlp.down_proj.weight, w_up=mlp.up_proj.weight,
+                           arch="llama", norm="rms",
+                           eps=layer.post_norm._epsilon)
+    if model.lm_head is not None:
+        w_lm, tr = model.lm_head.weight, False
+    else:
+        w_lm, tr = lm.embed_tokens.weight, True
+    logits, nxt, bad = fused_decode_logits(
+        x, [lm.norm.weight], w_lm, poison, norm="rms",
+        eps=lm.norm._epsilon, transpose_lm=tr)
+    return logits, nxt, bad, new + new_sc
 
 
 def _gpt_ragged_forward(model, ids_t, tok_pos, tok_slot, tok_valid,
@@ -528,26 +600,19 @@ def _decode_fn(model):
 
 def _decode_fused_fn(model):
     """Megakernel analog of :func:`_decode_fn`: the fused decode step of
-    the serving engine's ``megakernel`` path (GPT with float weights)."""
+    the serving engine's ``megakernel`` path, GPT or LLaMA over dense
+    projections. As in the JAX package, the fused kernels read each
+    projection's float weight, so a weight-only-quantized model
+    (``WeightOnlyLinear``) is served with the megakernel off."""
     from ..quantization import WeightOnlyLinear
-    from .gpt import GPTForCausalLM
-    from .llama import LlamaForCausalLM
-    if isinstance(model, LlamaForCausalLM):
-        raise NotImplementedError(
-            "megakernel: the LLaMA branches of the fused decode kernels "
-            "(RMSNorm, rope in the ingress, split q/k/v and GQA, SwiGLU in "
-            "the egress) arrive with the port's LLaMA-megakernel slice")
-    if not isinstance(model, GPTForCausalLM):
-        raise TypeError(
-            f"megakernel: unsupported model {type(model).__name__}; the "
-            "port's fused decode serves GPTForCausalLM, and the LLaMA "
-            "branches arrive with the port's LLaMA-megakernel slice")
+    fn = {"gpt": _gpt_decode_fused,
+          "llama": _llama_decode_fused}[_family(model)]
     if any(isinstance(m, WeightOnlyLinear) for m in model.modules()):
         raise NotImplementedError(
-            "megakernel: fused decode kernels over weight-only int8 "
-            "projections arrive with a later slice; serve a "
-            "weight_only_quantize'd model with megakernel off")
-    return _gpt_decode_fused
+            "megakernel: the fused decode kernels serve dense projections "
+            "only, as in the JAX package; serve a weight_only_quantize'd "
+            "model with megakernel off")
+    return fn
 
 
 def _ragged_fn(model):

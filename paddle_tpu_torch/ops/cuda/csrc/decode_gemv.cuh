@@ -6,7 +6,9 @@
 // is the weight bytes, read once. A warp owns a column and reads its row
 // with 16-byte loads, up to eight in flight per lane, after the block
 // asked the L2 for all of its rows; the activation rows sit in shared
-// memory, normalised there first where the layer asks for a norm.
+// memory, normalised there first where the layer asks for a norm. Rows
+// too wide for shared memory stream through it in K-chunks (load_chunk),
+// normalised on the way from per-row statistics (row_norm_stats).
 
 #pragma once
 
@@ -80,6 +82,109 @@ __device__ inline void layer_norm_rows(float* s, const float* __restrict__ w,
   __syncthreads();
 }
 
+// RMSNorm of every row of s [B, H] in place, as `_norm_block` with
+// norm="rms": ms = E[x^2], (x * rsqrt(ms + eps)) * w, then + b only where
+// b is given. One warp per row. Ends with a block barrier.
+__device__ inline void rms_norm_rows(float* s, const float* __restrict__ w,
+                                     const float* __restrict__ b, int B, int H,
+                                     float eps) {
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < B; r += blockDim.x / 32) {
+    float* row = s + (size_t)r * H;
+    float sq = 0.f;
+    for (int k = lane; k < H; k += 32) sq = fmaf(row[k], row[k], sq);
+    const float rstd = rsqrtf(warp_sum(sq) / H + eps);
+    for (int k = lane; k < H; k += 32) {
+      float v = (row[k] * rstd) * __ldg(w + k);
+      if (b != nullptr) v += __ldg(b + k);
+      row[k] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// The norm's statistics of rows x [B, K] read from device memory, for
+// rows that stream through shared memory in K-chunks (load_chunk):
+// stat[2 r] = the row's mean (0 for rms), stat[2 r + 1] = its rsqrt(var +
+// eps) (layer: var = E[x^2] - mean^2) or rsqrt(E[x^2] + eps) (rms). Plain
+// loads, as load_rows. One warp per row. Ends with a block barrier.
+__device__ inline void row_norm_stats(float* stat, const float* x, int B, int K,
+                                      bool rms, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < B; r += blockDim.x / 32) {
+    const float* row = x + (size_t)r * K;
+    float sum = 0.f, sq = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float v = row[k];
+      sum += v;
+      sq = fmaf(v, v, sq);
+    }
+    sum = warp_sum(sum);
+    sq = warp_sum(sq);
+    if (lane == 0) {
+      const float mean = rms ? 0.f : sum / K;
+      const float var = rms ? sq / K : sq / K - mean * mean;
+      stat[2 * r] = mean;
+      stat[2 * r + 1] = rsqrtf(var + eps);
+    }
+  }
+  __syncthreads();
+}
+
+// One element through the norm of row_norm_stats' statistics, in
+// `_norm_block`'s order: ((v - mean) * rstd) * w (layer) or (v * rstd) * w
+// (rms), then + b only where b is given.
+__device__ inline float norm_one(float v, float mean, float rstd, bool rms,
+                                 float w, const float* b, int k) {
+  v = (rms ? v * rstd : (v - mean) * rstd) * w;
+  return b != nullptr ? v + __ldg(b + k) : v;
+}
+
+// Stream K-chunks of activation rows through shared memory: copy columns
+// [k0, k0 + kc) of rows src [B, ld] into s [B, kc] (rows kc floats apart),
+// every thread of the block taking part, kLoads 16-byte loads in flight
+// per thread. With `stat` (row_norm_stats), each element is normalised on
+// the way with weight w [ld] and bias b [ld] or null. A row too wide for
+// shared memory (LLaMA-7B's MLP: 8 rows of 11008 floats are 352 KB) then
+// takes several chunks, the caller carrying each output's partial sum
+// from one chunk to the next. Plain loads, as load_rows. ld, k0, kc % 4
+// == 0.
+template <int kLoads = 4>
+__device__ inline void load_chunk(float* s, const float* src, int B, int ld,
+                                  int k0, int kc, const float* stat, bool rms,
+                                  const float* __restrict__ w,
+                                  const float* __restrict__ b) {
+  const int c4 = kc / 4, n4 = B * c4, step = blockDim.x;
+  float4* d4 = reinterpret_cast<float4*>(s);
+  for (int base = threadIdx.x; base < n4; base += kLoads * step) {
+    float4 v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * step;
+      if (i < n4) {
+        const int r = i / c4, c = i - r * c4;
+        v[u] = reinterpret_cast<const float4*>(src + (size_t)r * ld + k0)[c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * step;
+      if (i >= n4) continue;
+      if (stat != nullptr) {
+        const int r = i / c4, k = k0 + 4 * (i - r * c4);
+        const float mean = stat[2 * r], rstd = stat[2 * r + 1];
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(w + k));
+        v[u].x = norm_one(v[u].x, mean, rstd, rms, wv.x, b, k);
+        v[u].y = norm_one(v[u].y, mean, rstd, rms, wv.y, b, k + 1);
+        v[u].z = norm_one(v[u].z, mean, rstd, rms, wv.z, b, k + 2);
+        v[u].w = norm_one(v[u].w, mean, rstd, rms, wv.w, b, k + 3);
+      }
+      d4[i] = v[u];
+    }
+  }
+}
+
 // Ask the L2 for rows [n0, n1) of a weight matrix [N, K] (fp32, rows
 // contiguous), every thread of the block taking 128-byte lines in turn.
 // The loads that follow then find the bytes in L2: issued at kernel start,
@@ -140,6 +245,67 @@ __device__ inline void warp_dot_rows(const float* __restrict__ w_row, const floa
   }
 #pragma unroll
   for (int r = 0; r < kRowTile; ++r) acc[r] = warp_sum(acc[r]);
+}
+
+// acc[i][r] = dot(a[r, :K], w[i][:K]) for i < kN weight rows and r < nr
+// (nr <= kRowTile), summed across the warp: every lane returns the totals.
+// `a` is shared memory with rows K floats apart; each w[i] is a weight row
+// in device memory, 16-byte aligned, K % 4 == 0. Each activation float4
+// read from shared memory feeds kN weight float4s, so shared-memory
+// traffic per weight byte falls kN-fold (at 8 rows, one weight row at a
+// time reads 8 bytes of shared memory per weight byte, which bounds the
+// SM before its share of HBM does at LLaMA-7B's widths). kBatch / kN
+// 16-byte loads per weight row and lane are issued before any is used,
+// kBatch in all. Every lane adds its k = lane + 32 j terms in ascending j
+// whatever kN is, so a column's sum is bitwise warp_dot_rows'. One row at
+// a time stays with warp_dot_rows: kN = 1 here put the GPT MLP kernel at
+// 128 registers with spills (111 and none with warp_dot_rows) and 5%
+// slower on the H100.
+template <int kN>
+__device__ inline void warp_dot_multi(const float* const (&w)[kN], const float* a,
+                                      int K, int nr, float (&acc)[kN][kRowTile]) {
+  constexpr int kB = kBatch / kN;
+  static_assert(kB >= 1 && kB * kN == kBatch, "kN must divide kBatch");
+  const int lane = threadIdx.x % 32;
+  const int K4 = K / 4;
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) acc[i][r] = 0.f;
+  for (int base = lane; base < K4; base += 32 * kB) {
+    float4 wv[kN][kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int k = base + 32 * u;
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        wv[i][u] = k < K4 ? __ldg(reinterpret_cast<const float4*>(w[i]) + k)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const int k = base + 32 * u;
+      if (k >= K4) break;
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+        if (r < nr) {
+          const float4 av = a4[(size_t)r * K4 + k];
+#pragma unroll
+          for (int i = 0; i < kN; ++i) {
+            acc[i][r] = fmaf(av.x, wv[i][u].x, acc[i][r]);
+            acc[i][r] = fmaf(av.y, wv[i][u].y, acc[i][r]);
+            acc[i][r] = fmaf(av.z, wv[i][u].z, acc[i][r]);
+            acc[i][r] = fmaf(av.w, wv[i][u].w, acc[i][r]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r) acc[i][r] = warp_sum(acc[i][r]);
 }
 
 // Set the dynamic shared-memory limit of `kernel` when it needs more than

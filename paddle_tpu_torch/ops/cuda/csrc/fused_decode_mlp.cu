@@ -1,15 +1,22 @@
-// Fused decode egress for Hopper (sm_90a), two kernels:
+// Fused decode egress for Hopper (sm_90a), three kernels:
 //
 // * fused_decode_mlp: the attention out-projection and its residual,
 //   LayerNorm, fc1, tanh-GELU, fc2 and the second residual of one decode
 //   layer, in one launch. Replaces `_mlp_block` (arch="gpt") run by
 //   `_blocked_call` (paddle_tpu/ops/pallas/fused_decode_mlp.py):
 //     y1 = x + (att @ wo + bo);  out = y1 + (gelu(norm(y1) @ w1 + b1) @ w2 + b2).
-// * fused_decode_epilogue: the final LayerNorm, the LM head and the
-//   guarded greedy pick, in one launch. Replaces `_epilogue_block` (same
-//   file): logits = norm(x) @ w_lm^T (+ b_lm), then with lg = logits +
-//   poison, bad = any non-finite lg in the row, nxt = bad ? 0 : the FIRST
-//   index of the row's maximum (generation.guarded_argmax).
+// * fused_decode_swiglu: the same layer for arch="llama" (`_mlp_tail`'s
+//   SwiGLU branch), LayerNorm or RMSNorm, with the activation rows
+//   streamed through shared memory in K-chunks (its design is written
+//   above it):
+//     y1 = x + (att @ wo + bo);  h = norm(y1);
+//     out = y1 + ((silu(h @ wg) * (h @ wu)) @ wd + b2).
+// * fused_decode_epilogue: the final LayerNorm or RMSNorm, the LM head
+//   and the guarded greedy pick, in one launch. Replaces
+//   `_epilogue_block` (same file): logits = norm(x) @ w_lm^T (+ b_lm),
+//   then with lg = logits + poison, bad = any non-finite lg in the row,
+//   nxt = bad ? 0 : the FIRST index of the row's maximum
+//   (generation.guarded_argmax).
 //
 // What bounds them on an H100: the weight bytes. At decode the batch is a
 // few rows, so each product is a GEMV over a weight read once: 21.2 MB a
@@ -18,9 +25,9 @@
 // row blocks of one grid with the weights resident in VMEM; one SM pulling
 // those bytes would take hundreds of microseconds, so here the output
 // columns of every product are spread over all SMs (decode_gemv.cuh: a
-// warp per column, whole [out, in] weight rows with 16-byte loads after
-// an L2 prefetch issued at kernel start, activation rows in shared
-// memory).
+// warp per column or a few neighbouring ones, whole [out, in] weight rows
+// with 16-byte loads after an L2 prefetch issued at kernel start,
+// activation rows in shared memory).
 //
 // The MLP's three products depend on each other across columns (fc1 needs
 // every column of y1, fc2 every column of f), so the kernel is a
@@ -53,6 +60,7 @@ using decode::kThreads;
 using decode::kWarps;
 
 constexpr int kEpiColsPerCta = 64;   // vocab columns of one epilogue CTA
+constexpr int kEpiGroup = 4;         // columns a warp dots at once
 
 __device__ inline float gelu_tanh(float v) {
   const float kBeta = 0.7978845608028654f;   // sqrt(2 / pi)
@@ -172,6 +180,7 @@ __device__ inline void merge(float& v, int& i, int& fin, float v2, int i2, int f
   fin = fin && fin2;
 }
 
+template <bool kRms>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_epilogue_kernel(EpiParams p) {
   extern __shared__ __align__(16) float hs[];   // [B, H], then partials
@@ -192,26 +201,41 @@ fused_decode_epilogue_kernel(EpiParams p) {
     wfin[e] = 1;
   }
   decode::load_rows<1>(hs, p.x, p.B, p.H);
-  decode::layer_norm_rows(hs, p.nw, p.nb, p.B, p.H, p.eps);
+  if constexpr (kRms)
+    decode::rms_norm_rows(hs, p.nw, p.nb, p.B, p.H, p.eps);
+  else
+    decode::layer_norm_rows(hs, p.nw, p.nb, p.B, p.H, p.eps);
 
   // this CTA's columns: logits out, and each warp's running (max, index,
-  // finite) per row, kept by the lane that owns the row
-  for (int n = n0 + warp; n < n_end; n += kWarps) {
-    const float bn = p.bias != nullptr ? __ldg(p.bias + n) : 0.f;
+  // finite) per row, kept by the lane that owns the row. A warp dots
+  // kEpiGroup neighbouring columns at once (decode::warp_dot_multi), which
+  // cuts the shared-memory reads per weight byte kEpiGroup-fold: at
+  // LLaMA-7B's 8 rows of 4096 the CTA's 128 KB of rows leave one CTA an
+  // SM, whose shared memory would otherwise bound it.
+  for (int c0 = n0 + warp * kEpiGroup; c0 < n_end; c0 += kWarps * kEpiGroup) {
+    const float* rows[kEpiGroup];
+#pragma unroll
+    for (int i = 0; i < kEpiGroup; ++i)
+      rows[i] = p.w + (size_t)min(c0 + i, n_end - 1) * p.H;
     for (int r0 = 0; r0 < p.B; r0 += kRowTile) {
       const int nr = min(kRowTile, p.B - r0);
-      float acc[kRowTile];
-      decode::warp_dot_rows(p.w + (size_t)n * p.H, hs + (size_t)r0 * p.H, p.H, nr,
-                            acc);
+      float acc[kEpiGroup][kRowTile];
+      decode::warp_dot_multi<kEpiGroup>(rows, hs + (size_t)r0 * p.H, p.H, nr, acc);
 #pragma unroll
       for (int r = 0; r < kRowTile; ++r) {
         if (r >= nr || lane != r) continue;
         const int b = r0 + r;
-        const float lg0 = p.bias != nullptr ? acc[r] + bn : acc[r];
-        p.logits[(size_t)b * p.V + n] = lg0;
-        const float lg = lg0 + __ldg(p.poison + b);
-        const int e = warp * p.B + b;
-        merge(wval[e], widx[e], wfin[e], lg, n, isfinite(lg) ? 1 : 0);
+#pragma unroll
+        for (int i = 0; i < kEpiGroup; ++i) {
+          const int n = c0 + i;
+          if (n >= n_end) break;
+          const float lg0 = p.bias != nullptr ? acc[i][r] + __ldg(p.bias + n)
+                                              : acc[i][r];
+          p.logits[(size_t)b * p.V + n] = lg0;
+          const float lg = lg0 + __ldg(p.poison + b);
+          const int e = warp * p.B + b;
+          merge(wval[e], widx[e], wfin[e], lg, n, isfinite(lg) ? 1 : 0);
+        }
       }
     }
   }
@@ -257,6 +281,207 @@ fused_decode_epilogue_kernel(EpiParams p) {
     }
   }
   if (threadIdx.x == 0) *p.ticket = 0u;
+}
+
+
+// ---------------------------------------------------------------------------
+// fused_decode_swiglu_kernel. Same plan as fused_decode_mlp_kernel (a
+// cooperative launch, all output columns of each product spread over every
+// warp of the grid, a grid barrier between the three products, y1 and the
+// activations passing through a global scratch that stays in L2), with three
+// changes for LLaMA-7B's width:
+//
+// * The activation rows stream through shared memory in K-chunks
+//   (decode::load_chunk): 8 rows of the down projection's 11008 floats are
+//   352 KB, above the 227 KB a CTA may have. A chunk is at most 64 KB
+//   (2048 columns at 8 rows); two CTAs then share an SM (registers, 125 a
+//   thread, allow no third). Each warp keeps its columns' partial sums in
+//   the phase's output buffer, only it touching them, and the last chunk
+//   finishes the column. The norm of y1 is applied as each chunk loads,
+//   from per-row statistics every CTA computes once (row_norm_stats).
+// * A warp dots two weight rows against each activation float4 it reads
+//   from shared memory (decode::warp_dot_multi): two neighbouring columns
+//   of the out and down projections, a column's gate and up rows. That
+//   halves the shared-memory traffic; four rows at once measured slower
+//   on the H100 (fewer column groups than warps in the out and down
+//   projections, and spills).
+// * The L2 prefetch is bounded: one layer's weights are 608 MB at
+//   LLaMA-7B, twelve times the 50 MB L2, so a prefetch of all of them
+//   (the GPT kernel's) would evict itself. Before each grid barrier every
+//   warp asks only for the first chunk of the first row of its first
+//   column group of the next product, so the fetch overlaps the barrier's
+//   wait. At 8 rows (8 KB chunks, 264 CTAs) that is 16.8 MB before the
+//   out projection, 69.2 MB of gate and up rows before the second phase
+//   (more than the L2 holds) and 16.8 MB before the down projection; at
+//   one row (whole-row chunks) 33.6, 138.4 and 90.2 MB.
+//
+// The grid is every CTA that can be resident (the occupancy API), capped at
+// one warp per column group of the widest product; the phases stride their
+// column groups over whatever grid runs, so every column is covered at any
+// grid size, and a refused launch returns its error. What bounds it: the weight
+// bytes (608 MB a layer at LLaMA-7B, 0.18 ms at 3.35 TB/s).
+
+constexpr size_t kSwigluChunkBytes = 64 * 1024;
+
+struct SwigluParams {
+  const float* x;      // [B, H] residual stream
+  const float* att;    // [B, A] attention output
+  const float* wo;     // [H, A]
+  const float* bo;     // [H] or null
+  const float* nw;     // [H]
+  const float* nb;     // [H] or null
+  const float* wg;     // [I, H] gate
+  const float* wu;     // [I, H] up
+  const float* wd;     // [H, I] down
+  const float* b2;     // [H] or null
+  float* y1;           // [B, H] scratch
+  float* g;            // [B, I] scratch: gate partials, then silu(g) * u
+  float* u;            // [B, I] scratch: up partials
+  float* out;          // [B, H]
+  int B, H, A, I, kc, rms;
+  float eps;
+};
+
+__device__ inline float silu(float v) { return v / (1.f + expf(-v)); }
+
+// Weight rows a warp dots at once: two neighbouring columns of the out
+// or down projection, or one column's gate and up rows.
+constexpr int kGroup = 2;
+
+// One product over K-chunks of src [B, K] (normalised on load where `stat`
+// is given): for every output column n (each warp takes groups of
+// kGroup / kW neighbouring columns, grid-strided), every row b and every
+// chunk, part(b, n, dots, first, last) with dots[i] this chunk's dot of
+// row b with w[i]'s row n, called by one lane. A group's kGroup weight
+// rows go through one decode::warp_dot_multi.
+template <int kW, typename Part>
+__device__ inline void chunked_phase(float* s, const float* src, int B, int K, int kc,
+                                     const float* stat, bool rms, const float* nw,
+                                     const float* nb, const float* const (&w)[kW],
+                                     int N, Part part) {
+  static_assert(kGroup % kW == 0, "a group holds whole columns");
+  constexpr int kCols = kGroup / kW;
+  constexpr int kN = kGroup;
+  const int lane = threadIdx.x % 32;
+  const int gwarp = (int)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int nwarps = (int)gridDim.x * kWarps;
+  const int groups = (N + kCols - 1) / kCols;
+  for (int k0 = 0; k0 < K; k0 += kc) {
+    const int len = min(kc, K - k0);
+    __syncthreads();   // the previous chunk's readers are done
+    decode::load_chunk(s, src, B, K, k0, len, stat, rms, nw, nb);
+    __syncthreads();
+    for (int g = gwarp; g < groups; g += nwarps) {
+      const float* rows[kN];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int n = min(g * kCols + j, N - 1);   // a tail column repeats
+#pragma unroll
+        for (int i = 0; i < kW; ++i) rows[j * kW + i] = w[i] + (size_t)n * K + k0;
+      }
+      for (int r0 = 0; r0 < B; r0 += kRowTile) {
+        const int nr = min(kRowTile, B - r0);
+        float acc[kN][kRowTile];
+        decode::warp_dot_multi<kN>(rows, s + (size_t)r0 * len, len, nr, acc);
+#pragma unroll
+        for (int r = 0; r < kRowTile; ++r) {
+          if (r >= nr || lane != r) continue;
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            const int n = g * kCols + j;
+            if (n >= N) break;
+            float dots[kW];
+#pragma unroll
+            for (int i = 0; i < kW; ++i) dots[i] = acc[j * kW + i][r];
+            part(r0 + r, n, dots, k0 == 0, k0 + len >= K);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Ask the L2 for the first chunk of the first row of this warp's first
+// column group of w [N, K] (groups of `cols` columns).
+__device__ inline void prefetch_first_chunk(const float* w, int N, int K, int kc,
+                                            int cols) {
+  const int gwarp = (int)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (gwarp * cols < N)
+    decode::prefetch_row_l2(w + (size_t)gwarp * cols * K, min(kc, K));
+}
+
+__global__ void __launch_bounds__(kThreads)
+fused_decode_swiglu_kernel(SwigluParams p) {
+  extern __shared__ __align__(16) float s[];   // [B, kc] chunk, then [B, 2] stats
+  float* stat = s + (size_t)p.B * p.kc;
+  cg::grid_group grid = cg::this_grid();
+  const bool rms = p.rms != 0;
+
+  // phase 1: y1 = x + (att @ wo^T + bo)
+  prefetch_first_chunk(p.wo, p.H, p.A, p.kc, kGroup);
+  {
+    const float* w[1] = {p.wo};
+    chunked_phase<1>(s, p.att, p.B, p.A, p.kc, nullptr, rms, nullptr, nullptr, w,
+                     p.H, [&](int b, int n, const float* d, bool first, bool last) {
+      float* y = p.y1 + (size_t)b * p.H + n;
+      float t = first ? d[0] : *y + d[0];
+      if (last) {
+        if (p.bo != nullptr) t += __ldg(p.bo + n);
+        t = p.x[(size_t)b * p.H + n] + t;
+      }
+      *y = t;
+    });
+  }
+  prefetch_first_chunk(p.wg, p.I, p.H, p.kc, kGroup / 2);
+  prefetch_first_chunk(p.wu, p.I, p.H, p.kc, kGroup / 2);
+  grid.sync();
+
+  // phase 2: f = silu(norm(y1) @ wg^T) * (norm(y1) @ wu^T)
+  decode::row_norm_stats(stat, p.y1, p.B, p.H, rms, p.eps);
+  {
+    const float* w[2] = {p.wg, p.wu};
+    chunked_phase<2>(s, p.y1, p.B, p.H, p.kc, stat, rms, p.nw, p.nb, w, p.I,
+                     [&](int b, int n, const float* d, bool first, bool last) {
+      float* g = p.g + (size_t)b * p.I + n;
+      float* u = p.u + (size_t)b * p.I + n;
+      const float gv = first ? d[0] : *g + d[0];
+      const float uv = first ? d[1] : *u + d[1];
+      if (last) {
+        *g = silu(gv) * uv;
+      } else {
+        *g = gv;
+        *u = uv;
+      }
+    });
+  }
+  prefetch_first_chunk(p.wd, p.H, p.I, p.kc, kGroup);
+  grid.sync();
+
+  // phase 3: out = y1 + (f @ wd^T + b2)
+  {
+    const float* w[1] = {p.wd};
+    chunked_phase<1>(s, p.g, p.B, p.I, p.kc, nullptr, rms, nullptr, nullptr, w, p.H,
+                     [&](int b, int n, const float* d, bool first, bool last) {
+      float* o = p.out + (size_t)b * p.H + n;
+      float t = first ? d[0] : *o + d[0];
+      if (last) {
+        if (p.b2 != nullptr) t += __ldg(p.b2 + n);
+        t = p.y1[(size_t)b * p.H + n] + t;
+      }
+      *o = t;
+    });
+  }
+}
+
+// K-chunk of the SwiGLU kernel: the widest product's K where it fits in
+// kSwigluChunkBytes, else a multiple of 128 (of 4 for very many rows;
+// 0: too many rows).
+int swiglu_chunk(int B, int H, int A, int I) {
+  const int widest = A > H ? (A > I ? A : I) : (H > I ? H : I);
+  long long kc = (long long)(kSwigluChunkBytes / sizeof(float)) / B;
+  if (kc >= widest) return widest;
+  kc = kc >= 128 ? kc & ~127LL : kc & ~3LL;
+  return kc >= 4 ? (int)kc : 0;
 }
 
 }  // namespace
@@ -315,20 +540,82 @@ int pdt_fused_decode_mlp_f32(const float* x, const float* att, const float* wo,
 }
 
 // Launch on `stream`; returns a cudaError_t as int. `ticket` must be 0.
+// `rms`: RMSNorm, else LayerNorm.
 int pdt_fused_decode_epilogue_f32(const float* x, const float* nw, const float* nb,
                                   const float* w, const float* bias,
                                   const float* poison, float* logits, float* part_val,
                                   int* part_idx, int* part_fin, unsigned* ticket,
                                   long long* nxt, unsigned char* bad, int B, int H,
-                                  int V, float eps, void* stream) {
+                                  int V, float eps, int rms, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   EpiParams p{x, nw, nb, w, bias, poison, logits, part_val, part_idx, part_fin,
               ticket, nxt, bad, B, H, V, eps};
   const size_t smem = pdt_fused_decode_epilogue_smem_bytes(B, H);
-  cudaError_t err = decode::allow_smem(fused_decode_epilogue_kernel, smem);
+  auto kernel = rms ? fused_decode_epilogue_kernel<true>
+                    : fused_decode_epilogue_kernel<false>;
+  cudaError_t err = decode::allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_decode_epilogue_kernel<<<pdt_fused_decode_epilogue_grid(V), kThreads, smem,
-                                 (cudaStream_t)stream>>>(p);
+  kernel<<<pdt_fused_decode_epilogue_grid(V), kThreads, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one SwiGLU CTA, in bytes (0: B rows do not fit).
+size_t pdt_fused_decode_swiglu_smem_bytes(int B, int H, int A, int I) {
+  const int kc = swiglu_chunk(B, H, A, I);
+  return kc == 0 ? 0 : ((size_t)B * kc + 2 * (size_t)B) * sizeof(float);
+}
+
+// CTAs of one SwiGLU launch into *grid: every CTA that can be resident
+// (set the kernel's shared-memory limit first), at most one warp per
+// column group of the widest product. Returns a cudaError_t as int.
+int pdt_fused_decode_swiglu_grid(int B, int H, int A, int I, int* grid) {
+  const size_t smem = pdt_fused_decode_swiglu_smem_bytes(B, H, A, I);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = decode::allow_smem(fused_decode_swiglu_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fused_decode_swiglu_kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int g13 = (H + kGroup - 1) / kGroup;               // phases 1 and 3
+  const int g2 = (I + kGroup / 2 - 1) / (kGroup / 2);      // gate and up
+  const int widest = g13 > g2 ? g13 : g2;
+  *grid = (widest + kWarps - 1) / kWarps;
+  if (*grid > per_sm * sms) *grid = per_sm * sms;
+  return (int)cudaSuccess;
+}
+
+// Cooperative launch of the SwiGLU egress on `stream`; returns a
+// cudaError_t as int. `rms`: RMSNorm, else LayerNorm.
+int pdt_fused_decode_swiglu_f32(const float* x, const float* att, const float* wo,
+                                const float* bo, const float* nw, const float* nb,
+                                const float* wg, const float* wu, const float* wd,
+                                const float* b2, float* y1, float* g, float* u,
+                                float* out, int B, int H, int A, int I, int rms,
+                                float eps, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  const int kc = swiglu_chunk(B, H, A, I);
+  if (kc == 0) return (int)cudaErrorInvalidValue;
+  SwigluParams p{x, att, wo, bo, nw, nb, wg, wu, wd, b2, y1, g, u, out,
+                 B, H, A, I, kc, rms, eps};
+  const size_t smem = pdt_fused_decode_swiglu_smem_bytes(B, H, A, I);
+  int grid = 0;
+  cudaError_t err = (cudaError_t)pdt_fused_decode_swiglu_grid(B, H, A, I, &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)fused_decode_swiglu_kernel,
+                                    dim3(grid), dim3(kThreads), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

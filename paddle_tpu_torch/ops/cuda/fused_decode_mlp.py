@@ -1,31 +1,36 @@
 """Fused decode egress for Hopper: two kernels of
 ``paddle_tpu/ops/pallas/fused_decode_mlp.py``.
 
-* :func:`fused_decode_mlp` replaces ``_mlp_block`` with ``arch="gpt"``
-  (run by ``_blocked_call``): ``y1 = x + (att @ wo + bo)``, then
-  ``y1 + fc2(gelu_tanh(fc1(norm(y1))))``, the residual stream of the next
-  layer, in one cooperative launch.
+* :func:`fused_decode_mlp` replaces ``_mlp_block`` (run by
+  ``_blocked_call``): ``y1 = x + (att @ wo + bo)``, then ``y1 +
+  mlp(norm(y1))``, the residual stream of the next layer, in one
+  cooperative launch. ``arch="gpt"``: ``fc2(gelu_tanh(fc1(h)))`` with
+  its biases; ``arch="llama"`` (``_mlp_tail``'s SwiGLU): ``(silu(h @
+  w_gate) * (h @ w_up)) @ w_down`` (``w1`` is the gate, ``w_up`` the up
+  projection, ``w2`` the down; ``b1`` is not read, as in JAX).
 * :func:`fused_decode_epilogue` replaces ``_epilogue_block``: the final
-  LayerNorm, the LM head and the guarded greedy pick. It returns
-  ``(logits [B, V] pre-poison, nxt [B], bad [B] bool)``, with ``nxt``
-  and ``bad`` exactly ``models.generation.guarded_argmax``'s on the same
-  logits (the first maximal index; a row with any non-finite value after
-  the poison lane is added is bad and picks 0). ``nxt`` is int64, as
+  norm, the LM head and the guarded greedy pick. It returns ``(logits
+  [B, V] pre-poison, nxt [B], bad [B] bool)``, with ``nxt`` and ``bad``
+  exactly ``models.generation.guarded_argmax``'s on the same logits
+  (the first maximal index; a row with any non-finite value after the
+  poison lane is added is bad and picks 0). ``nxt`` is int64, as
   ``guarded_argmax`` returns it.
 
-The norms are ``fused_decode_qkv._norm_block`` (``var = E[x^2] -
-mean^2``). Weights come in the port's ``nn.Linear`` layout ``[out,
-in]`` (the JAX package passes ``[in, out]``); the LM head weight is
-``[V, H]`` both for the tied embedding (``transpose_lm=True``, JAX's
-``matmul(h, wte.T)``) and for an untied head, whose bias ``b_lm`` is
-added only when ``transpose_lm`` is False, as in JAX.
+The norms are ``fused_decode_qkv._norm_block`` (``norm="layer"``: ``var
+= E[x^2] - mean^2``; ``norm="rms"``: ``x * rsqrt(E[x^2] + eps)``).
+Weights come in the port's ``nn.Linear`` layout ``[out, in]`` (the JAX
+package passes ``[in, out]``); the LM head weight is ``[V, H]`` both for
+the tied embedding (``transpose_lm=True``, JAX's ``matmul(h, wte.T)``)
+and for an untied head, whose bias ``b_lm`` is added only when
+``transpose_lm`` is False, as in JAX.
 
 CPU tensors take the ``_plain`` versions; CUDA tensors launch the
-kernels (``csrc/fused_decode_mlp.cu``) or raise. ``rows=`` and
-``interpret=`` are TPU knobs, accepted for call compatibility and not
-read. ``arch="llama"`` (SwiGLU) and ``norm="rms"`` raise, naming the
-LLaMA slice. The tensor-parallel partial (``_mlp_partial_block``) is not
-ported here: it comes with the multi-card serving slice.
+kernels (``csrc/fused_decode_mlp.cu``: the GELU MLP kernel for
+``arch="gpt"`` with LayerNorm, the SwiGLU kernel for ``arch="llama"``,
+the epilogue for either norm) or raise. ``rows=`` and ``interpret=`` are
+TPU knobs, accepted for call compatibility and not read. The
+tensor-parallel partial (``_mlp_partial_block``) is not ported here: it
+comes with the multi-card serving slice.
 """
 from __future__ import annotations
 
@@ -38,7 +43,6 @@ from .fused_decode_qkv import SMEM_LIMIT, _norm_block
 __all__ = ["fused_decode_mlp", "fused_decode_mlp_plain",
            "fused_decode_epilogue", "fused_decode_epilogue_plain"]
 
-_LLAMA = "arrives with the port's LLaMA slice"
 _lib = None
 _tickets: dict = {}   # device -> the epilogue's int32 ticket (kept at 0)
 
@@ -52,12 +56,18 @@ def _kernels():
         lib.pdt_fused_decode_mlp_f32.argtypes = [P] * 13 + [I] * 4 + [F, P]
         lib.pdt_fused_decode_mlp_f32.restype = I
         lib.pdt_fused_decode_epilogue_f32.argtypes = ([P] * 13 + [I] * 3
-                                                      + [F, P])
+                                                      + [F, I, P])
         lib.pdt_fused_decode_epilogue_f32.restype = I
         lib.pdt_fused_decode_epilogue_grid.argtypes = [I]
         lib.pdt_fused_decode_epilogue_grid.restype = I
         lib.pdt_fused_decode_mlp_smem_bytes.argtypes = [I] * 4
         lib.pdt_fused_decode_mlp_smem_bytes.restype = ctypes.c_size_t
+        lib.pdt_fused_decode_swiglu_f32.argtypes = [P] * 14 + [I] * 5 + [F, P]
+        lib.pdt_fused_decode_swiglu_f32.restype = I
+        lib.pdt_fused_decode_swiglu_smem_bytes.argtypes = [I] * 4
+        lib.pdt_fused_decode_swiglu_smem_bytes.restype = ctypes.c_size_t
+        lib.pdt_fused_decode_swiglu_grid.argtypes = [I] * 4 + [P]
+        lib.pdt_fused_decode_swiglu_grid.restype = I
         lib.pdt_fused_decode_epilogue_smem_bytes.argtypes = [I] * 2
         lib.pdt_fused_decode_epilogue_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_cuda_error_string.argtypes = [I]
@@ -70,30 +80,40 @@ def _gelu_tanh(v):
     return torch.nn.functional.gelu(v, approximate="tanh")
 
 
+def _mlp_tail(h, w1, b1, w2, b2, w_up, arch):
+    """fc1 -> GELU -> fc2 (GPT) or gate/up -> SwiGLU -> down (LLaMA), in
+    the JAX ``_mlp_tail`` op order."""
+    if arch == "gpt":
+        f = h @ w1.t()
+        if b1 is not None:
+            f = f + b1
+        f = _gelu_tanh(f)
+    else:
+        f = torch.nn.functional.silu(h @ w1.t()) * (h @ w_up.t())
+    f2 = f @ w2.t()
+    if b2 is not None:
+        f2 = f2 + b2
+    return f2
+
+
 def fused_decode_mlp_plain(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
-                           *, eps):
+                           w_up=None, *, eps, arch="gpt", norm="layer"):
     """Plain PyTorch version of :func:`fused_decode_mlp` (any device), in
     the JAX ``_mlp_block`` op order."""
     prj = att @ wo.t()
     if bo is not None:
         prj = prj + bo
     y1 = x + prj
-    h = _norm_block(y1, norm_w, norm_b, eps)
-    f = h @ w1.t()
-    if b1 is not None:
-        f = f + b1
-    f2 = _gelu_tanh(f) @ w2.t()
-    if b2 is not None:
-        f2 = f2 + b2
-    return y1 + f2
+    h = _norm_block(y1, norm_w, norm_b, eps, norm)
+    return y1 + _mlp_tail(h, w1, b1, w2, b2, w_up, arch)
 
 
 def fused_decode_epilogue_plain(x, norm_w, norm_b, w_lm, b_lm, poison, *,
-                                eps, transpose_lm):
+                                eps, transpose_lm, norm="layer"):
     """Plain PyTorch version of :func:`fused_decode_epilogue` (any
     device): ``_epilogue_block``'s math, the pick by ``guarded_argmax``'s
     rule."""
-    h = _norm_block(x, norm_w, norm_b, eps)
+    h = _norm_block(x, norm_w, norm_b, eps, norm)
     lg0 = h @ w_lm.t()
     if not transpose_lm and b_lm is not None:
         lg0 = lg0 + b_lm
@@ -133,15 +153,14 @@ def _raise(name, rc):
     raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def _refuse(name, arch, norm, w_up=None):
-    if arch == "llama" or w_up is not None:
-        raise NotImplementedError(f"{name}: arch='llama' (SwiGLU) {_LLAMA}")
-    if arch != "gpt":
+def _check_variant(name, arch, norm, w_up=None):
+    if arch not in ("gpt", "llama"):
         raise ValueError(f"{name}: arch must be 'gpt' or 'llama', got "
                          f"{arch!r}")
-    if norm == "rms":
-        raise NotImplementedError(f"{name}: norm='rms' {_LLAMA}")
-    if norm != "layer":
+    if (arch == "llama") != (w_up is not None):
+        raise ValueError(f"{name}: arch='llama' takes w_up (the SwiGLU up "
+                         f"projection) and arch='gpt' none")
+    if norm not in ("layer", "rms"):
         raise ValueError(f"{name}: norm must be 'layer' or 'rms', got "
                          f"{norm!r}")
 
@@ -150,50 +169,73 @@ def fused_decode_mlp(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
                      w_up=None, *, arch="gpt", norm="layer", eps=1e-5,
                      rows=None, interpret=None):
     """x [B, H] residual stream, att [B, A] attention output; wo [H, A],
-    w1 [I, H], w2 [H, I] (``[out, in]``), biases [out] or None ->
-    [B, H], the residual stream after out-proj + residual + MLP +
-    residual."""
+    w1 [I, H] (fc1, or the gate), w2 [H, I] (fc2, or the down
+    projection), w_up [I, H] (``arch="llama"`` only), all ``[out, in]``;
+    biases [out] or None -> [B, H], the residual stream after out-proj +
+    residual + MLP + residual."""
     del rows, interpret     # TPU tiling / interpret knobs
     name = "fused_decode_mlp"
-    _refuse(name, arch, norm, w_up)
+    _check_variant(name, arch, norm, w_up)
+    llama = arch == "llama"
+    if llama:
+        b1 = None           # _mlp_tail's SwiGLU branch has no fc1 bias
     if x.dim() != 2 or att.dim() != 2 or att.shape[0] != x.shape[0]:
         raise ValueError(f"{name}: x [B, H] and att [B, A] expected, got "
                          f"{tuple(x.shape)} and {tuple(att.shape)}")
     bsz, hid = x.shape
     a_w, inter = att.shape[1], w1.shape[0]
     for what, t, shape in (("wo", wo, (hid, a_w)), ("w1", w1, (inter, hid)),
-                           ("w2", w2, (hid, inter)), ("bo", bo, (hid,)),
+                           ("w2", w2, (hid, inter)),
+                           ("w_up", w_up, (inter, hid)), ("bo", bo, (hid,)),
                            ("b1", b1, (inter,)), ("b2", b2, (hid,)),
                            ("norm_w", norm_w, (hid,)),
                            ("norm_b", norm_b, (hid,))):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name}: {what} must be {list(shape)} ([out, "
                              f"in]), got {tuple(t.shape)}")
-    dev = _device(name, [x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2])
+    dev = _device(name, [x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
+                         w_up])
     if dev.type == "cpu":
         return fused_decode_mlp_plain(x, att, wo, bo, norm_w, norm_b, w1,
-                                      b1, w2, b2, eps=eps)
+                                      b1, w2, b2, w_up, eps=eps, arch=arch,
+                                      norm=norm)
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
+    if not llama and norm != "layer":
+        raise NotImplementedError(
+            f"{name}: the GELU MLP kernel takes norm='layer' (GPT's); the "
+            f"JAX package serves no GELU MLP behind an RMSNorm")
     _check_card(name, (("x", x), ("att", att), ("wo", wo), ("bo", bo),
                        ("norm_w", norm_w), ("norm_b", norm_b), ("w1", w1),
-                       ("b1", b1), ("w2", w2), ("b2", b2)))
+                       ("b1", b1), ("w2", w2), ("b2", b2), ("w_up", w_up)))
+    if llama and norm_w.data_ptr() % 16:
+        raise ValueError(f"{name}: norm_w must be 16-byte aligned")
     lib = _kernels()
-    smem = lib.pdt_fused_decode_mlp_smem_bytes(bsz, hid, a_w, inter)
-    if smem > SMEM_LIMIT:
+    smem = (lib.pdt_fused_decode_swiglu_smem_bytes if llama
+            else lib.pdt_fused_decode_mlp_smem_bytes)(bsz, hid, a_w, inter)
+    if not 0 < smem <= SMEM_LIMIT:
         raise ValueError(f"{name}: {bsz} rows of width "
-                         f"{max(hid, a_w, inter)} need {smem} B of shared "
-                         f"memory > {SMEM_LIMIT}")
+                         f"{max(hid, a_w, inter)} do not fit the "
+                         f"{SMEM_LIMIT} B of shared memory of a CTA")
     y1 = torch.empty_like(x)
     f = torch.empty(bsz, inter, dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pdt_fused_decode_mlp_f32(
-            x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
-            norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(), _ptr(b1),
-            w2.data_ptr(), _ptr(b2), y1.data_ptr(), f.data_ptr(),
-            out.data_ptr(), bsz, hid, a_w, inter, float(eps), stream)
+        if llama:
+            u = torch.empty_like(f)
+            rc = lib.pdt_fused_decode_swiglu_f32(
+                x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
+                norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(),
+                w_up.data_ptr(), w2.data_ptr(), _ptr(b2), y1.data_ptr(),
+                f.data_ptr(), u.data_ptr(), out.data_ptr(), bsz, hid, a_w,
+                inter, int(norm == "rms"), float(eps), stream)
+        else:
+            rc = lib.pdt_fused_decode_mlp_f32(
+                x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
+                norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(), _ptr(b1),
+                w2.data_ptr(), _ptr(b2), y1.data_ptr(), f.data_ptr(),
+                out.data_ptr(), bsz, hid, a_w, inter, float(eps), stream)
     if rc != 0:
         _raise(name, rc)
     fused_decode_mlp.launches += 1
@@ -201,6 +243,20 @@ def fused_decode_mlp(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
 
 
 fused_decode_mlp.launches = 0
+
+
+def swiglu_grid(bsz, hid, a_w, inter, device=None):
+    """CTAs of one SwiGLU egress launch on the current card at these
+    widths (every CTA that can be resident, capped at one warp per
+    column of the widest product)."""
+    lib = _kernels()
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.pdt_fused_decode_swiglu_grid(bsz, hid, a_w, inter,
+                                              ctypes.byref(grid))
+    if rc != 0:
+        _raise("fused_decode_mlp", rc)
+    return grid.value
 
 
 def _ticket(dev):
@@ -219,7 +275,7 @@ def fused_decode_epilogue(x, norm_w, norm_b, w_lm, b_lm, poison, *,
     ``(logits [B, V] pre-poison, nxt [B] int64, bad [B] bool)``."""
     del rows, interpret     # TPU tiling / interpret knobs
     name = "fused_decode_epilogue"
-    _refuse(name, "gpt", norm)
+    _check_variant(name, "gpt", norm)
     if x.dim() != 2 or w_lm.dim() != 2 or w_lm.shape[1] != x.shape[1]:
         raise ValueError(f"{name}: x [B, H] and w_lm [V, H] expected, got "
                          f"{tuple(x.shape)} and {tuple(w_lm.shape)}")
@@ -236,7 +292,8 @@ def fused_decode_epilogue(x, norm_w, norm_b, w_lm, b_lm, poison, *,
     if dev.type == "cpu":
         return fused_decode_epilogue_plain(x, norm_w, norm_b, w_lm, b_lm,
                                            poison, eps=eps,
-                                           transpose_lm=transpose_lm)
+                                           transpose_lm=transpose_lm,
+                                           norm=norm)
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     pz = poison.reshape(-1)
@@ -259,7 +316,7 @@ def fused_decode_epilogue(x, norm_w, norm_b, w_lm, b_lm, poison, *,
             _ptr(bias), pz.data_ptr(), logits.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), part[2].data_ptr(), _ticket(dev).data_ptr(),
             nxt.data_ptr(), bad.data_ptr(), bsz, hid, vocab, float(eps),
-            stream)
+            int(norm == "rms"), stream)
     if rc != 0:
         _raise(name, rc)
     fused_decode_epilogue.launches += 1

@@ -247,8 +247,7 @@ def test_coded_rejections_match_jax(results):
 
 def test_left_out_subsystems_raise():
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
-    for kw in ({"kv_quant": True, "megakernel": True},
-               {"kv_quant": "on", "megakernel": "on"}, {"spec_decode": True},
+    for kw in ({"spec_decode": True},
                {"spec_k": 4}, {"spec_proposer": "ngram"},
                {"mesh": object()}, {"slo": "ttft_p99<100ms"},
                {"watchdog_ms": 50}):
@@ -259,9 +258,14 @@ def test_left_out_subsystems_raise():
     eng = ContinuousBatchingEngine(tm, device="cpu", kv_quant="off",
                                    megakernel=False, **G1)
     assert eng.stats["kv_quant"] is False
-    # int8 KV pages are ported (tests/test_torch_quant_serving.py)
+    # int8 KV pages are ported (tests/test_torch_quant_serving.py), with
+    # the megakernel too (tests/test_torch_llama_megakernel.py)
     eng = ContinuousBatchingEngine(tm, device="cpu", kv_quant="on", **G1)
     assert eng.stats["kv_quant"] is True
+    for kw in ({"kv_quant": True, "megakernel": True},
+               {"kv_quant": "on", "megakernel": "on"}):
+        eng = ContinuousBatchingEngine(tm, device="cpu", **G1, **kw)
+        assert eng.kv_quant is True and eng.megakernel is True
 
 
 def test_megakernel_off_spelling_restores_default_geometry():

@@ -126,6 +126,129 @@ def test_qkv_plain_matches_twin(jx, rows, bias):
         np.testing.assert_allclose(got[:, mask], ref[:, mask], **TOL)
 
 
+def _llama_qkv_inputs(seed=0, B=5, H=32, nh=4, hk=2, hd=8, NP=3, ps=4,
+                      P=12, int8=False, gpt=False):
+    """``_qkv_case`` of tests/test_decode_megakernel.py at the LLaMA shape
+    (RMSNorm, three projections without biases, GQA 4 on 2 kv heads, rope
+    at theta 1e4) or, with ``gpt``, GPT's (LayerNorm, one fused weight
+    and bias, no rope); fp32 pools, or int8 pools and scale pools with
+    random bytes (so a stray write shows). Weights in the JAX layout
+    ``[in, out]``."""
+    rng = np.random.default_rng(seed)
+    pos = np.asarray([0, 3, 7, 11, 2, 5, 9, 1, 6][:B], np.int64)
+    bt = rng.integers(0, P, size=(B, NP)).astype(np.int32)
+    x, nw = _n(rng, B, H), _n(rng, H)
+    if gpt:
+        hk = nh
+        ws = [_n(rng, H, (nh + 2 * hk) * hd) * 0.05]
+        bs = [_n(rng, (nh + 2 * hk) * hd) * 0.1]
+        nb = _n(rng, H)
+    else:
+        ws = [_n(rng, H, n * hd) * 0.05 for n in (nh, hk, hk)]
+        bs, nb = [], None
+    shape = (hk, P, ps, hd)
+    if int8:
+        pools = [rng.integers(-127, 128, shape).astype(np.int8)
+                 for _ in range(2)]
+        pools += [rng.uniform(0.01, 0.1, shape[:3]).astype(np.float32)
+                  for _ in range(2)]
+    else:
+        pools = [_n(rng, *shape) for _ in range(2)]
+    return dict(x=x, nw=nw, nb=nb, ws=ws, bs=bs, pos=pos, bt=bt,
+                pools=pools, nh=nh, hk=hk, hd=hd, gpt=gpt)
+
+
+def _qkv_kw(a):
+    return dict(norm="layer" if a["gpt"] else "rms",
+                eps=1e-5 if a["gpt"] else 1e-6, n_heads=a["nh"],
+                n_kv_heads=a["hk"], head_dim=a["hd"],
+                rope_theta=None if a["gpt"] else 1e4)
+
+
+def _port_branch_qkv(a, device="cpu", plain=False):
+    fn = tq_.fused_decode_qkv_plain if plain else tq_.fused_decode_qkv
+    return fn(_t(a["x"], device), _t(a["nw"], device),
+              None if a["nb"] is None else _t(a["nb"], device),
+              [_t(w.T, device) for w in a["ws"]],
+              [_t(b, device) for b in a["bs"]], _t(a["pos"], device),
+              _t(a["bt"], device), *[_t(p, device) for p in a["pools"]],
+              **_qkv_kw(a))
+
+
+def _check_pools(got, ref, mask, int8):
+    """Pool entries no row writes are untouched; written fp32 values
+    within TOL; int8 bytes within one step (a rounding tie of
+    ``kv_quantize`` on K/V vectors from another summation order; the
+    count of such bytes returned), scales within 1e-6 relative."""
+    off = 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = np.asarray(g), np.asarray(r)
+        np.testing.assert_array_equal(g[:, ~mask], r[:, ~mask])
+        if not int8:
+            np.testing.assert_allclose(g[:, mask], r[:, mask], **TOL)
+        elif i < 2:
+            d = np.abs(g[:, mask].astype(np.int32)
+                       - r[:, mask].astype(np.int32))
+            assert d.max() <= 1
+            off += int((d > 0).sum())
+        else:
+            np.testing.assert_allclose(g[:, mask], r[:, mask], rtol=1e-6,
+                                       atol=0)
+    return off
+
+
+@pytest.mark.parametrize("rows,int8,gpt", [
+    (None, False, False), (2, False, False), (None, True, False),
+    (2, True, False), (None, True, True)])
+def test_qkv_branches_plain_match_twin(jx, rows, int8, gpt):
+    """The LLaMA branch (RMSNorm, split q/k/v, GQA 4 on 2, rope at theta
+    1e4) over fp32 and int8 pools, and GPT's over int8 pools, against
+    the JAX twin: q within 1e-5, pools as :func:`_check_pools` says, and
+    not one int8 byte off on these tiny inputs."""
+    import jax.numpy as jnp
+    FQ, _ = jx
+    a = _llama_qkv_inputs(int8=int8, gpt=gpt)
+    ref = FQ.fused_decode_qkv_twin(
+        jnp.asarray(a["x"]), jnp.asarray(a["nw"]),
+        None if a["nb"] is None else jnp.asarray(a["nb"]),
+        [jnp.asarray(w) for w in a["ws"]], [jnp.asarray(b) for b in a["bs"]],
+        jnp.asarray(a["pos"], jnp.int32), jnp.asarray(a["bt"]),
+        *[jnp.asarray(p) for p in a["pools"]], rows=rows, **_qkv_kw(a))
+    got = _port_branch_qkv(a)
+    assert len(got) == len(ref) == (5 if int8 else 3)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), **TOL)
+    P, ps = a["pools"][0].shape[1:3]
+    mask = _written(a["pos"], a["bt"], P, ps)
+    off = _check_pools([t.numpy() for t in got[1:]], ref[1:], mask, int8)
+    assert off == 0
+
+
+@pytest.mark.parametrize("case", ["with_theta", "rows", "width", "dtype"])
+def test_qkv_rope_tables_are_checked(case):
+    """Rope tables given with ``rope=`` are refused beside ``rope_theta``
+    and when they are not fp32 ``[B, hd]``, before any use; tables from
+    ``_rope_tables`` alone give what ``rope_theta`` gives."""
+    a = _llama_qkv_inputs()
+    B, hd = a["x"].shape[0], a["hd"]
+    cos, sin = tgen._rope_tables(torch.as_tensor(a["pos"]), hd, 1e4)
+    bad = {"with_theta": ((cos, sin), 1e4),
+           "rows": ((cos[:B - 1], sin[:B - 1]), None),
+           "width": ((cos[:, :hd // 2], sin[:, :hd // 2]), None),
+           "dtype": ((cos.double(), sin.double()), None)}[case]
+    kw = _qkv_kw(a)
+    args = [_t(a["x"]), _t(a["nw"]), None, [_t(w.T) for w in a["ws"]], [],
+            _t(a["pos"]), _t(a["bt"])]
+    pools = [_t(p) for p in a["pools"]]
+    kw.update(rope=bad[0], rope_theta=bad[1])
+    with pytest.raises(ValueError, match="rope"):
+        tq_.fused_decode_qkv(*args, *[p.clone() for p in pools], **kw)
+    kw.update(rope=(cos, sin), rope_theta=None)
+    got = tq_.fused_decode_qkv(*args, *[p.clone() for p in pools], **kw)
+    ref = _port_branch_qkv(a)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 def _mlp_inputs(seed=1, B=5, H=32, nh=4, hd=8, bias=True):
     rng = np.random.default_rng(seed)
     inter = 4 * H
@@ -162,7 +285,62 @@ def test_mlp_plain_matches_twin(jx, bias):
     np.testing.assert_allclose(_port_mlp(d).numpy(), np.asarray(ref), **TOL)
 
 
+def _swiglu_inputs(seed=1, B=5, H=32, nh=4, hd=8):
+    """test_decode_megakernel's LLaMA MLP case: no biases, gate w1 and up
+    w_up ``[H, I]``, down w2 ``[I, H]`` (JAX layout)."""
+    rng = np.random.default_rng(seed)
+    inter = 4 * H
+    return dict(x=_n(rng, B, H), att=_n(rng, B, nh * hd),
+                wo=_n(rng, nh * hd, H) * 0.05, nw=_n(rng, H),
+                w1=_n(rng, H, inter) * 0.05, w2=_n(rng, inter, H) * 0.05,
+                wu=_n(rng, H, inter) * 0.05)
+
+
+def _port_swiglu(d, device="cpu", plain=False):
+    t = {k: _t(v.T if k in ("wo", "w1", "w2", "wu") else v, device)
+         for k, v in d.items()}
+    fn = tm_.fused_decode_mlp_plain if plain else tm_.fused_decode_mlp
+    return fn(t["x"], t["att"], t["wo"], None, t["nw"], None, t["w1"], None,
+              t["w2"], None, t["wu"], arch="llama", norm="rms", eps=1e-6)
+
+
+@pytest.mark.parametrize("rows", [None, 2])
+def test_mlp_llama_plain_matches_twin(jx, rows):
+    """``arch="llama"`` (SwiGLU) with ``norm="rms"``, whole batch and the
+    rows=2 padded tail of the JAX walk: within 1e-5."""
+    import jax.numpy as jnp
+    _, FM = jx
+    d = _swiglu_inputs()
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    ref = FM.fused_decode_mlp_twin(j["x"], j["att"], j["wo"], None, j["nw"],
+                                   None, j["w1"], None, j["w2"], None,
+                                   w_up=j["wu"], arch="llama", norm="rms",
+                                   eps=1e-6, rows=rows)
+    np.testing.assert_allclose(_port_swiglu(d).numpy(), np.asarray(ref),
+                               **TOL)
+
+
 POISON = np.asarray([0.0, 0.0, np.nan, 0.0, 0.0], np.float32)
+
+
+def test_epilogue_rms_untied_plain_matches_twin(jx):
+    """The LLaMA epilogue: RMSNorm and an untied head without bias (JAX
+    ``[H, V]``, the port's ``[V, H]``), the NaN-poison drill included."""
+    import jax.numpy as jnp
+    _, FM = jx
+    rng = np.random.default_rng(6)
+    B, H, V = 5, 32, 17
+    x, nw, wlm = _n(rng, B, H), _n(rng, H), _n(rng, V, H) * 0.05
+    jl, jn, jb = FM.fused_decode_epilogue_twin(
+        jnp.asarray(x), jnp.asarray(nw), None, jnp.asarray(wlm.T), None,
+        jnp.asarray(POISON), norm="rms", eps=1e-6, transpose_lm=False)
+    lg, nxt, bad = tm_.fused_decode_epilogue(
+        _t(x), _t(nw), None, _t(wlm), None, _t(POISON), norm="rms", eps=1e-6)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(bad.numpy(), np.asarray(jb))
+    assert bad.tolist() == [False, False, True, False, False]
+    assert int(nxt[2]) == 0
 
 
 @pytest.mark.parametrize("tied", [True, False])
@@ -340,4 +518,53 @@ def test_epilogue_kernel_matches_plain_on_card(cuda, V):
         torch.testing.assert_close(lg, rl, **TOL)
         assert torch.equal(nxt, rn) and torch.equal(bad, rb)
     assert tm_.fused_decode_epilogue.launches == before + 2
+    assert bad.tolist() == [False, False, True, False, False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8,gpt,B", [(False, False, 5), (True, False, 5),
+                                        (True, True, 5), (True, False, 9)])
+def test_qkv_heads_kernel_matches_plain_on_card(cuda, int8, gpt, B):
+    """The per-head ingress kernel (LLaMA branch, and GPT over int8
+    pools) against its plain version: q within 1e-5, pools as
+    :func:`_check_pools` says; rows sharing a (page, slot) keep the later
+    row's value, as in the plain version."""
+    a = _llama_qkv_inputs(B=B, P=40, int8=int8, gpt=gpt)
+    before = tq_.fused_decode_qkv.launches
+    got = _port_branch_qkv(a, cuda)
+    torch.cuda.synchronize()
+    assert tq_.fused_decode_qkv.launches == before + 1
+    ref = _port_branch_qkv(a, cuda, plain=True)
+    torch.testing.assert_close(got[0], ref[0], **TOL)
+    P, ps = a["pools"][0].shape[1:3]
+    mask = _written(a["pos"], a["bt"], P, ps)
+    _check_pools([t.cpu().numpy() for t in got[1:]],
+                 [t.cpu().numpy() for t in ref[1:]], mask, int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [5, 9])
+def test_mlp_llama_kernel_matches_plain_on_card(cuda, B):
+    d = _swiglu_inputs(B=B)
+    before = tm_.fused_decode_mlp.launches
+    out = _port_swiglu(d, cuda)
+    torch.cuda.synchronize()
+    assert tm_.fused_decode_mlp.launches == before + 1
+    torch.testing.assert_close(out, _port_swiglu(d, cuda, plain=True), **TOL)
+
+
+@pytest.mark.gpu
+def test_epilogue_rms_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(7)
+    B, H, V = 5, 32, 1000
+    x, nw, wlm = (_t(a, cuda) for a in (_n(rng, B, H), _n(rng, H),
+                                        _n(rng, V, H) * 0.05))
+    pz = _t(POISON, cuda)
+    lg, nxt, bad = tm_.fused_decode_epilogue(x, nw, None, wlm, None, pz,
+                                             norm="rms", eps=1e-6)
+    torch.cuda.synchronize()
+    rl, rn, rb = tm_.fused_decode_epilogue_plain(
+        x, nw, None, wlm, None, pz, norm="rms", eps=1e-6, transpose_lm=False)
+    torch.testing.assert_close(lg, rl, **TOL)
+    assert torch.equal(nxt, rn) and torch.equal(bad, rb)
     assert bad.tolist() == [False, False, True, False, False]

@@ -164,14 +164,9 @@ def test_decode_wrappers_refuse_devices_without_a_kernel():
     assert [w.launches for w in wrappers] == before
 
 
-@pytest.mark.parametrize("call,slice_name", [
-    ("qkv_rope", "LLaMA"), ("qkv_rms", "LLaMA"), ("qkv_split", "LLaMA"),
-    ("qkv_int8", "kv_quant"), ("qkv_scales", "kv_quant"),
-    ("qkv_bf16", "bf16 variant of the paged attention"),
-    ("mlp_llama", "LLaMA"), ("mlp_rms", "LLaMA"), ("epi_rms", "LLaMA"),
-    ("decode_fused_fn", "LLaMA"), ("paged_attend_scales", "kv_quant"),
-])
-def test_unported_decode_branches_name_their_slice(call, slice_name):
+def _branch_calls():
+    """The fused decode wrappers' branches beyond GPT with fp32 pools, on
+    tiny CPU inputs, by name."""
     from paddle_tpu_torch.models import generation as gen
     from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
     from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
@@ -180,29 +175,85 @@ def test_unported_decode_branches_name_their_slice(call, slice_name):
     kw = dict(n_heads=1, n_kv_heads=1, head_dim=8)
     pool8 = torch.zeros(1, 5, 4, 8, dtype=torch.int8)
     poolb = torch.zeros(1, 5, 4, 8, dtype=torch.bfloat16)
-    calls = {
+    scales = (torch.ones(1, 5, 4), torch.ones(1, 5, 4))
+    w_up = torch.zeros(32, 8)
+    return {
         "qkv_rope": lambda: fq.fused_decode_qkv(*qkv, rope_theta=1e4, **kw),
         "qkv_rms": lambda: fq.fused_decode_qkv(*qkv, norm="rms", **kw),
         "qkv_split": lambda: fq.fused_decode_qkv(
             *qkv[:3], [qkv[3][:8]] * 3, [], *qkv[5:], **kw),
-        "qkv_int8": lambda: fq.fused_decode_qkv(*qkv[:7], pool8, pool8,
+        "qkv_int8": lambda: fq.fused_decode_qkv(*qkv[:7], pool8,
+                                                pool8.clone(), *scales,
                                                 **kw),
-        "qkv_scales": lambda: fq.fused_decode_qkv(
-            *qkv, torch.ones(1, 5, 4), torch.ones(1, 5, 4), **kw),
+        "qkv_int8_without_scales": lambda: fq.fused_decode_qkv(
+            *qkv[:7], pool8, pool8, **kw),
+        "qkv_scales_on_fp32_pools": lambda: fq.fused_decode_qkv(
+            *qkv, *scales, **kw),
         "qkv_bf16": lambda: fq.fused_decode_qkv(*qkv[:7], poolb, poolb,
                                                 **kw),
-        "mlp_llama": lambda: fm.fused_decode_mlp(*mlp, arch="llama"),
+        "mlp_llama": lambda: fm.fused_decode_mlp(*mlp, w_up, arch="llama"),
+        "mlp_llama_without_w_up": lambda: fm.fused_decode_mlp(
+            *mlp, arch="llama"),
         "mlp_rms": lambda: fm.fused_decode_mlp(*mlp, norm="rms"),
         "epi_rms": lambda: fm.fused_decode_epilogue(*epi, norm="rms"),
         "decode_fused_fn": lambda: gen._decode_fused_fn(
             torch.nn.Linear(2, 2)),
+        "decode_fused_fn_weight_only": lambda: gen._decode_fused_fn(
+            _weight_only_llama()),
         "paged_attend_scales": lambda: gen.paged_attend(
-            torch.zeros(2, 1, 8), qkv[7], qkv[8], qkv[6], qkv[5],
-            k_scales=torch.ones(1, 5, 4), v_scales=torch.ones(1, 5, 4)),
+            torch.zeros(2, 1, 8), pool8, pool8, qkv[6], qkv[5],
+            k_scales=scales[0], v_scales=scales[1]),
     }
-    exc = TypeError if call == "decode_fused_fn" else NotImplementedError
+
+
+def _weight_only_llama():
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import weight_only_quantize
+    m = LlamaForCausalLM(LlamaConfig(vocab_size=32, hidden_size=16,
+                                     num_layers=1, num_heads=2,
+                                     max_seq_len=16), device="cpu")
+    return weight_only_quantize(m)
+
+
+@pytest.mark.parametrize("call,slice_name", [
+    ("qkv_bf16", "bf16 variant of the paged attention"),
+    ("decode_fused_fn", "LLaMA"),
+    ("decode_fused_fn_weight_only", "dense projections only, as in the "
+                                    "JAX package"),
+    ("qkv_int8_without_scales", "int8 pools go with scale pools"),
+    ("qkv_scales_on_fp32_pools", "int8 pools go with scale pools"),
+    ("mlp_llama_without_w_up", "takes w_up"),
+])
+def test_unported_decode_branches_name_their_slice(call, slice_name):
+    """What the fused decode path still refuses says why: bf16 pools wait
+    for a bf16 attention; a model of another family, and a weight-only
+    model (the fused kernels read dense projections, as the JAX
+    package's do, so no later slice brings it), are not served by the
+    megakernel; mismatched pools and weights are caller errors."""
+    exc = {"qkv_bf16": NotImplementedError, "decode_fused_fn": TypeError,
+           "decode_fused_fn_weight_only": NotImplementedError}.get(
+        call, ValueError)
     with pytest.raises(exc, match=slice_name):
-        calls[call]()
+        _branch_calls()[call]()
+
+
+@pytest.mark.parametrize("call", [
+    "qkv_rope", "qkv_rms", "qkv_split", "qkv_int8", "mlp_llama", "mlp_rms",
+    "epi_rms", "paged_attend_scales"])
+def test_ported_decode_branches_run_on_cpu(call):
+    """The LLaMA and int8 branches of the fused decode wrappers run their
+    plain versions on CPU tensors (their values are held against the JAX
+    twins in tests/test_torch_fused_decode.py), counting no launch."""
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
+
+    wrappers = (fq.fused_decode_qkv, fm.fused_decode_mlp,
+                fm.fused_decode_epilogue)
+    before = [w.launches for w in wrappers]
+    out = _branch_calls()[call]()
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(torch.isfinite(t.float()).all() for t in outs)
+    assert [w.launches for w in wrappers] == before
 
 
 def test_engine_refuses_a_model_on_another_device():
@@ -412,37 +463,64 @@ def test_weight_only_matmul_defaults_to_the_card(monkeypatch):
                                  kv_quant=True)
 
 
-@pytest.mark.parametrize("case,slice_name", [
-    ("megakernel_llama", "LLaMA-megakernel slice"),
-    ("megakernel_kv_quant", "rows 4, 5 and 7"),
-    ("megakernel_weight_only", "weight-only int8"),
-    ("weight_only_int4", "int4 weight-only slice"),
-])
-def test_unported_serving_switches_name_their_slice(case, slice_name):
-    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+def _tiny_serving_models():
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          LlamaConfig, LlamaForCausalLM)
-    from paddle_tpu_torch.quantization import weight_only_quantize
-
-    geo = dict(max_slots=1, page_size=4, device="cpu")
     gpt = GPTForCausalLM(GPTConfig(vocab_size=32, hidden_size=16,
                                    num_layers=1, num_heads=2,
                                    max_seq_len=16), device="cpu")
-    calls = {
-        "megakernel_llama": lambda: ContinuousBatchingEngine(
-            LlamaForCausalLM(LlamaConfig(vocab_size=32, hidden_size=16,
+    llama = LlamaForCausalLM(LlamaConfig(vocab_size=32, hidden_size=16,
                                          num_layers=1, num_heads=2,
-                                         max_seq_len=16), device="cpu"),
-            megakernel=True, **geo),
-        "megakernel_kv_quant": lambda: ContinuousBatchingEngine(
-            gpt, megakernel=True, kv_quant=True, **geo),
+                                         max_seq_len=16), device="cpu")
+    return gpt, llama
+
+
+@pytest.mark.parametrize("case,slice_name", [
+    ("megakernel_weight_only", "dense projections only"),
+    ("megakernel_llama_weight_only", "dense projections only"),
+    ("weight_only_int4", "int4 weight-only slice"),
+])
+def test_unported_serving_switches_name_their_slice(case, slice_name):
+    """The megakernel serves dense projections only, as the JAX
+    package's does (its fused kernels read each projection's float
+    weight), so a weight-only model is refused with that reason and no
+    promise of a later slice; int4 names its slice."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.quantization import weight_only_quantize
+
+    geo = dict(max_slots=1, page_size=4, device="cpu")
+    gpt, llama = _tiny_serving_models()
+    calls = {
         "megakernel_weight_only": lambda: ContinuousBatchingEngine(
             weight_only_quantize(gpt), megakernel=True, **geo),
+        "megakernel_llama_weight_only": lambda: ContinuousBatchingEngine(
+            weight_only_quantize(llama), megakernel=True, kv_quant=True,
+            **geo),
         "weight_only_int4": lambda: weight_only_quantize(
             gpt, algo="weight_only_int4"),
     }
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(NotImplementedError, match=slice_name) as err:
         calls[case]()
+    assert "later slice" not in str(err.value)
+
+
+@pytest.mark.parametrize("family,kv_quant", [("gpt", True), ("llama", False),
+                                             ("llama", True)])
+def test_megakernel_serves_llama_and_int8_pools(family, kv_quant):
+    """``megakernel=True`` builds an engine for LLaMA and over int8 pools
+    (the decode geometry keeps the switch), and serves a request."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+
+    gpt, llama = _tiny_serving_models()
+    eng = ContinuousBatchingEngine(
+        gpt if family == "gpt" else llama, megakernel=True,
+        kv_quant=kv_quant, max_slots=1, page_size=4, decode_window=2,
+        prefill_chunk=4, q_block=2, device="cpu")
+    assert eng.megakernel is True and eng.kv_quant is kv_quant
+    assert eng._geometry()[-2:] == (kv_quant, True)
+    eng.add_request([1, 2, 3], 4)
+    (done,) = eng.run().values()
+    assert done.finish_reason == "length" and done.tokens.size == 4
 
 
 def test_chip_smoke_llama_serve_phases_rehearse_on_cpu():
@@ -466,3 +544,53 @@ def test_chip_smoke_llama_serve_phases_rehearse_on_cpu():
     fp = chip_smoke.llama_serve_phase(0, cfg=cfg, device="cpu",
                                       quantized=False)
     assert fp["tokens"] == 16 * 32 and not fp["kv_quant"]
+
+
+def test_chip_smoke_llama_megakernel_phases_rehearse_on_cpu():
+    """chip_smoke's fp32 LLaMA megakernel phases at a tiny LlamaConfig on
+    the CPU: fp32 pools unfused and through the megakernel, then int8
+    pools unfused and through the megakernel, each with the serve checks
+    and the teacher-forced check (the one over int8 pools replaying the
+    quantization); all four serve the same tokens here."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=96)
+    model = chip_smoke.llama_serve_model(0, cfg, "cpu", quantized=False)
+    runs = chip_smoke.llama_megakernel_phases(0, model, device="cpu")
+    assert sorted(runs) == ["fp32", "fp32_megakernel", "int8_kv",
+                            "int8_kv_megakernel"]
+    for name, r in runs.items():
+        assert r["tokens"] == 16 * 32 and r["near_ties"] == 0, name
+        assert r["megakernel"] is name.endswith("megakernel")
+        assert r["kv_quant"] is name.startswith("int8")
+        assert set(r["counts"].values()) == {0}
+    assert runs["fp32"]["logit_gap"] < 1e-4
+    assert runs["fp32_megakernel"]["logit_gap"] < 1e-4
+    assert 0 <= runs["int8_kv_megakernel"]["logit_gap"] < 1
+
+
+def test_chip_smoke_gpt_megakernel_int8_serve_rehearses_on_cpu():
+    """chip_smoke's GPT megakernel serve over int8 KV pages at a tiny
+    width on the CPU, its teacher replaying the quantization, its near-tie
+    margin twice the logit gap measured along the fused decode path."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from paddle_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                    num_heads=4, max_seq_len=96)
+    out = chip_smoke.serve_phase(0, cfg=cfg, device="cpu", megakernel=True,
+                                 kv_quant=True)
+    assert out["megakernel"] and out["kv_quant"]
+    assert out["tokens"] == 16 * 32 and out["near_ties"] == 0
+    assert 0 <= out["logit_gap"] < 1
+    assert out["margin"] == max(chip_smoke.MARGIN, 2 * out["logit_gap"])
