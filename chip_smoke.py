@@ -42,6 +42,12 @@ card.
      step (the count reported) and scales within 1e-6 relative, tokens
      and bad flags equal except on near ties, a NaN-poisoned row bad with
      token 0; each beside the unfused eager chain it replaces;
+   * ``fused_decode_mlp_partial`` (the shard-local decode MLP of tensor
+     parallelism) at one TP=2 rank's shapes: LLaMA-7B (y1 ``[B, 4096]``,
+     gate and up ``[5504, 4096]``, down ``[4096, 5504]``) at B = 8, 5
+     and 1, GPT-124M (fc1 ``[1536, 768]``, fc2 ``[768, 1536]``) at B = 8
+     and 1: within 2e-5 of the plain version's largest value, beside the
+     unfused eager chain;
    * ``rope`` at the LLaMA train phase's q ``[2, 2048, 32, 128]`` bf16
      with ``[2048, 128]`` half-pairing tables, forward and the
      backward's -sin launch, plus interleaved pairing, per-batch
@@ -107,6 +113,22 @@ card.
    unfused), then with int8 pools unfused and through the megakernel;
    each under the same checks (teacher margin MARGIN over fp32 pools,
    MARGIN_KV8 over int8 ones) with one profiled decode window.
+3c. TP serve phase (after this process frees its LLaMA-7B): two ranks,
+   spawned, both on this card over a gloo process group (NCCL refuses two
+   ranks on one card; gloo copies the all-reduced tensors through the
+   host, so its times say nothing of NVLink), serve the same 16 requests
+   through ``ContinuousBatchingEngine(mesh=...)`` at TP=2: GPT-124M
+   unfused, megakernel over fp32 pools and over int8 pools, then
+   LLaMA-7B at full depth (each rank drawing its slices part by part
+   from the seed) unfused and megakernel over fp32 pools, on the first
+   8 of the requests (TP_LLAMA_REQUESTS). Each rank
+   checks its launches per dispatch (a megakernel decode step: L
+   ``fused_decode_qkv``, L attention, L ``fused_decode_mlp_partial``, one
+   epilogue and no ``fused_decode_mlp``) and 2 L all-reduces a forward,
+   and profiles one decode window; both ranks' streams and ``stats`` must
+   be equal, and every served token the pick of the unsharded model's
+   plain forward except near ties below max(MARGIN, 2 x the gap measured
+   on that leg's TP path).
 4. Train phase: GPT-124M in ``bench.py``'s training configuration
    (batch 8 x 1024, recompute ``dots_and_kernels_saveable``, AdamW lr
    1e-4, AMP O2 bf16 with fp32 master weights) through the Paddle entry
@@ -142,10 +164,12 @@ card.
    profiled step each.
 7. LLaMA parity: one fp32 AdamW step with glue on (LLaMA-7B widths, 1
    layer, batch 1 x 256) on the card against a CPU copy.
-8. Prints the ``train`` JSON line, the ``kernels`` JSON line (seventeen
+8. Prints the ``train`` JSON line, the ``kernels`` JSON line (eighteen
    kernels, each with the launches of its own path: the three fused
-   decode kernels those of the fp32 LLaMA-7B megakernel serve, with every
-   megakernel path's count beside it; with the serve phases), then
+   decode kernels those of the fp32 LLaMA-7B megakernel serve,
+   ``fused_decode_mlp_partial`` those of the LLaMA-7B TP=2 megakernel
+   leg's rank 0, with every megakernel path's count beside them; with
+   the serve phases), then
    ``{"ok": true, "device": ...}`` as the last line. Any failed phase
    raises: the exit code is not 0 and no result line is printed.
    Without a card it exits 2 at once.
@@ -177,10 +201,13 @@ MARGIN = 1e-4                # teacher-forced near-tie margin
 # int8 serve takes twice its own reading instead (``serve_phase``).
 MARGIN_KV8 = 0.1
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's ~2 GHz clock
+TP_COLLECTIVE_S = 300        # a TP rank's rendezvous and each collective
+TP_JOIN_S = 600              # the TP serve phase's ranks, start to exit
+_RANK = ""                   # a TP rank's log prefix
 
 
 def log(msg):
-    print(f"chip_smoke: {msg}", flush=True)
+    print(f"chip_smoke: {_RANK}{msg}", flush=True)
 
 
 def header():
@@ -240,6 +267,8 @@ def counters():
             "fused_update": fused_optimizer.fused_update,
             "fused_decode_qkv": fused_decode_qkv.fused_decode_qkv,
             "fused_decode_mlp": fused_decode_mlp.fused_decode_mlp,
+            "fused_decode_mlp_partial":
+                fused_decode_mlp.fused_decode_mlp_partial,
             "fused_decode_epilogue": fused_decode_mlp.fused_decode_epilogue,
             "rope": rope.rope,
             "fused_residual_rms_norm_fwd":
@@ -701,6 +730,7 @@ def decode_kernel_phase(seed, power):
     for kname, extra in llama_decode_kernel_cases(seed, power,
                                                   flush).items():
         rows[kname] = extra + rows[kname]   # the LLaMA-7B rows first
+    rows["fused_decode_mlp_partial"] = tp_partial_cases(seed, power, flush)
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -953,6 +983,85 @@ def llama_decode_kernel_cases(seed, power, flush):
         del x, lg, rlg
     del w_lm, norm_w
     torch.cuda.empty_cache()
+    return rows
+
+
+def tp_partial_cases(seed, power, flush):
+    """``fused_decode_mlp_partial`` (row 6, the shard-local decode MLP of
+    TP serving) against its plain version at the shapes the TP=2
+    megakernel legs give it: one rank's half of the MLP. LLaMA-7B (y1
+    ``[B, 4096]``, gate and up ``[5504, 4096]``, down ``[4096, 5504]``,
+    RMSNorm) at B = 8 (the engine's slots; the main case), 5 and 1, and
+    GPT-124M (y1 ``[B, 768]``, fc1 ``[1536, 768]`` with its bias, fc2
+    ``[768, 1536]``, LayerNorm) at B = 8 and 1. Values within TOL of the
+    plain version's largest; each timed behind the device spin beside the
+    unfused eager chain (the norm, the cuBLAS projections, the
+    activation) of the unfused TP body. No library call computes it."""
+    import torch.nn.functional as tF
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def timed(fn, n):
+        return _time_ms(fn, n, flush, spin=True)
+
+    rows = []
+    for arch, H, inter, L, cases in (("llama", 4096, 11008 // 2, 32,
+                                      (8, 5, 1)),
+                                     ("gpt", 768, 3072 // 2, 12, (8, 1))):
+        resid = 0.02 / np.sqrt(2 * L)
+        norm_w = 1.0 + rn(H, std=0.1)
+        w1, w2 = rn(inter, H, std=0.02), rn(H, inter, std=resid)
+        if arch == "llama":
+            norm_b, b1, w_up, norm, eps = None, None, rn(inter, H, std=0.02), \
+                "rms", 1e-6
+        else:
+            norm_b, b1, w_up, norm, eps = rn(H, std=0.1), rn(inter, std=0.02), \
+                None, "layer", 1e-5
+        for B in cases:
+            y1 = rn(B, H)
+            args = (y1, norm_w, norm_b, w1, b1, w2, w_up)
+            kw = dict(arch=arch, norm=norm, eps=eps)
+            out = fm.fused_decode_mlp_partial(*args, **kw)
+            ref = fm.fused_decode_mlp_partial_plain(*args, **kw)
+            torch.cuda.synchronize()
+
+            def unfused():
+                if arch == "llama":
+                    h = F.rms_norm(y1, norm_w, epsilon=eps)
+                    f = tF.silu(tF.linear(h, w1)) * tF.linear(h, w_up)
+                else:
+                    h = tF.layer_norm(y1, (H,), norm_w, norm_b, eps)
+                    f = tF.gelu(tF.linear(h, w1, b1), approximate="tanh")
+                return tF.linear(f, w2)
+
+            ms = timed(lambda: fm.fused_decode_mlp_partial(*args, **kw), 30)
+            plain_ms = timed(lambda: fm.fused_decode_mlp_partial_plain(
+                *args, **kw), 5)
+            unfused_ms = timed(unfused, 10)
+            n_w = (3 if arch == "llama" else 2) * inter * H
+            # the weights, y1 and the norm's (and fc1's) vectors read, the
+            # partial written
+            nbytes = 4 * (n_w + 2 * B * H + H * (1 if norm_b is None else 2)
+                          + (inter if b1 is not None else 0))
+            flops = 2 * B * n_w + 8 * B * inter
+            name = ("llama7b" if arch == "llama" else "gpt124m") \
+                + f"_tp2_decode_b{B}"
+            shape = dict(y1=[B, H], w1=[inter, H], w2=[H, inter],
+                         w_up=None if w_up is None else [inter, H],
+                         grid=(fm.swiglu_grid(B, H, 0, inter, dev)
+                               if arch == "llama" else None))
+            rows.append(_decode_row(name, _max_err(out, ref), ms, plain_ms,
+                                    unfused_ms, nbytes, flops, shape, power,
+                                    "fused_decode_mlp_partial"))
+            del y1, args, out, ref
+        del norm_w, norm_b, w1, b1, w2, w_up
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1255,12 +1364,13 @@ def serve_model(seed, cfg=None, device="cuda"):
 NEW_TOKENS = 32
 
 
-def serve_prompts(seed, cfg):
-    """The serve phases' 16 prompts, 16-512 tokens, from the seed."""
+def serve_prompts(seed, cfg, n=16):
+    """The serve phases' 16 prompts, 16-512 tokens, from the seed (the
+    first ``n`` of them)."""
     rng = np.random.default_rng(seed + 1)
     longest = min(512, cfg.max_seq_len - NEW_TOKENS)
     return [rng.integers(0, min(cfg.vocab_size, 50257), int(n))
-            .astype(np.int32) for n in rng.integers(16, longest + 1, 16)]
+            .astype(np.int32) for n in rng.integers(16, longest + 1, 16)][:n]
 
 
 def serve_turns(model, seed, order=(False, True, True, False)):
@@ -1300,13 +1410,19 @@ def _drive(eng, on_card):
     attention once per layer and ``weight_only_matmul`` once per
     weight-only projection of the model (none for a float model); a
     decode step with ``megakernel`` also ``fused_decode_qkv`` and
-    ``fused_decode_mlp`` once per layer and ``fused_decode_epilogue``
-    once, any other step none of them. Returns (completions, launches by
-    dispatch kind, host ms by kind)."""
+    ``fused_decode_mlp`` (under tensor parallelism
+    ``fused_decode_mlp_partial`` instead) once per layer and
+    ``fused_decode_epilogue`` once, any other step none of them. Under
+    tensor parallelism every forward also runs 2 L all-reduces (checked
+    on the CPU too). Returns (completions, launches by dispatch kind, host
+    ms by kind)."""
+    from paddle_tpu_torch.distributed import all_reduce
     from paddle_tpu_torch.quantization import WeightOnlyLinear
     L = eng.model.cfg.num_layers
     n_mm = sum(isinstance(m, WeightOnlyLinear) for m in eng.model.modules())
-    fused = ("fused_decode_qkv", "fused_decode_mlp", "fused_decode_epilogue",
+    tp = eng.tp > 1
+    fused = ("fused_decode_qkv", "fused_decode_mlp",
+             "fused_decode_mlp_partial", "fused_decode_epilogue",
              "weight_only_matmul")
     launches = {"mixed": dict.fromkeys(counters(), 0),
                 "decode": dict.fromkeys(counters(), 0)}
@@ -1316,22 +1432,24 @@ def _drive(eng, on_card):
         st = eng.stats
         single = eng._geometry() not in eng._decoded_geometries()
         before = read_counts()
+        reduces = all_reduce.calls
         ts = time.perf_counter()
         done.update({c.request_id: c for c in eng.step()})
         dt = (time.perf_counter() - ts) * 1e3
         after = read_counts()
         got = {k: after[k] - before[k] for k in after}
         if eng.stats["mixed_steps"] > st["mixed_steps"]:
-            kind, want = "mixed", {"ragged_paged_attention": L,
-                                   "weight_only_matmul": n_mm}
+            kind, k = "mixed", 1
+            want = {"ragged_paged_attention": L, "weight_only_matmul": n_mm}
         elif eng.stats["decode_dispatches"] > st["decode_dispatches"]:
             kind = "decode"
             k = 1 if single else eng.decode_window
             want = {"ragged_paged_attention": L * k,
                     "weight_only_matmul": n_mm * k}
             if eng.megakernel:
-                want.update(fused_decode_qkv=L * k, fused_decode_mlp=L * k,
-                            fused_decode_epilogue=k)
+                want.update(fused_decode_qkv=L * k, fused_decode_epilogue=k)
+                want["fused_decode_mlp_partial" if tp
+                     else "fused_decode_mlp"] = L * k
         else:
             continue
         want = {n: want.get(n, 0) for n in ("ragged_paged_attention",)
@@ -1339,6 +1457,10 @@ def _drive(eng, on_card):
         if on_card and {n: got[n] for n in want} != want:
             raise AssertionError(f"{kind} dispatch (single step: {single}) "
                                  f"launched {got}, want {want}")
+        if tp and all_reduce.calls - reduces != 2 * L * k:
+            raise AssertionError(f"{kind} dispatch (single step: {single}) "
+                                 f"ran {all_reduce.calls - reduces} "
+                                 f"all-reduces, want {2 * L * k}")
         for n, v in got.items():
             launches[kind][n] += v
         step_ms[kind].append(dt)
@@ -1390,21 +1512,24 @@ def serve_phase(seed, cfg=None, device="cuda", megakernel=False, model=None,
 
 
 def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
-               full_profile=True, **engine_kw):
+               full_profile=True, requests=16, **engine_kw):
     """The serve phases' drive and checks: a warm-up engine, then the 16
-    requests of :func:`serve_prompts` on a fresh engine (``GEO`` and
+    requests of :func:`serve_prompts` (the first ``requests``) on a fresh
+    engine (``GEO`` and
     ``engine_kw``) with exact launches per dispatch (:func:`_drive`),
     every request finished by length, the page pool conserved, every
     served token the pick of ``teacher(model, prompts, sequences)`` (the
-    logits at the generated positions) except near ties below ``margin``;
-    on the card a profiled decode window and, with ``full_profile``, a
-    profiled run. One engine's pools exist at a time."""
+    logits at the generated positions) except near ties below ``margin``
+    (:func:`_teacher_check`; with ``teacher`` None the caller checks the
+    returned ``sequences``); on the card a profiled decode window and,
+    with ``full_profile``, a profiled run. One engine's pools exist at a
+    time."""
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
 
     on_card = device == "cuda"
     megakernel = engine_kw.get("megakernel", False)
     geo = dict(GEO, device=device, **engine_kw)
-    prompts = serve_prompts(seed, model.cfg)
+    prompts = serve_prompts(seed, model.cfg, requests)
 
     # warm-up on another engine (cuBLAS handles, allocator); it also
     # runs this geometry's first single-step decode (the geometry
@@ -1451,15 +1576,39 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
         f"{np.mean(step_ms['decode']):.2f} ms); kernel launches {counts}")
     log(f"{tag}: stats {json.dumps(st)}")
 
-    # teacher-forced check against a plain fp32 forward
+    seqs = [np.concatenate([p, done[rid].tokens]) for rid, p in
+            zip(rids, prompts)]
+    out = dict(megakernel=megakernel, kv_quant=geo.get("kv_quant", False),
+               launches=counts["ragged_paged_attention"], counts=counts,
+               by_step=by_step, wall_s=wall, tokens=gen_tokens,
+               tokens_per_s=gen_tokens / wall,
+               mixed_step_ms=float(np.mean(step_ms["mixed"])),
+               decode_dispatch_ms=float(np.mean(step_ms["decode"])),
+               decode_dispatches=len(step_ms["decode"]), stats=st)
+    if teacher is None:
+        out["sequences"] = [q.tolist() for q in seqs]
+    else:
+        out.update(_teacher_check(model, teacher, prompts, seqs, margin,
+                                  tag))
+    if on_card:
+        if full_profile:
+            out["profile"] = profile_serve(model, prompts, NEW_TOKENS, geo,
+                                           wall)
+        out["window"] = profile_window(model, prompts, NEW_TOKENS, geo)
+    return out
+
+
+def _teacher_check(model, teacher, prompts, seqs, margin, tag):
+    """Teacher-forced check against a plain fp32 forward: every served
+    token of ``seqs`` (each prompt of ``prompts`` and its served tokens)
+    must be the pick of ``teacher(model, prompts, seqs)`` (the logits at
+    the generated positions), except near ties below ``margin``."""
     near_ties = checked = 0
-    seqs = [np.concatenate([p, done[rid].tokens])
-            for rid, p in zip(rids, prompts)]
     t0 = time.perf_counter()
     ref = teacher(model, prompts, seqs)
     teacher_s = time.perf_counter() - t0
-    for rid, lg in zip(rids, ref):
-        toks = done[rid].tokens
+    for rid, (p, seq, lg) in enumerate(zip(prompts, seqs, ref)):
+        toks = seq[p.size:]
         if not torch.isfinite(lg).all():
             raise AssertionError(f"request {rid}: non-finite logits")
         top2 = lg.topk(2, dim=-1)
@@ -1478,20 +1627,7 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
     log(f"{tag}: teacher-forced check: {checked} tokens, {near_ties} near "
         f"ties (top-2 margin < {margin}); reference forward "
         f"{teacher_s:.2f} s")
-    out = dict(megakernel=megakernel, kv_quant=geo.get("kv_quant", False),
-               checked=checked, margin=margin,
-               launches=counts["ragged_paged_attention"], counts=counts,
-               by_step=by_step, wall_s=wall, tokens=gen_tokens,
-               tokens_per_s=gen_tokens / wall, near_ties=near_ties,
-               mixed_step_ms=float(np.mean(step_ms["mixed"])),
-               decode_dispatch_ms=float(np.mean(step_ms["decode"])),
-               decode_dispatches=len(step_ms["decode"]))
-    if on_card:
-        if full_profile:
-            out["profile"] = profile_serve(model, prompts, NEW_TOKENS, geo,
-                                           wall)
-        out["window"] = profile_window(model, prompts, NEW_TOKENS, geo)
-    return out
+    return dict(checked=checked, margin=margin, near_ties=near_ties)
 
 
 def profile_serve(model, prompts, new_tokens, geo, wall):
@@ -1520,10 +1656,14 @@ def profile_window(model, prompts, new_tokens, geo):
     decoding: a fresh engine takes the first ``max_slots`` requests
     through their prefill, then one ``step()`` (a window of
     ``decode_window`` steps) runs under ``torch.profiler``. Its host wall
-    clock is timed in a second window without the profiler."""
+    clock is timed in a second window without the profiler, and, under
+    tensor parallelism, the host time of its all-reduces beside it: the
+    sums alone (``all_reduce.seconds``) and, apart, gloo's wait for the
+    device work queued before each sum (``all_reduce.wait_seconds``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.distributed import all_reduce
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, **geo)
     for p in prompts[:eng.max_slots]:
@@ -1537,10 +1677,15 @@ def profile_window(model, prompts, new_tokens, geo):
         eng.step()
         torch.cuda.synchronize()
     torch.cuda.synchronize()
+    calls, secs, waits = (all_reduce.calls, all_reduce.seconds,
+                          all_reduce.wait_seconds)
     t0 = time.perf_counter()
     eng.step()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
+    reduce_ms, calls = (all_reduce.seconds - secs) * 1e3, \
+        all_reduce.calls - calls
+    wait_ms = (all_reduce.wait_seconds - waits) * 1e3
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0]
     n = sum(e.count for e in evs)
@@ -1554,10 +1699,22 @@ def profile_window(model, prompts, new_tokens, geo):
         f"{dev_ms / k:.4f} ms per step; unprofiled window {host_ms:.3f} ms "
         f"of wall clock = {host_ms / k:.4f} ms per step, device busy "
         f"{dev_ms / host_ms:.1%}")
-    return dict(steps=k, device_launches=n, launches_per_step=n / k,
-                device_ms=dev_ms, device_ms_per_step=dev_ms / k,
-                wall_ms=host_ms, wall_ms_per_step=host_ms / k,
-                busy_share=dev_ms / host_ms)
+    out = dict(steps=k, device_launches=n, launches_per_step=n / k,
+               device_ms=dev_ms, device_ms_per_step=dev_ms / k,
+               wall_ms=host_ms, wall_ms_per_step=host_ms / k,
+               busy_share=dev_ms / host_ms)
+    if calls:
+        out.update(all_reduces_per_step=calls / k,
+                   all_reduce_ms_per_call=reduce_ms / calls,
+                   all_reduce_share=reduce_ms / host_ms,
+                   all_reduce_wait_ms_per_call=wait_ms / calls,
+                   all_reduce_wait_share=wait_ms / host_ms)
+        log(f"decode window ({path}): {calls / k:.0f} all-reduces a step, "
+            f"{reduce_ms / calls:.4f} ms each of host time (gloo, through "
+            f"the host) = {reduce_ms / host_ms:.1%} of the window's wall "
+            f"clock; before each, {wait_ms / calls:.4f} ms waiting for the "
+            f"device work queued before it = {wait_ms / host_ms:.1%}")
+    return out
 
 
 def _breakdown(prof, wall_ms, prof_wall_ms, what):
@@ -2511,25 +2668,20 @@ def llama_parity(seed, num_layers=1, batch=1, seq=256):
 
 
 # --------------------------------------------------------- llama serve --
-def llama_serve_model(seed, cfg=None, device="cuda", quantized=True):
-    """LLaMA (default ``LlamaConfig()``: LLaMA-7B, 32 layers) with random
+def llama_meta_model(seed, cfg, device, quantized):
+    """``(model, draw)``: ``cfg``'s LLaMA built on the meta device, and
+    ``draw(part)``, which materializes one part on ``device`` with random
     weights in the JAX package's init (normal std 0.02, ``o_proj`` and
-    ``down_proj`` 0.02 / sqrt(2 L), unit norms) drawn on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``. The model is built on the
-    meta device and materialized one part at a time; with ``quantized``
-    each layer goes through ``quantization.weight_only_quantize`` as soon
-    as it is drawn (and the untied ``lm_head`` after it), so the peak
-    holds one fp32 layer beside the int8 ones: the 32-layer fp32 weights
-    (27 GB) never exist at once."""
+    ``down_proj`` 0.02 / sqrt(2 L), unit norms) from one
+    ``torch.Generator`` seeded with ``seed`` (with ``quantized``, through
+    ``weight_only_quantize`` as drawn). Parts drawn in the same order get
+    the same weights."""
     from torch import nn
 
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.nn.layers import RMSNorm
-    from paddle_tpu_torch.quantization import (WeightOnlyLinear,
-                                               weight_only_quantize)
-    cfg = LlamaConfig() if cfg is None else cfg
+    from paddle_tpu_torch.quantization import weight_only_quantize
     dev = torch.device(device)
-    t0 = time.perf_counter()
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg, device="meta")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2548,6 +2700,24 @@ def llama_serve_model(seed, cfg=None, device="cuda", quantized=True):
         if quantized:
             weight_only_quantize(part)
 
+    return model, draw
+
+
+def llama_serve_model(seed, cfg=None, device="cuda", quantized=True):
+    """LLaMA (default ``LlamaConfig()``: LLaMA-7B, 32 layers) with random
+    weights in the JAX package's init (normal std 0.02, ``o_proj`` and
+    ``down_proj`` 0.02 / sqrt(2 L), unit norms) drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``. The model is built on the
+    meta device and materialized one part at a time; with ``quantized``
+    each layer goes through ``quantization.weight_only_quantize`` as soon
+    as it is drawn (and the untied ``lm_head`` after it), so the peak
+    holds one fp32 layer beside the int8 ones: the 32-layer fp32 weights
+    (27 GB) never exist at once."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    cfg = LlamaConfig() if cfg is None else cfg
+    t0 = time.perf_counter()
+    model, draw = llama_meta_model(seed, cfg, device, quantized)
     lm = model.llama
     draw(lm.embed_tokens)
     for layer in lm.layers:
@@ -2636,34 +2806,65 @@ def llama_teacher(kv_quant):
     return teacher
 
 
+def gap_sequences(seed, cfg, n=4):
+    """``n`` of the serve prompts, and each followed by ``NEW_TOKENS``
+    random tokens: the inputs of :func:`logit_gap`."""
+    rng = np.random.default_rng(seed + 13)
+    prompts = serve_prompts(seed, cfg)[:n]
+    return prompts, [np.concatenate([p, rng.integers(
+        0, cfg.vocab_size, NEW_TOKENS).astype(np.int32)]) for p in prompts]
+
+
+def family_teacher(model, kv_quant):
+    """The plain teacher of the model's family (:func:`llama_teacher`,
+    :func:`_gpt_teacher`), replaying int8 KV with ``kv_quant``."""
+    if hasattr(model, "llama"):
+        return llama_teacher(kv_quant)
+    return _gpt_teacher_kv8 if kv_quant else _gpt_teacher
+
+
+def max_gap(got, ref):
+    return max(float((g.to(r.device) - r).abs().max())
+               for g, r in zip(got, ref))
+
+
 @torch.no_grad()
 def logit_gap(model, seed, kv_quant, n=4, megakernel=False):
     """Largest |logit| difference between the served path (the kernels,
-    fp32 or int8 pools) and the plain teacher of the model's family
-    (:func:`llama_teacher`, :func:`_gpt_teacher`), over the last
-    ``NEW_TOKENS`` positions of ``n`` of the serve prompts each followed
-    by ``NEW_TOKENS`` random tokens. Each sequence goes through the
-    engine's ragged forward as one prefill or, with ``megakernel``, its
-    prompt as one prefill and every further token as one fused decode
-    step (``_decode_fused_fn``): the path whose picks a megakernel serve
-    checks."""
-    from paddle_tpu_torch.models.generation import (_decode_fused_fn,
-                                                    _ragged_fn)
-    cfg, dev = model.cfg, model.device
-    llama = hasattr(model, "llama")
-    rng = np.random.default_rng(seed + 13)
-    prompts = serve_prompts(seed, cfg)[:n]
-    seqs = [np.concatenate([p, rng.integers(0, cfg.vocab_size, NEW_TOKENS)
-                            .astype(np.int32)]) for p in prompts]
-    teacher = llama_teacher(kv_quant) if llama else \
-        _gpt_teacher_kv8 if kv_quant else _gpt_teacher
-    ref = teacher(model, prompts, seqs)
-    ragged = _ragged_fn(model)
-    fused = _decode_fused_fn(model) if megakernel else None
-    ps, L = GEO["page_size"], cfg.num_layers
-    hk = getattr(cfg, "num_kv_heads", cfg.num_heads)
-    gap = 0.0
-    for p, s, r in zip(prompts, seqs, ref):
+    fp32 or int8 pools: :func:`served_logits`) and the plain teacher of
+    the model's family, over the last ``NEW_TOKENS`` positions of the
+    :func:`gap_sequences`."""
+    prompts, seqs = gap_sequences(seed, model.cfg, n)
+    ref = family_teacher(model, kv_quant)(model, prompts, seqs)
+    return max_gap(served_logits(model, prompts, seqs, kv_quant,
+                                 megakernel), ref)
+
+
+@torch.no_grad()
+def served_logits(model, prompts, seqs, kv_quant, megakernel=False):
+    """The served path's logits at the last ``NEW_TOKENS`` positions of
+    each of ``seqs``: each sequence goes through the engine's ragged
+    forward as one prefill or, with ``megakernel``, its prompt as one
+    prefill and every further token as one fused decode step: the path
+    whose picks a megakernel serve checks. A TP rank-local model
+    (``TPParams.model``) runs the TP path on its heads and pools (every
+    rank must call it with the same inputs)."""
+    from paddle_tpu_torch.models import generation as g
+    cfg = model.cfg
+    ps, L, qb = GEO["page_size"], cfg.num_layers, GEO["q_block"]
+    dev, hk = model.device, g._kv_heads(model)
+    ragged_fn = g._ragged_fn(model)
+
+    def ragged(*a):
+        return ragged_fn(model, *a, qb)
+
+    if megakernel:
+        fused_fn = g._decode_fused_fn(model)
+
+        def fused(ids, pos, bt, caches, zero):
+            return fused_fn(model, ids, pos, bt, caches, zero)
+    rows_out = []
+    for p, s in zip(prompts, seqs):
         S = s.size
         npg = -(-S // ps)
         pshape = (hk, npg + 1, ps, cfg.head_dim)
@@ -2678,20 +2879,19 @@ def logit_gap(model, seed, kv_quant, n=4, megakernel=False):
         T = p.size if megakernel else S
         pos = torch.arange(T, device=dev)
         lens = torch.tensor([T], dtype=torch.int32, device=dev)
-        lg, caches = ragged(model, ids[:, :T], pos, torch.zeros_like(pos),
-                            torch.ones_like(pos), lens, lens, bt, caches,
-                            GEO["q_block"])
+        lg, caches = ragged(ids[:, :T], pos, torch.zeros_like(pos),
+                            torch.ones_like(pos), lens, lens, bt, caches)
         lg = lg[p.size - 1:S - 1]
         if megakernel:
             rows, zero = [lg[0]], torch.zeros(1, device=dev)
             for t in range(p.size, S - 1):
                 step, _, _, caches = fused(
-                    model, ids[:, t:t + 1],
-                    torch.tensor([t], device=dev), bt, caches, zero)
+                    ids[:, t:t + 1], torch.tensor([t], device=dev), bt,
+                    caches, zero)
                 rows.append(step[0])
             lg = torch.stack(rows)
-        gap = max(gap, float((lg - r).abs().max()))
-    return gap
+        rows_out.append(lg)
+    return rows_out
 
 
 def llama_serve_phase(seed, cfg=None, device="cuda", quantized=True,
@@ -2833,6 +3033,213 @@ def quant_matmul_cases(seed, power):
     return rows
 
 
+# The LLaMA-7B TP legs serve the first 8 of the 16 requests: two ranks on
+# one card time-slice it, and each of their 64 all-reduces a forward waits
+# through the host (2-4 ms each on an H100), so the 16 requests took the
+# two legs over 250 s there, above the ~150 s this phase allows them.
+TP_LLAMA_REQUESTS = 8
+TP_LEGS = (("gpt_tp2", "gpt", False, False),
+           ("gpt_tp2_megakernel", "gpt", True, False),
+           ("gpt_tp2_megakernel_int8_kv", "gpt", True, True),
+           ("llama7b_tp2", "llama", False, False),
+           ("llama7b_tp2_megakernel", "llama", True, False))
+
+
+def _tp_leg(model, tpp, seed, device, tag, megakernel, kv_quant,
+            requests):
+    """One TP serve leg on this rank: :func:`_serve_run` of ``requests``
+    of the serve prompts through the engine with ``mesh`` this rank's
+    group (no teacher: the parent holds the unsharded model; on the card
+    a profiled decode window with its all-reduces' share), and the TP
+    path's :func:`served_logits` on the :func:`gap_sequences`."""
+    res = _serve_run(model, seed, device, tag, None, full_profile=False,
+                     requests=requests, mesh=tpp.group,
+                     megakernel=megakernel, kv_quant=kv_quant)
+    prompts, seqs = gap_sequences(seed, model.cfg)
+    res["gap_logits"] = [r.cpu() for r in served_logits(
+        tpp.model, prompts, seqs, kv_quant, megakernel)]
+    return res
+
+
+def tp_rank_main(rank, seed, tmp, device, gpt_cfg, llama_cfg, legs,
+                 requests):
+    """One of the two ranks of :func:`tp_serve_phases`, spawned: it
+    imports the port only. Over a gloo process group (the caller's choice
+    of backend: two ranks on one card cannot use NCCL), it serves the
+    GPT legs of ``legs`` from GPT-124M's slices (the model drawn as the
+    single-card phase draws it, then sent to the meta device), then the
+    LLaMA legs from LLaMA-7B's, drawn part by part on ``device`` from the
+    seed exactly as :func:`llama_serve_model` draws them, each part's
+    slices kept and the part freed; ``requests[family]`` of the requests
+    each. Writes its results to ``tmp/rank{rank}.pt``."""
+    from datetime import timedelta
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.generation import tp_shard_params
+    global _RANK
+    _RANK = f"rank {rank}: "
+    if device == "cpu":
+        torch.set_num_threads(1)
+    pdist.init_parallel_env(backend="gloo",
+                            init_method=f"file://{tmp}/rendezvous",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=TP_COLLECTIVE_S))
+    try:
+        group = pdist.get_group()
+        out = {}
+        for fam in sorted({leg[1] for leg in legs}):
+            if fam == "gpt":
+                model = serve_model(seed, gpt_cfg, device)
+                tpp = tp_shard_params(model, group)
+                model.to("meta")   # this rank keeps its slices only
+            else:
+                cfg = LlamaConfig() if llama_cfg is None else llama_cfg
+                t0 = time.perf_counter()
+                model, draw = llama_meta_model(seed, cfg, device, False)
+                tpp = tp_shard_params(model, group, materialize=draw)
+                nbytes = sum(v.numel() * v.element_size() for v in tpp.vals)
+                log(f"LLaMA {cfg.num_layers} layers at hidden "
+                    f"{cfg.hidden_size}, this rank's slices: "
+                    f"{nbytes / 1e9:.3f} GB, drawn in "
+                    f"{time.perf_counter() - t0:.2f} s")
+            n = requests[fam]
+            for name, leg_fam, mk, kvq in legs:
+                if leg_fam == fam:
+                    t0 = time.perf_counter()
+                    out[name] = _tp_leg(model, tpp, seed, device,
+                                        f"{name} (TP=2, rank {rank})", mk,
+                                        kvq, n)
+                    out[name].update(requests=n,
+                                     leg_s=time.perf_counter() - t0)
+                    log(f"{name}: {n} of the 16 requests, the leg "
+                        f"took {out[name]['leg_s']:.1f} s")
+            del model, tpp
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        out["modules"] = sorted(m for m in sys.modules if m.split(".")[0]
+                                in ("jax", "jaxlib", "paddle_tpu"))
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        pdist.destroy_process_group()
+
+
+def _memo(teacher):
+    """``teacher`` computed once per distinct set of sequences."""
+    memo = {}
+
+    def run(model, prompts, seqs):
+        key = tuple(q.tobytes() for q in seqs)
+        if key not in memo:
+            memo[key] = teacher(model, prompts, seqs)
+        return memo[key]
+
+    return run
+
+
+def tp_serve_phases(seed, device="cuda", gpt_cfg=None, llama_cfg=None,
+                    legs=TP_LEGS, requests=None):
+    """Tensor-parallel serving at TP=2 (``legs``, by default ``TP_LEGS``):
+    two ranks (:func:`tp_rank_main`, spawned, both on this card over
+    gloo) serve the 16 requests of the serve phases through
+    ``ContinuousBatchingEngine(mesh=...)``: GPT-124M unfused, through the
+    megakernel over fp32 and over int8 pools, and LLaMA-7B at full depth
+    unfused and through the megakernel over fp32 pools (the first
+    TP_LLAMA_REQUESTS of them; ``requests``, by family, overrides both
+    counts). Each rank checks its launches per
+    dispatch (:func:`_drive`: under the megakernel every decode step
+    ``fused_decode_mlp_partial`` L times and ``fused_decode_mlp`` never;
+    2 L all-reduces a forward). This process then holds the two ranks'
+    token streams and ``stats`` equal, checks no rank imported JAX or the
+    JAX package, and runs the teacher-forced check of each leg against
+    the plain forward of the unsharded model, drawn again here, with the
+    near-tie margin max(MARGIN, 2 x the gap measured on the leg's own TP
+    path). Any rank that fails, or outlives TP_JOIN_S, fails the phase.
+    ``gpt_cfg`` and ``llama_cfg`` (with ``device="cpu"``) rehearse it
+    without a card. Returns the legs by name (rank 0's numbers, with
+    rank 1's decode step beside them)."""
+    import multiprocessing as mp
+    import tempfile
+
+    from paddle_tpu_torch.models import LlamaConfig
+    requests = requests or {"gpt": 16, "llama": TP_LLAMA_REQUESTS}
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank_main,
+                             args=(r, seed, tmp, device, gpt_cfg, llama_cfg,
+                                   legs, requests))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_JOIN_S
+        try:
+            while time.monotonic() < deadline and any(
+                    p.exitcode is None for p in procs) and all(
+                    p.exitcode in (None, 0) for p in procs):
+                for p in procs:
+                    p.join(1.0)
+        finally:
+            for p in procs:
+                if p.exitcode is None:
+                    p.kill()
+                    p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"TP serve phase: ranks exited {codes} "
+                                 f"(a hang past {TP_JOIN_S} s is killed)")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    log(f"TP serve phase: both ranks done in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    for r, res in enumerate(ranks):
+        if res["modules"]:
+            raise AssertionError(f"TP rank {r} imported {res['modules']}")
+    served = {}
+    for name, fam, _mk, _kvq in legs:
+        a, b = ranks[0][name], ranks[1][name]
+        if a["sequences"] != b["sequences"] or a["stats"] != b["stats"]:
+            raise AssertionError(f"{name}: the ranks served different "
+                                 "streams or stats")
+        if "window" in b:
+            a["rank1_window"] = b["window"]
+        served[name] = a
+    for fam in sorted({leg[1] for leg in legs}):
+        if fam == "gpt":
+            model = serve_model(seed, gpt_cfg, device)
+        else:
+            model = llama_serve_model(
+                seed, LlamaConfig() if llama_cfg is None else llama_cfg,
+                device, quantized=False)
+        teachers = {kvq: _memo(family_teacher(model, kvq))
+                    for kvq in (False, True)}
+        g_prompts, g_seqs = gap_sequences(seed, model.cfg)
+        for name, leg_fam, _mk, kvq in legs:
+            if leg_fam != fam:
+                continue
+            res = served[name]
+            prompts = serve_prompts(seed, model.cfg, res["requests"])
+            gap = max_gap(res.pop("gap_logits"),
+                          teachers[kvq](model, g_prompts, g_seqs))
+            margin = max(MARGIN, 2 * gap)
+            log(f"{name}: the TP path's logits vs the unsharded plain "
+                f"forward's, 4 prompts + {NEW_TOKENS} tokens"
+                + (", each a fused decode step" if _mk else
+                   " as one prefill")
+                + f": max |difference| {gap:.4g}; near-tie margin "
+                f"{margin:.4g}")
+            seqs = [np.asarray(q, np.int32) for q in res.pop("sequences")]
+            res.update(_teacher_check(model, teachers[kvq], prompts, seqs,
+                                      margin, f"{name} (TP=2)"),
+                       logit_gap=gap)
+            ranks[1][name].pop("gap_logits", None)
+        del model, teachers
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    log(f"TP serve phase passed in {time.perf_counter() - t_start:.1f} s")
+    return served
+
+
 def llama_serve_phases(seed):
     """The quantized LLaMA-7B serve at full depth, then the fp32
     LLaMA-7B at full depth (27 GB of weights) unfused and through the
@@ -2882,6 +3289,8 @@ def main(argv=None):
         f"{serve['profile']['busy_share']:.1%}")
     llama_q, llama_fp = llama_serve_phases(args.seed)
     llama_mk = llama_fp["fp32_megakernel"]
+    tp = tp_serve_phases(args.seed)
+    tp_mk = tp["llama7b_tp2_megakernel"]
     train, train_glue, train_nb = gpt_train_phases(args.seed, smi_line)
     parity = train_parity(args.seed)
     parity_glue = train_parity(args.seed, glue=True)
@@ -2919,6 +3328,10 @@ def main(argv=None):
          "paddle_tpu/ops/pallas/fused_decode_mlp.py:75",
          dec_rows["fused_decode_epilogue"],
          llama_mk["counts"]["fused_decode_epilogue"]),
+        ("fused_decode_mlp_partial", "fused_decode_mlp.cu",
+         "paddle_tpu/ops/pallas/fused_decode_mlp.py:68",
+         dec_rows["fused_decode_mlp_partial"],
+         tp_mk["counts"]["fused_decode_mlp_partial"]),
         ("rope", "rope.cu", "paddle_tpu/ops/pallas/rope.py:53",
          llama_rows["rope"], llama_on["counts"]["rope"]),
         ("fused_residual_rms_norm_fwd", "fused_residual_norm.cu",
@@ -2957,14 +3370,22 @@ def main(argv=None):
                   "llama7b_int8_serve": llama_q["launches"]}
     attn_paths.update({f"llama7b_fp32_serve_{n}": r["launches"]
                        for n, r in llama_fp.items() if n != "turns"})
+    attn_paths.update({n: r["launches"] for n, r in tp.items()})
     mk_runs = {"gpt_serve_megakernel": serve_mk,
                "gpt_serve_megakernel_int8_kv": serve_mk8,
                "llama7b_fp32_serve_fp32_megakernel": llama_mk,
                "llama7b_fp32_serve_int8_kv_megakernel":
                    llama_fp["int8_kv_megakernel"]}
+    tp_mk_runs = {n: r for n, r in tp.items() if r["megakernel"]}
     fused_paths = {k: {p: r["counts"][k] for p, r in mk_runs.items()}
                    for k in ("fused_decode_qkv", "fused_decode_mlp",
                              "fused_decode_epilogue")}
+    for k in ("fused_decode_qkv", "fused_decode_epilogue"):
+        fused_paths[k].update({p: r["counts"][k]
+                               for p, r in tp_mk_runs.items()})
+    fused_paths["fused_decode_mlp_partial"] = {
+        p: r["counts"]["fused_decode_mlp_partial"]
+        for p, r in tp_mk_runs.items()}
     if min(attn_paths.values()) <= 0 or min(
             n for paths in fused_paths.values() for n in paths.values()) <= 0:
         raise AssertionError(f"launches by path: attention {attn_paths}, "
@@ -2991,7 +3412,7 @@ def main(argv=None):
                       "serve_megakernel": serve_mk, "serve_turns": turns,
                       "serve_megakernel_int8_kv": serve_mk8,
                       "llama_serve": llama_q, "llama_serve_fp32": llama_fp,
-                      "power": smi_line}), flush=True)
+                      "tp_serve": tp, "power": smi_line}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -25,7 +25,10 @@ attention); and the norm family, one row template
 (``ops/cuda/csrc/row_norm.cuh``): GPT's glue fusion through the fused
 residual + LayerNorm pair, and the norm kernels
 (``ops/cuda/csrc/norms.cu``) behind ``PDTPU_NORM_BACKEND=pallas`` and
-the incubate fused norms.
+the incubate fused norms; and tensor-parallel serving over
+``torch.distributed`` (the engine's ``mesh=``; each rank holds its
+slices of the weights), whose decode MLP under the megakernel is the
+shard-local kernel of ``ops/cuda/csrc/fused_decode_mlp.cu``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card and without ``device=`` they raise (:func:`resolve_device`).

@@ -35,6 +35,22 @@ requests:
   The single step and the window take the epilogue's token and bad flag,
   so there is no host argmax; token streams are the unfused path's. The
   switch is part of the decode geometry.
+* Tensor parallelism (``mesh``/``tp_axis``): every rank of a process
+  group runs this engine with the same requests. Each serves its
+  rank-local model (``models.generation.tp_shard_params``: its slices
+  of the weights, two all-reduces a layer; with ``megakernel`` the
+  layer's MLP is the shard-local ``fused_decode_mlp_partial`` kernel)
+  over its kv heads' pools, through the same mixed step, single step
+  and window as one device. Every rank picks the next token from the
+  same replicated logits, so the scheduler's host state stays identical
+  on all ranks. ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh``
+  with named dims (``tp_axis`` picks one; a 1-D mesh takes its dim,
+  else the dim named ``"tp"``) or a process group (``torch.distributed``
+  or ``distributed.Group``). The backend is the caller's: NCCL with a
+  card a rank, gloo on the CPU or for ranks sharing a card. The ranks
+  must see the same requests and the same clock decisions: leave
+  deadlines off (each rank reads its own clock). Only the head-sharded
+  regime is ported: fewer kv heads than ranks raises.
 * On-demand paging with preemption (latest-admitted victim) and
   requeue, eager ``PageBudgetError`` (PDT-E016), bounded queue with the
   ``reject`` (``QueueFullError`` PDT-E017) or ``block`` policy,
@@ -51,8 +67,8 @@ float weights, over fp32 or int8 pools. As in the JAX package, the fused
 kernels read dense projections only: ``megakernel`` with weight-only
 projections raises ``NotImplementedError``. Greedy decoding only.
 Subsystems of the JAX engine that later slices port raise
-``NotImplementedError`` when switched on: ``spec_decode``,
-``mesh``/``tp_axis``, ``slo`` and ``watchdog_ms``. Request
+``NotImplementedError`` when switched on: ``spec_decode`` (with or
+without a mesh), ``slo`` and ``watchdog_ms``. Request
 export/import/snapshot/restore, ``metrics()`` and tracing are not here
 yet either.
 """
@@ -68,8 +84,9 @@ import torch
 from .. import resolve_device
 from ..core import state as _state
 from ..core.errors import PageBudgetError, QueueFullError
-from ..models.generation import (_decode_fn, _decode_fused_fn, _ragged_fn,
-                                 guarded_argmax, paged_slot_attention)
+from ..models.generation import (_decode_fn, _decode_fused_fn, _kv_heads,
+                                 _ragged_fn, guarded_argmax,
+                                 paged_slot_attention, tp_shard_params)
 from ..resilience import faults
 from ..resilience.serving import (SITE_PAGE_PRESSURE, DecodeGuard,
                                   dispatch_retry)
@@ -232,10 +249,6 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "speculative decoding (spec_*) is not ported yet: it "
                 "comes with a later slice")
-        if mesh is not None or tp_axis is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh/tp_axis) is not ported "
-                "yet: it comes with the multi-card serving slice")
         if slo:
             raise NotImplementedError(
                 "SLO guardrails are not ported yet: they come with the "
@@ -247,6 +260,13 @@ class ContinuousBatchingEngine:
         self.megakernel = _parse_on_off(
             "megakernel", _state.get_flag("serving_megakernel")
             if megakernel is None else megakernel)
+        # tensor parallelism: this rank serves its rank-local model
+        # (cached on the model per group and axis)
+        self.tp, self.tp_axis = 1, None
+        if mesh is not None or tp_axis is not None:
+            tpp = tp_shard_params(model, mesh, tp_axis)
+            model = tpp.model
+            self.tp, self.tp_axis = tpp.meta["tp"], tpp.meta["axis"]
         self._decode, _, self._hard_limit = _decode_fn(model)
         self._decode_mk = _decode_fused_fn(model) if self.megakernel else None
         self._ragged = _ragged_fn(model)
@@ -294,8 +314,10 @@ class ContinuousBatchingEngine:
         self._clock = time.monotonic if clock is None else clock
         self._guard = DecodeGuard(self.max_slots)
 
+        # the pools hold this rank's kv heads (the JAX tp_cache_spec cut)
         n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
-        shape = (n_kv, self.total_pages, self.page_size, cfg.head_dim)
+        shape = (_kv_heads(model), self.total_pages, self.page_size,
+                 cfg.head_dim)
         kv_dtype = torch.int8 if self.kv_quant else torch.float32
         self._caches = [torch.zeros(shape, dtype=kv_dtype,
                                     device=self.device)
@@ -304,7 +326,8 @@ class ContinuousBatchingEngine:
             self._caches += [torch.zeros(shape[:3], dtype=torch.float32,
                                          device=self.device)
                              for _ in range(2 * cfg.num_layers)]
-        # bytes per page across all layers (K and V, data and scales)
+        # bytes per page across all layers (K and V, data and scales),
+        # all kv heads (every rank's pools together, as on one device)
         itemsize = 1 if self.kv_quant else 4
         self._page_bytes = 2 * cfg.num_layers * n_kv * self.page_size \
             * (cfg.head_dim * itemsize + (4 if self.kv_quant else 0))

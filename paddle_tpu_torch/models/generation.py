@@ -6,7 +6,10 @@ guarded greedy pick, the GPT and LLaMA forwards over them (LLaMA's rope
 at device positions through :func:`rope_at`), and the GPT and LLaMA
 megakernel decode steps (``fused_qkv_step`` -> ``paged_attend`` ->
 ``fused_mlp_step`` per layer, then ``fused_decode_logits``), over fp32
-or int8 pools.
+or int8 pools. Under tensor parallelism (the section "Tensor
+parallelism" below) the same forwards serve a rank-local model, which
+holds the rank's slices of the weights and sums its partial products
+with ``distributed.all_reduce``.
 
 Page pools are updated IN PLACE (the JAX package threads them
 functionally and donates the buffers; here an ``index_put_`` writes
@@ -22,15 +25,18 @@ serving appends the scale pools ``[ks0, vs0, ...]`` (``_split_caches``).
 A weight-only-quantized model (``quantization.weight_only_quantize``)
 serves unchanged: every projection is called as a module.
 
-``generate()`` and its contiguous KV cache and the tensor-parallel
-paths arrive with later slices.
+``generate()`` and its contiguous KV cache arrive with a later slice.
 """
 from __future__ import annotations
 
 import torch
+from torch import nn
 
+from ..distributed.collective import all_reduce
+from ..nn.functional.common import linear
 from ..ops.cuda.fused_decode_mlp import (fused_decode_epilogue,
-                                         fused_decode_mlp)
+                                         fused_decode_mlp,
+                                         fused_decode_mlp_partial)
 from ..ops.cuda.fused_decode_qkv import fused_decode_qkv
 from ..ops.cuda.paged_attention import (paged_decode_attention,
                                         ragged_paged_attention)
@@ -303,13 +309,13 @@ def _gpt_decode(model, ids_t, pos, caches, attend):
     new, new_sc = [], []
     for li, blk in enumerate(gpt.blocks):
         h = blk.ln1(x)
-        b, _, hidden = h.shape
+        b = h.shape[0]
         qkv = blk.attn.qkv(h).reshape(b, 1, 3, blk.attn.num_heads,
                                       blk.attn.head_dim)
         q, k, v = qkv.unbind(2)
         att, pair, sc_pair = _attend_layer(attend, q, k, v, data, scales,
                                            li, pos)
-        x = x + blk.attn.proj(att.reshape(b, 1, hidden))
+        x = x + blk.attn.proj(att.reshape(b, 1, -1))
         x = x + blk.mlp(blk.ln2(x))
         new.extend(pair)
         new_sc.extend(sc_pair)
@@ -458,12 +464,9 @@ def _gpt_decode_fused(model, ids_t, pos, bt, caches, poison,
             n_kv_heads=a.num_heads, head_dim=a.head_dim)
         att = _fused_attend(outs, bt, p, lens, pages_per_block,
                             new, new_sc)
-        x = fused_mlp_step(x, att.reshape(b, -1), a.proj.weight,
-                           [blk.ln2.weight, blk.ln2.bias],
-                           blk.mlp.fc1.weight, blk.mlp.fc2.weight,
-                           bo=a.proj.bias, b1=blk.mlp.fc1.bias,
-                           b2=blk.mlp.fc2.bias, arch="gpt", norm="layer",
-                           eps=blk.ln2.eps)
+        x = _egress(x, att.reshape(b, -1), a.proj,
+                    [blk.ln2.weight, blk.ln2.bias], blk.mlp.fc1,
+                    blk.mlp.fc2, arch="gpt", norm="layer", eps=blk.ln2.eps)
     if model.lm_head is not None:
         w_lm, tr = model.lm_head.weight, False
     else:
@@ -504,11 +507,10 @@ def _llama_decode_fused(model, ids_t, pos, bt, caches, poison,
             n_kv_heads=a.num_kv_heads, head_dim=a.head_dim, rope=rope)
         att = _fused_attend(outs, bt, p, lens, pages_per_block,
                             new, new_sc)
-        x = fused_mlp_step(x, att.reshape(b, -1), a.o_proj.weight,
-                           [layer.post_norm.weight], mlp.gate_proj.weight,
-                           mlp.down_proj.weight, w_up=mlp.up_proj.weight,
-                           arch="llama", norm="rms",
-                           eps=layer.post_norm._epsilon)
+        x = _egress(x, att.reshape(b, -1), a.o_proj,
+                    [layer.post_norm.weight], mlp.gate_proj, mlp.down_proj,
+                    up=mlp.up_proj, arch="llama", norm="rms",
+                    eps=layer.post_norm._epsilon)
     if model.lm_head is not None:
         w_lm, tr = model.lm_head.weight, False
     else:
@@ -620,3 +622,353 @@ def _ragged_fn(model):
     if _family(model) == "gpt":
         return _gpt_ragged_forward
     return _llama_ragged_forward
+
+
+def _kv_heads(model):
+    """The kv heads a model's layers attend with: its page pools' head
+    dim (a rank-local TP model's share of them)."""
+    if _family(model) == "gpt":
+        return model.gpt.blocks[0].attn.num_heads
+    return model.llama.layers[0].attn.num_kv_heads
+
+
+# --------------------------------------------------- tensor parallelism --
+# The JAX package's manual TP (paddle_tpu/models/generation.py, from
+# ``TPParams`` :1263 to ``make_tp_window`` :2025): Megatron's cut, with
+# one all-reduce after the attention's output projection and one after
+# the MLP's down projection in every layer. Here a rank is a process that
+# holds a rank-local model (``tp_shard_params``): the model's own class
+# with its layers' head counts cut to this rank's share, the q/k/v (GPT's
+# fused qkv) and fc1/gate/up projections column-cut, and the out and
+# fc2/down projections row-cut as :class:`RowParallelLinear`, whose
+# forward sums the partial product over the group and then adds the
+# bias. So the single-device forwards above serve a rank unchanged, with
+# its kv heads' page pools; the bias and the residual follow each
+# all-reduce in the JAX operand order, every rank holds the same
+# residual stream and picks the same tokens from the same logits, and
+# greedy streams are the single-device engine's (the split sums differ
+# from one device's only in the last bits of the logits). The megakernel
+# step differs only in its egress (:func:`_egress`).
+#
+# Ported: the head-sharded regime (``num_kv_heads % tp == 0``: the kv
+# heads and pools are cut with the q heads). The replicated-KV regime
+# (GQA with fewer kv heads than ranks), speculative decoding under TP
+# (``make_tp_spec``) and weight-only projections raise, naming their
+# later slice.
+
+class RowParallelLinear(nn.Module):
+    """A row-cut projection: ``weight`` ``[out, in_local]`` holds this
+    rank's input columns, ``bias`` (whole, replicated) or None.
+    ``forward(x)`` is ``reduce(x @ weight.T)``; ``reduce(t)`` sums a
+    partial product over ``group`` in place, then adds the bias."""
+
+    def __init__(self, weight, bias, group):
+        super().__init__()
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.bias = (None if bias is None
+                     else nn.Parameter(bias, requires_grad=False))
+        self.group = group
+
+    def reduce(self, t):
+        t = all_reduce(t, self.group)
+        return t if self.bias is None else t + self.bias
+
+    def forward(self, x):
+        return self.reduce(linear(x, self.weight))
+
+
+def _egress(x, att, o, norm_params, w1, w2, up=None, **kw):
+    """The megakernel step's layer egress from the attention output
+    ``att`` [B, nh*hd]: one :func:`fused_mlp_step` launch on one device.
+    Under TP (``o`` row-parallel): the out projection, its all-reduce,
+    bias and residual give ``y1``; the shard-local MLP
+    (:func:`fused_decode_mlp_partial`, no fc2 bias, no residual), its
+    all-reduce, the fc2 bias and the residual give the next layer's
+    stream (the JAX ``_gpt_tp_decode_body_fused`` /
+    ``_llama_tp_decode_body_fused``)."""
+    w_up = None if up is None else up.weight
+    if isinstance(o, RowParallelLinear):
+        y1 = x + o(att)
+        nb = norm_params[1] if len(norm_params) > 1 else None
+        return y1 + w2.reduce(fused_decode_mlp_partial(
+            y1, norm_params[0], nb, w1.weight, w1.bias, w2.weight, w_up,
+            **kw))
+    return fused_mlp_step(x, att, o.weight, norm_params, w1.weight,
+                          w2.weight, bo=o.bias, b1=w1.bias, b2=w2.bias,
+                          w_up=w_up, **kw)
+
+
+class TPParams:
+    """One rank's share of a model for TP serving: ``model``, the
+    rank-local model the engine serves; ``meta``, the JAX package's;
+    ``group``, the process group its all-reduces run over, ``ranks`` its
+    global ranks and ``rank`` this process's rank in it. ``names`` and
+    ``vals`` list the rank's weights in the JAX package's order and
+    names, each a view of the local model's in the port's ``[out, in]``
+    layout with the cut dims factored out: GPT ``qkv.w [3, nh_loc, hd,
+    h]``, ``qkv.b [3, nh_loc, hd]``, ``proj.w [h, nh_loc, hd]``, ``fc1.w
+    [I_loc, h]``, ``fc1.b [I_loc]``, ``fc2.w [h, I_loc]``; LLaMA ``q.w``
+    ``[nh_loc, hd, h]`` (``k.w``, ``v.w`` on ``nhk_loc``), ``o.w [h,
+    nh_loc, hd]``, ``gate.w``/``up.w [I_loc, h]``, ``down.w [h, I_loc]``;
+    every other weight whole."""
+
+    __slots__ = ("model", "meta", "group", "ranks", "rank")
+
+    def __init__(self, model, meta, group, ranks, rank):
+        self.model = model
+        self.meta = meta
+        self.group = group
+        self.ranks = ranks
+        self.rank = rank
+
+    @property
+    def device(self):
+        return self.model.device
+
+    def _named(self):
+        m, meta = self.model, self.meta
+        nh, nhk, hd = meta["nh_loc"], meta["nhk_loc"], meta["hd"]
+        out = []
+        if meta["family"] == "gpt":
+            gpt = m.gpt
+            out += [("wte", gpt.wte.weight), ("wpe", gpt.wpe.weight)]
+            for li, blk in enumerate(gpt.blocks):
+                a, mlp, b = blk.attn, blk.mlp, f"b{li}."
+                h = blk.ln1.weight.shape[0]
+                out += [(b + "ln1.w", blk.ln1.weight),
+                        (b + "ln1.b", blk.ln1.bias),
+                        (b + "qkv.w", a.qkv.weight.view(3, nh, hd, h)),
+                        (b + "qkv.b", a.qkv.bias.view(3, nh, hd)),
+                        (b + "proj.w", a.proj.weight.view(h, nh, hd)),
+                        (b + "proj.b", a.proj.bias),
+                        (b + "ln2.w", blk.ln2.weight),
+                        (b + "ln2.b", blk.ln2.bias),
+                        (b + "fc1.w", mlp.fc1.weight),
+                        (b + "fc1.b", mlp.fc1.bias),
+                        (b + "fc2.w", mlp.fc2.weight),
+                        (b + "fc2.b", mlp.fc2.bias)]
+            out += [("ln_f.w", gpt.ln_f.weight), ("ln_f.b", gpt.ln_f.bias)]
+        else:
+            lm = m.llama
+            out.append(("wte", lm.embed_tokens.weight))
+            for li, layer in enumerate(lm.layers):
+                a, mlp, b = layer.attn, layer.mlp, f"b{li}."
+                h = layer.input_norm.weight.shape[0]
+                out += [(b + "in_norm.w", layer.input_norm.weight),
+                        (b + "q.w", a.q_proj.weight.view(nh, hd, h)),
+                        (b + "k.w", a.k_proj.weight.view(nhk, hd, h)),
+                        (b + "v.w", a.v_proj.weight.view(nhk, hd, h)),
+                        (b + "o.w", a.o_proj.weight.view(h, nh, hd)),
+                        (b + "post_norm.w", layer.post_norm.weight),
+                        (b + "gate.w", mlp.gate_proj.weight),
+                        (b + "up.w", mlp.up_proj.weight),
+                        (b + "down.w", mlp.down_proj.weight)]
+            out.append(("norm.w", lm.norm.weight))
+        if m.lm_head is not None:
+            out.append(("lm_head", m.lm_head.weight))
+        return [(n, t.detach()) for n, t in out]
+
+    @property
+    def names(self):
+        return [n for n, _ in self._named()]
+
+    @property
+    def vals(self):
+        return [t for _, t in self._named()]
+
+
+def _tp_group(mesh, tp_axis):
+    """``(process group, axis name)`` of the tensor-parallel dim of
+    ``mesh``: a ``torch.distributed.device_mesh.DeviceMesh`` with named
+    dims (``tp_axis`` picks one; a 1-D mesh takes its dim, else a dim
+    named ``"tp"``, as the JAX engine picks a mesh axis), or a process
+    group (a 1-D mesh whose dim is named ``tp_axis``, default ``"tp"``).
+    Every rank must have initialized ``torch.distributed`` first."""
+    import torch.distributed as dist
+
+    from ..distributed import collective
+    if not collective.is_initialized():
+        raise RuntimeError(
+            "serving TP: mesh= needs an initialized process group in "
+            "every rank (paddle_tpu_torch.distributed.init_parallel_env "
+            "or torch.distributed.init_process_group)")
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        axes = tuple(mesh.mesh_dim_names or ())
+        if not axes:
+            raise ValueError("serving TP: the DeviceMesh needs named dims "
+                             "(mesh_dim_names)")
+        if tp_axis is None:
+            if len(axes) == 1:
+                tp_axis = axes[0]
+            elif "tp" in axes:
+                tp_axis = "tp"
+            else:
+                raise ValueError(
+                    f"mesh has axes {axes}: pass tp_axis= to pick the "
+                    "tensor-parallel one")
+        if tp_axis not in axes:
+            raise ValueError(
+                f"tp_axis {tp_axis!r} is not a mesh axis {axes}")
+        return mesh.get_group(tp_axis), str(tp_axis)
+    if isinstance(mesh, collective.Group):
+        mesh = mesh.process_group
+    if isinstance(mesh, dist.ProcessGroup):
+        return mesh, "tp" if tp_axis is None else str(tp_axis)
+    raise TypeError(
+        "serving TP: mesh must be a torch.distributed DeviceMesh with "
+        f"named dims or a process group, got {type(mesh).__name__}")
+
+
+def _tp_meta(cfg, family, tp, axis):
+    """The JAX package's TP ``meta``, with its ``ValueError``s for head
+    counts the cut cannot serve; the replicated-KV regime raises
+    ``NotImplementedError``."""
+    nh, hd = cfg.num_heads, cfg.head_dim
+    nhk = getattr(cfg, "num_kv_heads", nh)
+    if nh % tp:
+        raise ValueError(
+            f"serving TP: num_heads {nh} not divisible by tp={tp}")
+    if cfg.intermediate_size % tp:
+        raise ValueError(
+            f"serving TP: intermediate_size {cfg.intermediate_size} "
+            f"not divisible by tp={tp}")
+    shard_kv = nhk % tp == 0
+    if not shard_kv and tp % nhk:
+        raise ValueError(
+            f"serving TP: GQA kv heads {nhk} neither divisible by nor "
+            f"a divisor of tp={tp}")
+    if not shard_kv:
+        raise NotImplementedError(
+            f"serving TP: {nhk} kv heads < tp={tp} replicate the KV side "
+            "on every rank (the JAX package's replicated-KV regime); it "
+            "comes with a later slice")
+    return {"family": family, "tp": tp, "axis": axis,
+            "nh_loc": nh // tp, "nhk_loc": nhk // tp,
+            "shard_kv": shard_kv, "hd": hd, "shards_per_kv": 1}
+
+
+def _column(w, b=None):
+    """A column-cut projection holding copies of the cut ``w`` ``[out,
+    in]`` and ``b``, so the whole weights can be freed."""
+    lin = nn.Linear(w.shape[1], w.shape[0], bias=b is not None,
+                    device="meta")
+    lin.weight = nn.Parameter(w.clone(memory_format=torch.contiguous_format),
+                              requires_grad=False)
+    if b is not None:
+        lin.bias = nn.Parameter(b.clone(), requires_grad=False)
+    return lin
+
+
+def _row(w, b, group):
+    return RowParallelLinear(w.clone(memory_format=torch.contiguous_format),
+                             b, group)
+
+
+def tp_shard_params(model, mesh, tp_axis=None, materialize=None):
+    """This rank's :class:`TPParams` of a GPT or LLaMA over the
+    tensor-parallel dim of ``mesh`` (see :func:`_tp_group`): the
+    rank-local model, whose heads are cut head-major as the JAX package
+    cuts them (GPT's fused qkv output is ``(3, nh, hd)``-interleaved, so
+    it is cut on the head dim, never contiguously), fc1/gate/up
+    column-cut with fc1's bias, the out and fc2/down projections
+    row-parallel, every other weight shared with ``model``. Raises as
+    the JAX package does on head counts the cut cannot serve. The result
+    is cached on the model per (group ranks, axis), so an engine on the
+    same model and mesh reuses it.
+
+    ``materialize(part)``, when given, is called on each part (the
+    embeddings, each block, the final norm, the head) just before its
+    weights are taken, and the part goes to the meta device just after:
+    a rank that draws a model built on the meta device part by part
+    keeps only its share."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ..quantization import WeightOnlyLinear
+    group, axis = _tp_group(mesh, tp_axis)
+    key = (tuple(dist.get_process_group_ranks(group)), axis)
+    cache = model.__dict__.setdefault("_tp_params_cache", {})
+    if key in cache:
+        return cache[key]
+    tp, r = dist.get_world_size(group), dist.get_rank(group)
+    family = _family(model)
+    meta = _tp_meta(model.cfg, family, tp, axis)
+    if any(isinstance(m, WeightOnlyLinear) for m in model.modules()):
+        raise NotImplementedError(
+            "serving TP: weight-only int8 projections are not cut yet; "
+            "they come with a later slice")
+    nh, hd = model.cfg.num_heads, meta["hd"]
+    nhk = getattr(model.cfg, "num_kv_heads", nh)
+    heads = slice(r * meta["nh_loc"], (r + 1) * meta["nh_loc"])
+    kv_heads = slice(r * meta["nhk_loc"], (r + 1) * meta["nhk_loc"])
+    inter = model.cfg.intermediate_size // tp
+    cols = slice(r * inter, (r + 1) * inter)
+
+    # the local model: the model's structure with meta-device weights
+    # and fresh per-model records, filled part by part below
+    memo = {id(p): nn.Parameter(torch.empty_like(p, device="meta"),
+                                requires_grad=False)
+            for p in model.parameters()}
+    for rec in ("_tp_params_cache", "_serving_decoded_geometries"):
+        if rec in model.__dict__:
+            memo[id(model.__dict__[rec])] = type(model.__dict__[rec])()
+    local = copy.deepcopy(model, memo)
+
+    def cut_gpt(blk):
+        a, mlp = blk.attn, blk.mlp
+        h = a.qkv.weight.shape[1]
+        a.qkv = _column(a.qkv.weight.reshape(3, nh, hd, h)[:, heads]
+                        .reshape(-1, h),
+                        a.qkv.bias.reshape(3, nh, hd)[:, heads].reshape(-1))
+        a.proj = _row(a.proj.weight.reshape(h, nh, hd)[:, heads]
+                      .reshape(h, -1), a.proj.bias, group)
+        a.num_heads = meta["nh_loc"]
+        mlp.fc1 = _column(mlp.fc1.weight[cols], mlp.fc1.bias[cols])
+        mlp.fc2 = _row(mlp.fc2.weight[:, cols], mlp.fc2.bias, group)
+
+    def cut_llama(layer):
+        a, mlp = layer.attn, layer.mlp
+        h = a.q_proj.weight.shape[1]
+        a.q_proj = _column(a.q_proj.weight.reshape(nh, hd, h)[heads]
+                           .reshape(-1, h))
+        a.k_proj = _column(a.k_proj.weight.reshape(nhk, hd, h)[kv_heads]
+                           .reshape(-1, h))
+        a.v_proj = _column(a.v_proj.weight.reshape(nhk, hd, h)[kv_heads]
+                           .reshape(-1, h))
+        a.o_proj = _row(a.o_proj.weight.reshape(h, nh, hd)[:, heads]
+                        .reshape(h, -1), None, group)
+        a.num_heads, a.num_kv_heads = meta["nh_loc"], meta["nhk_loc"]
+        a._tables = {}
+        mlp.gate_proj = _column(mlp.gate_proj.weight[cols])
+        mlp.up_proj = _column(mlp.up_proj.weight[cols])
+        mlp.down_proj = _row(mlp.down_proj.weight[:, cols], None, group)
+
+    if family == "gpt":
+        parts = ["gpt.wte", "gpt.wpe"] + [
+            f"gpt.blocks.{i}" for i in range(len(model.gpt.blocks))] \
+            + ["gpt.ln_f"]
+        cut = cut_gpt
+    else:
+        parts = ["llama.embed_tokens"] + [
+            f"llama.layers.{i}" for i in range(len(model.llama.layers))] \
+            + ["llama.norm"]
+        cut = cut_llama
+    if model.lm_head is not None:
+        parts.append("lm_head")
+    for name in parts:
+        part, mine = model.get_submodule(name), local.get_submodule(name)
+        if materialize is not None:
+            materialize(part)
+        for pname, p in part.named_parameters():
+            sub, _, leaf = pname.rpartition(".")
+            setattr(mine.get_submodule(sub), leaf,
+                    nn.Parameter(p.detach(), requires_grad=False))
+        if ".blocks." in name or ".layers." in name:
+            cut(mine)
+        if materialize is not None:
+            part.to("meta")
+    tpp = TPParams(local, meta, group, key[0], r)
+    cache[key] = tpp
+    return tpp

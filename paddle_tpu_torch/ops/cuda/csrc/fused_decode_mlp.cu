@@ -11,6 +11,11 @@
 //   above it):
 //     y1 = x + (att @ wo + bo);  h = norm(y1);
 //     out = y1 + ((silu(h @ wg) * (h @ wu)) @ wd + b2).
+// * Their tensor-parallel partial mode replaces `_mlp_partial_block`
+//   (fused_decode_mlp_partial, same file): y1 is given, so the first
+//   phase and its grid barrier are skipped, and the last product has no
+//   bias and no residual: out = mlp(norm(y1)) with a rank's slices of
+//   the MLP weights, the partial sum before the layer's all-reduce.
 // * fused_decode_epilogue: the final LayerNorm or RMSNorm, the LM head
 //   and the guarded greedy pick, in one launch. Replaces
 //   `_epilogue_block` (same file): logits = norm(x) @ w_lm^T (+ b_lm),
@@ -85,6 +90,7 @@ struct MlpParams {
   float* out;          // [B, H]
   int B, H, A, I;
   float eps;
+  int partial;         // y1 given: no phase 1, no fc2 bias, no residual
 };
 
 // One phase: for every output column n of this warp (grid-strided), every
@@ -121,20 +127,22 @@ fused_decode_mlp_kernel(MlpParams p) {
     const int gwarp = (int)blockIdx.x * kWarps + threadIdx.x / 32;
     const int nwarps = (int)gridDim.x * kWarps;
     for (int n = gwarp; n < p.H; n += nwarps) {
-      decode::prefetch_row_l2(p.wo + (size_t)n * p.A, p.A);
+      if (!p.partial) decode::prefetch_row_l2(p.wo + (size_t)n * p.A, p.A);
       decode::prefetch_row_l2(p.w2 + (size_t)n * p.I, p.I);
     }
     for (int n = gwarp; n < p.I; n += nwarps)
       decode::prefetch_row_l2(p.w1 + (size_t)n * p.H, p.H);
   }
 
-  // phase 1: y1 = x + (att @ wo^T + bo)
-  decode::load_rows(s, p.att, p.B, p.A);
-  __syncthreads();
-  gemv_phase(s, p.wo, p.bo, p.B, p.A, p.H, [&](int b, int n, float v) {
-    p.y1[(size_t)b * p.H + n] = p.x[(size_t)b * p.H + n] + v;
-  });
-  grid.sync();
+  // phase 1: y1 = x + (att @ wo^T + bo); the partial mode is given y1
+  if (!p.partial) {
+    decode::load_rows(s, p.att, p.B, p.A);
+    __syncthreads();
+    gemv_phase(s, p.wo, p.bo, p.B, p.A, p.H, [&](int b, int n, float v) {
+      p.y1[(size_t)b * p.H + n] = p.x[(size_t)b * p.H + n] + v;
+    });
+    grid.sync();
+  }
 
   // phase 2: f = gelu(norm(y1) @ w1^T + b1)
   decode::load_rows(s, p.y1, p.B, p.H);
@@ -144,11 +152,11 @@ fused_decode_mlp_kernel(MlpParams p) {
   });
   grid.sync();
 
-  // phase 3: out = y1 + (f @ w2^T + b2)
+  // phase 3: out = y1 + (f @ w2^T + b2); the partial mode: f @ w2^T
   decode::load_rows(s, p.f, p.B, p.I);
   __syncthreads();
   gemv_phase(s, p.w2, p.b2, p.B, p.I, p.H, [&](int b, int n, float v) {
-    p.out[(size_t)b * p.H + n] = p.y1[(size_t)b * p.H + n] + v;
+    p.out[(size_t)b * p.H + n] = p.partial ? v : p.y1[(size_t)b * p.H + n] + v;
   });
 }
 
@@ -340,6 +348,7 @@ struct SwigluParams {
   float* out;          // [B, H]
   int B, H, A, I, kc, rms;
   float eps;
+  int partial;         // y1 given: no phase 1, no down bias, no residual
 };
 
 __device__ inline float silu(float v) { return v / (1.f + expf(-v)); }
@@ -417,9 +426,9 @@ fused_decode_swiglu_kernel(SwigluParams p) {
   cg::grid_group grid = cg::this_grid();
   const bool rms = p.rms != 0;
 
-  // phase 1: y1 = x + (att @ wo^T + bo)
-  prefetch_first_chunk(p.wo, p.H, p.A, p.kc, kGroup);
-  {
+  // phase 1: y1 = x + (att @ wo^T + bo); the partial mode is given y1
+  if (!p.partial) {
+    prefetch_first_chunk(p.wo, p.H, p.A, p.kc, kGroup);
     const float* w[1] = {p.wo};
     chunked_phase<1>(s, p.att, p.B, p.A, p.kc, nullptr, rms, nullptr, nullptr, w,
                      p.H, [&](int b, int n, const float* d, bool first, bool last) {
@@ -434,7 +443,7 @@ fused_decode_swiglu_kernel(SwigluParams p) {
   }
   prefetch_first_chunk(p.wg, p.I, p.H, p.kc, kGroup / 2);
   prefetch_first_chunk(p.wu, p.I, p.H, p.kc, kGroup / 2);
-  grid.sync();
+  if (!p.partial) grid.sync();
 
   // phase 2: f = silu(norm(y1) @ wg^T) * (norm(y1) @ wu^T)
   decode::row_norm_stats(stat, p.y1, p.B, p.H, rms, p.eps);
@@ -457,7 +466,7 @@ fused_decode_swiglu_kernel(SwigluParams p) {
   prefetch_first_chunk(p.wd, p.H, p.I, p.kc, kGroup);
   grid.sync();
 
-  // phase 3: out = y1 + (f @ wd^T + b2)
+  // phase 3: out = y1 + (f @ wd^T + b2); the partial mode: f @ wd^T
   {
     const float* w[1] = {p.wd};
     chunked_phase<1>(s, p.g, p.B, p.I, p.kc, nullptr, rms, nullptr, nullptr, w, p.H,
@@ -466,7 +475,7 @@ fused_decode_swiglu_kernel(SwigluParams p) {
       float t = first ? d[0] : *o + d[0];
       if (last) {
         if (p.b2 != nullptr) t += __ldg(p.b2 + n);
-        t = p.y1[(size_t)b * p.H + n] + t;
+        if (!p.partial) t = p.y1[(size_t)b * p.H + n] + t;
       }
       *o = t;
     });
@@ -482,6 +491,35 @@ int swiglu_chunk(int B, int H, int A, int I) {
   if (kc >= widest) return widest;
   kc = kc >= 128 ? kc & ~127LL : kc & ~3LL;
   return kc >= 4 ? (int)kc : 0;
+}
+
+// Cooperative launch of the GELU MLP kernel, full or partial; returns a
+// cudaError_t.
+cudaError_t launch_mlp(MlpParams p, size_t smem, cudaStream_t stream) {
+  cudaError_t err = decode::allow_smem(fused_decode_mlp_kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
+      cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fused_decode_mlp_kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // enough warps for the widest phase, no more CTAs than can be resident
+  const int widest = p.H > p.I ? p.H : p.I;
+  int grid = (widest + kWarps - 1) / kWarps;
+  if (grid > per_sm * sms) grid = per_sm * sms;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)fused_decode_mlp_kernel, dim3(grid),
+                                    dim3(kThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -511,32 +549,23 @@ int pdt_fused_decode_mlp_f32(const float* x, const float* att, const float* wo,
                              const float* b2, float* y1, float* f, float* out, int B,
                              int H, int A, int I, float eps, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  MlpParams p{x, att, wo, bo, nw, nb, w1, b1, w2, b2, y1, f, out, B, H, A, I, eps};
-  const size_t smem = pdt_fused_decode_mlp_smem_bytes(B, H, A, I);
-  cudaError_t err = decode::allow_smem(fused_decode_mlp_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_decode_mlp_kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // enough warps for the widest phase, no more CTAs than can be resident
-  const int widest = H > I ? H : I;
-  int grid = (widest + kWarps - 1) / kWarps;
-  if (grid > per_sm * sms) grid = per_sm * sms;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)fused_decode_mlp_kernel, dim3(grid),
-                                    dim3(kThreads), args, smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  MlpParams p{x, att, wo, bo, nw, nb, w1, b1, w2, b2, y1, f, out, B, H, A, I, eps, 0};
+  return (int)launch_mlp(p, pdt_fused_decode_mlp_smem_bytes(B, H, A, I),
+                         (cudaStream_t)stream);
+}
+
+// The partial mode (fused_decode_mlp_partial): y1 [B, H] given, w1 [I, H]
+// and w2 [H, I] a rank's slices; out = gelu(norm(y1) @ w1^T + b1) @ w2^T.
+// Cooperative launch on `stream`; returns a cudaError_t as int.
+int pdt_fused_decode_mlp_partial_f32(const float* y1, const float* nw, const float* nb,
+                                     const float* w1, const float* b1, const float* w2,
+                                     float* f, float* out, int B, int H, int I,
+                                     float eps, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  MlpParams p{nullptr, nullptr, nullptr, nullptr, nw, nb, w1, b1, w2, nullptr,
+              const_cast<float*>(y1), f, out, B, H, 0, I, eps, 1};
+  return (int)launch_mlp(p, pdt_fused_decode_mlp_smem_bytes(B, H, 0, I),
+                         (cudaStream_t)stream);
 }
 
 // Launch on `stream`; returns a cudaError_t as int. `ticket` must be 0.
@@ -594,6 +623,29 @@ int pdt_fused_decode_swiglu_grid(int B, int H, int A, int I, int* grid) {
   return (int)cudaSuccess;
 }
 
+}  // extern "C"
+
+namespace {
+
+// Cooperative launch of the SwiGLU kernel, full or partial, over the grid
+// pdt_fused_decode_swiglu_grid picks; returns a cudaError_t as int.
+int launch_swiglu(SwigluParams p, void* stream) {
+  const size_t smem = pdt_fused_decode_swiglu_smem_bytes(p.B, p.H, p.A, p.I);
+  int grid = 0;
+  cudaError_t err = (cudaError_t)pdt_fused_decode_swiglu_grid(p.B, p.H, p.A, p.I, &grid);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)fused_decode_swiglu_kernel,
+                                    dim3(grid), dim3(kThreads), args, smem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
 // Cooperative launch of the SwiGLU egress on `stream`; returns a
 // cudaError_t as int. `rms`: RMSNorm, else LayerNorm.
 int pdt_fused_decode_swiglu_f32(const float* x, const float* att, const float* wo,
@@ -605,18 +657,26 @@ int pdt_fused_decode_swiglu_f32(const float* x, const float* att, const float* w
   if (B <= 0) return (int)cudaSuccess;
   const int kc = swiglu_chunk(B, H, A, I);
   if (kc == 0) return (int)cudaErrorInvalidValue;
-  SwigluParams p{x, att, wo, bo, nw, nb, wg, wu, wd, b2, y1, g, u, out,
-                 B, H, A, I, kc, rms, eps};
-  const size_t smem = pdt_fused_decode_swiglu_smem_bytes(B, H, A, I);
-  int grid = 0;
-  cudaError_t err = (cudaError_t)pdt_fused_decode_swiglu_grid(B, H, A, I, &grid);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)fused_decode_swiglu_kernel,
-                                    dim3(grid), dim3(kThreads), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_swiglu({x, att, wo, bo, nw, nb, wg, wu, wd, b2, y1, g, u, out,
+                        B, H, A, I, kc, rms, eps, 0}, stream);
+}
+
+// The partial mode (fused_decode_mlp_partial, arch="llama"): y1 [B, H]
+// given, wg and wu [I, H] and wd [H, I] a rank's slices; out =
+// (silu(norm(y1) @ wg^T) * (norm(y1) @ wu^T)) @ wd^T. Cooperative launch
+// on `stream`; returns a cudaError_t as int.
+int pdt_fused_decode_swiglu_partial_f32(const float* y1, const float* nw,
+                                        const float* nb, const float* wg,
+                                        const float* wu, const float* wd, float* g,
+                                        float* u, float* out, int B, int H, int I,
+                                        int rms, float eps, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  const int kc = swiglu_chunk(B, H, 0, I);
+  if (kc == 0) return (int)cudaErrorInvalidValue;
+  return launch_swiglu({nullptr, nullptr, nullptr, nullptr, nw, nb, wg, wu, wd,
+                        nullptr, const_cast<float*>(y1), g, u, out, B, H, 0, I, kc,
+                        rms, eps, 1},
+                       stream);
 }
 
 const char* pdt_cuda_error_string(int err) {

@@ -8,6 +8,12 @@
   its biases; ``arch="llama"`` (``_mlp_tail``'s SwiGLU): ``(silu(h @
   w_gate) * (h @ w_up)) @ w_down`` (``w1`` is the gate, ``w_up`` the up
   projection, ``w2`` the down; ``b1`` is not read, as in JAX).
+* :func:`fused_decode_mlp_partial` replaces ``_mlp_partial_block``
+  (``fused_decode_mlp_partial``), the tensor-parallel shard-local MLP:
+  ``mlp(norm(y1))`` with a rank's slices of the MLP weights (fc1 or
+  gate/up cut by columns, fc2 or down by rows) and no fc2 bias and no
+  residual, the partial sum that the layer's all-reduce adds up. It is a
+  mode of the two kernels above, which skip their first product.
 * :func:`fused_decode_epilogue` replaces ``_epilogue_block``: the final
   norm, the LM head and the guarded greedy pick. It returns ``(logits
   [B, V] pre-poison, nxt [B], bad [B] bool)``, with ``nxt`` and ``bad``
@@ -28,9 +34,7 @@ CPU tensors take the ``_plain`` versions; CUDA tensors launch the
 kernels (``csrc/fused_decode_mlp.cu``: the GELU MLP kernel for
 ``arch="gpt"`` with LayerNorm, the SwiGLU kernel for ``arch="llama"``,
 the epilogue for either norm) or raise. ``rows=`` and ``interpret=`` are
-TPU knobs, accepted for call compatibility and not read. The
-tensor-parallel partial (``_mlp_partial_block``) is not ported here: it
-comes with the multi-card serving slice.
+TPU knobs, accepted for call compatibility and not read.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 from .fused_decode_qkv import SMEM_LIMIT, _norm_block
 
 __all__ = ["fused_decode_mlp", "fused_decode_mlp_plain",
+           "fused_decode_mlp_partial", "fused_decode_mlp_partial_plain",
            "fused_decode_epilogue", "fused_decode_epilogue_plain"]
 
 _lib = None
@@ -55,6 +60,9 @@ def _kernels():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pdt_fused_decode_mlp_f32.argtypes = [P] * 13 + [I] * 4 + [F, P]
         lib.pdt_fused_decode_mlp_f32.restype = I
+        lib.pdt_fused_decode_mlp_partial_f32.argtypes = ([P] * 8 + [I] * 3
+                                                         + [F, P])
+        lib.pdt_fused_decode_mlp_partial_f32.restype = I
         lib.pdt_fused_decode_epilogue_f32.argtypes = ([P] * 13 + [I] * 3
                                                       + [F, I, P])
         lib.pdt_fused_decode_epilogue_f32.restype = I
@@ -64,6 +72,9 @@ def _kernels():
         lib.pdt_fused_decode_mlp_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_fused_decode_swiglu_f32.argtypes = [P] * 14 + [I] * 5 + [F, P]
         lib.pdt_fused_decode_swiglu_f32.restype = I
+        lib.pdt_fused_decode_swiglu_partial_f32.argtypes = ([P] * 9 + [I] * 4
+                                                            + [F, P])
+        lib.pdt_fused_decode_swiglu_partial_f32.restype = I
         lib.pdt_fused_decode_swiglu_smem_bytes.argtypes = [I] * 4
         lib.pdt_fused_decode_swiglu_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_fused_decode_swiglu_grid.argtypes = [I] * 4 + [P]
@@ -106,6 +117,16 @@ def fused_decode_mlp_plain(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
     y1 = x + prj
     h = _norm_block(y1, norm_w, norm_b, eps, norm)
     return y1 + _mlp_tail(h, w1, b1, w2, b2, w_up, arch)
+
+
+def fused_decode_mlp_partial_plain(y1, norm_w, norm_b, w1, b1, w2,
+                                   w_up=None, *, eps, arch="gpt",
+                                   norm="layer"):
+    """Plain PyTorch version of :func:`fused_decode_mlp_partial` (any
+    device), the JAX ``_mlp_partial_block``: ``_mlp_tail`` with no fc2
+    bias."""
+    h = _norm_block(y1, norm_w, norm_b, eps, norm)
+    return _mlp_tail(h, w1, b1, w2, None, w_up, arch)
 
 
 def fused_decode_epilogue_plain(x, norm_w, norm_b, w_lm, b_lm, poison, *,
@@ -243,6 +264,79 @@ def fused_decode_mlp(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
 
 
 fused_decode_mlp.launches = 0
+
+
+def fused_decode_mlp_partial(y1, norm_w, norm_b, w1, b1, w2, w_up=None, *,
+                             arch="gpt", norm="layer", eps=1e-5, rows=None,
+                             interpret=None):
+    """y1 [B, H] the residual stream after the attention's all-reduce;
+    w1 [I, H] (a rank's columns of fc1, or of the gate), w2 [H, I] (its
+    rows of fc2, or of the down projection), w_up [I, H] (``arch="llama"``
+    only), all ``[out, in]``; b1 [I] or None -> the pre-all-reduce partial
+    [B, H] of ``mlp(norm(y1))``, with no fc2 bias and no residual."""
+    del rows, interpret     # TPU tiling / interpret knobs
+    name = "fused_decode_mlp_partial"
+    _check_variant(name, arch, norm, w_up)
+    llama = arch == "llama"
+    if llama:
+        b1 = None           # _mlp_tail's SwiGLU branch has no fc1 bias
+    if y1.dim() != 2:
+        raise ValueError(f"{name}: y1 [B, H] expected, got "
+                         f"{tuple(y1.shape)}")
+    bsz, hid = y1.shape
+    inter = w1.shape[0]
+    for what, t, shape in (("w1", w1, (inter, hid)), ("w2", w2, (hid, inter)),
+                           ("w_up", w_up, (inter, hid)), ("b1", b1, (inter,)),
+                           ("norm_w", norm_w, (hid,)),
+                           ("norm_b", norm_b, (hid,))):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} must be {list(shape)} ([out, "
+                             f"in]), got {tuple(t.shape)}")
+    dev = _device(name, [y1, norm_w, norm_b, w1, b1, w2, w_up])
+    if dev.type == "cpu":
+        return fused_decode_mlp_partial_plain(y1, norm_w, norm_b, w1, b1, w2,
+                                              w_up, eps=eps, arch=arch,
+                                              norm=norm)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if not llama and norm != "layer":
+        raise NotImplementedError(
+            f"{name}: the GELU MLP kernel takes norm='layer' (GPT's); the "
+            f"JAX package serves no GELU MLP behind an RMSNorm")
+    _check_card(name, (("y1", y1), ("norm_w", norm_w), ("norm_b", norm_b),
+                       ("w1", w1), ("b1", b1), ("w2", w2), ("w_up", w_up)))
+    if llama and norm_w.data_ptr() % 16:
+        raise ValueError(f"{name}: norm_w must be 16-byte aligned")
+    lib = _kernels()
+    smem = (lib.pdt_fused_decode_swiglu_smem_bytes if llama
+            else lib.pdt_fused_decode_mlp_smem_bytes)(bsz, hid, 0, inter)
+    if not 0 < smem <= SMEM_LIMIT:
+        raise ValueError(f"{name}: {bsz} rows of width {max(hid, inter)} do "
+                         f"not fit the {SMEM_LIMIT} B of shared memory of a "
+                         f"CTA")
+    f = torch.empty(bsz, inter, dtype=y1.dtype, device=dev)
+    out = torch.empty_like(y1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if llama:
+            u = torch.empty_like(f)
+            rc = lib.pdt_fused_decode_swiglu_partial_f32(
+                y1.data_ptr(), norm_w.data_ptr(), _ptr(norm_b),
+                w1.data_ptr(), w_up.data_ptr(), w2.data_ptr(), f.data_ptr(),
+                u.data_ptr(), out.data_ptr(), bsz, hid, inter,
+                int(norm == "rms"), float(eps), stream)
+        else:
+            rc = lib.pdt_fused_decode_mlp_partial_f32(
+                y1.data_ptr(), norm_w.data_ptr(), _ptr(norm_b),
+                w1.data_ptr(), _ptr(b1), w2.data_ptr(), f.data_ptr(),
+                out.data_ptr(), bsz, hid, inter, float(eps), stream)
+    if rc != 0:
+        _raise(name, rc)
+    fused_decode_mlp_partial.launches += 1
+    return out
+
+
+fused_decode_mlp_partial.launches = 0
 
 
 def swiglu_grid(bsz, hid, a_w, inter, device=None):

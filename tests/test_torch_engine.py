@@ -249,10 +249,13 @@ def test_left_out_subsystems_raise():
     tm = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
     for kw in ({"spec_decode": True},
                {"spec_k": 4}, {"spec_proposer": "ngram"},
-               {"mesh": object()}, {"slo": "ttft_p99<100ms"},
-               {"watchdog_ms": 50}):
+               {"slo": "ttft_p99<100ms"}, {"watchdog_ms": 50}):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(tm, device="cpu", **G1, **kw)
+    # tensor-parallel serving is ported (tests/test_torch_tp_serving.py):
+    # a mesh needs this process's process group first
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        ContinuousBatchingEngine(tm, device="cpu", mesh=object(), **G1)
     with pytest.raises(ValueError, match="kv_quant"):
         ContinuousBatchingEngine(tm, device="cpu", kv_quant="maybe", **G1)
     eng = ContinuousBatchingEngine(tm, device="cpu", kv_quant="off",

@@ -67,6 +67,8 @@ def test_import_pulls_in_no_jax():
             "import paddle_tpu_torch.amp, paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.nn.functional\n"
             "import paddle_tpu_torch.distributed.fleet\n"
+            "import paddle_tpu_torch.distributed.collective\n"
+            "import paddle_tpu_torch.distributed.parallel\n"
             "import paddle_tpu_torch.core.dtype\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
@@ -594,3 +596,39 @@ def test_chip_smoke_gpt_megakernel_int8_serve_rehearses_on_cpu():
     assert out["tokens"] == 16 * 32 and out["near_ties"] == 0
     assert 0 <= out["logit_gap"] < 1
     assert out["margin"] == max(chip_smoke.MARGIN, 2 * out["logit_gap"])
+
+
+def test_chip_smoke_tp_serve_phases_rehearse_on_cpu():
+    """chip_smoke's TP serve phase at tiny configs on the CPU: two ranks,
+    spawned, over gloo, serve a GPT leg (megakernel over int8 pools) and
+    a LLaMA leg (megakernel over fp32 pools) with the per-dispatch
+    all-reduce check; the phase itself fails if a rank imported JAX or
+    the JAX package, if the ranks' streams or stats differ, or if a
+    served token is not the unsharded plain forward's pick (margin twice
+    the TP path's measured gap). tests/test_torch_tp_serving.py holds
+    every leg against the JAX engine."""
+    from paddle_tpu_torch.models import GPTConfig, LlamaConfig
+    sys.path.insert(0, str(ROOT))     # the spawned ranks import it too
+    try:
+        import chip_smoke
+        legs = tuple(leg for leg in chip_smoke.TP_LEGS if leg[0] in (
+            "gpt_tp2_megakernel_int8_kv", "llama7b_tp2_megakernel"))
+        requests = {"gpt": 4, "llama": 3}
+        served = chip_smoke.tp_serve_phases(
+            0, device="cpu",
+            gpt_cfg=GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                              num_heads=4, max_seq_len=96),
+            llama_cfg=LlamaConfig(vocab_size=64, hidden_size=32,
+                                  num_layers=2, num_heads=4, num_kv_heads=2,
+                                  max_seq_len=96),
+            legs=legs, requests=requests)
+    finally:
+        sys.path.remove(str(ROOT))
+    assert len(legs) == 2 and sorted(served) == sorted(n for n, *_ in legs)
+    for (name, fam, _mk, _kvq) in legs:
+        res, n = served[name], requests[fam]
+        assert res["requests"] == n
+        assert res["checked"] == n * chip_smoke.NEW_TOKENS, name
+        assert res["stats"]["tokens_generated"] == n * chip_smoke.NEW_TOKENS
+        assert 0 <= res["logit_gap"] < 1e-4, name
+        assert res["margin"] == max(chip_smoke.MARGIN, 2 * res["logit_gap"])
