@@ -20,10 +20,20 @@ card.
    * ``flash_attention_fwd`` / ``flash_attention_bwd`` at the train
      phase's shape (q, k, v ``[8, 1024, 12, 64]`` bf16 causal, the
      unbound views of a packed qkv), an fp32 case with Sq != Sk, a
-     GQA case (Hq 32, Hk 8, D 128, S 512, bf16) and the LLaMA train
-     phase's shape (``[2, 2048, 32, 128]`` bf16 causal): fp32 within
-     2e-5 (o, lse) and 1e-4 (grads); bf16 within one bf16 rounding of
-     the plain version run in fp32 on the same bf16 inputs;
+     GQA case (Hq 32, Hk 8, D 128, S 512, bf16), the LLaMA train
+     phase's shape (``[2, 2048, 32, 128]`` bf16 causal), a ragged bf16
+     case (Sq = Sk = 1000, D 128), a bf16 case with Sq > Sk (rows
+     that attend nothing) and a bf16 GQA case at head_dim 96, each on
+     the route ``tc_route`` gives it (the bf16 cases at head_dim 64 and
+     128 the tensor-core kernels, the others the CUDA-core kernels; each
+     row names its route): fp32 within 2e-5 (o, lse) and 1e-4 (grads);
+     bf16 on the CUDA cores within one bf16 rounding of the largest
+     reference value + 1e-4; the tensor-core route element by element
+     within ``tc_tolerances`` (P and dS rounded to bf16 before their
+     products, carried through each product, plus one bf16 rounding of
+     the element and 1e-4), each row with its largest ratio of error to
+     limit; lse within 2e-5; timed behind a ~1 ms device spin, beside
+     SDPA forward, forward + backward and (their difference) backward;
    * ``fused_update`` (AdamW, lr 1e-4, decay 0.01) on GPT-124M's O2
      buckets (124,437,504 bf16 params with fp32 masters; 38,912 fp32
      LayerNorm params, padded), the bf16 bucket with a clip scale and
@@ -134,7 +144,8 @@ card.
    1e-4, AMP O2 bf16 with fp32 master weights) through the Paddle entry
    points: 2 warm-up steps, 10 timed steps (step ms, tokens/s, MFU
    against 989 TFLOP/s bf16), every step launching the flash forward
-   and backward once per layer and the fused update once per bucket;
+   and backward once per layer, all of them on the tensor-core route,
+   and the fused update once per bucket;
    every loss finite, the first within 0.5 of ln(vocab), every master
    and bf16 parameter finite after the last step; one more step under
    ``torch.profiler``. Then from the same weights and batches with
@@ -143,7 +154,10 @@ card.
    off under the norm backend (``PDTPU_NORM_BACKEND=pallas`` for the
    phase, 5 timed steps: the LayerNorm kernels 25 times each a step);
    each first loss within 1e-2 (FIRST_LOSS_GAP) of glue off's; step ms,
-   MFU, busy share and device launches a step side by side.
+   MFU, busy share and device launches a step side by side. Last, from
+   the same weights and batches with ``use_flash_attention=False``
+   (the unfused ``_sdpa_plain``: no flash launch), 1 + 2 steps: its
+   first loss within FIRST_LOSS_GAP of the flash run's.
 5. Train parity: one fp32 AdamW step (GPT-124M widths, 2 layers, batch
    2 x 256, TF32 off) on the card, through the kernels, against the same
    step of a CPU copy running the plain versions: loss, every grad and
@@ -155,7 +169,8 @@ card.
    fp32 masters, weights drawn from the seed in the JAX package's layout
    and init; run with ``train_glue_fusion`` off, then on: 2 warm-up and
    5 timed steps each (step ms, tokens/s, MFU), every step launching the
-   flash forward and backward once per layer, rope 4 times per layer,
+   flash forward and backward once per layer (all on the tensor-core
+   route), rope 4 times per layer,
    the fused residual + RMSNorm forward and backward 2 L times each with
    glue on (none with it off) and the fused update once per bucket;
    then glue off under the norm backend (the RMSNorm kernels 9 times
@@ -241,6 +256,7 @@ def build():
     libs = _build.build_all()
     paged_attention._kernel()           # load + bind
     flash_attention._kernels()
+    flash_attention._tc_kernels()
     fused_optimizer._kernel()
     fused_decode_qkv._kernel()
     fused_decode_mlp._kernels()
@@ -253,8 +269,25 @@ def build():
     return secs
 
 
+class _TcRoute:
+    """A flash wrapper's tensor-core route count, read and reset like a
+    wrapper's ``launches`` (``tc_launches`` beside ``launches``)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.tc_launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.tc_launches = n
+
+
 def counters():
-    """Every kernel wrapper's launch counter, by kernel name."""
+    """Every kernel wrapper's launch counter, by kernel name, and the
+    flash wrappers' tensor-core route counts (``*_tc``)."""
     from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
                                            fused_decode_qkv, fused_optimizer,
                                            fused_residual_norm, norms,
@@ -264,6 +297,10 @@ def counters():
     return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
             "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
+            "flash_attention_fwd_tc":
+                _TcRoute(flash_attention.flash_attention_fwd),
+            "flash_attention_bwd_tc":
+                _TcRoute(flash_attention.flash_attention_bwd),
             "fused_update": fused_optimizer.fused_update,
             "fused_decode_qkv": fused_decode_qkv.fused_decode_qkv,
             "fused_decode_mlp": fused_decode_mlp.fused_decode_mlp,
@@ -517,6 +554,12 @@ def flash_cases(seed, power, flush):
          torch.bfloat16),
         # the LLaMA train phase's shape (q and k from rope, contiguous)
         ("llama7b_train", 2, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
+        # ragged tiles; Sq > Sk causal: q rows 0-255 attend nothing
+        ("ragged_1000_d128", 2, 1000, 1000, 32, 32, 128, True,
+         torch.bfloat16),
+        ("sq768_gt_sk512_gqa", 2, 768, 512, 12, 4, 64, True, torch.bfloat16),
+        # a bf16 head_dim the tensor cores refuse: the CUDA-core kernels
+        ("bf16_d96_gqa", 2, 512, 512, 16, 4, 96, True, torch.bfloat16),
     ]
     fwd_rows, bwd_rows = [], []
     for name, b, sq, sk, hq, hk, d, causal, dt in cases:
@@ -528,37 +571,60 @@ def flash_cases(seed, power, flush):
             k = torch.randn(b, sk, hk, d, generator=gen, device=dev).to(dt)
             v = torch.randn(b, sk, hk, d, generator=gen, device=dev).to(dt)
         do = torch.randn(b, sq, hq, d, generator=gen, device=dev).to(dt)
+        tc = fa.tc_route(q, k, v, do)
+        route = "tensor cores" if tc else "CUDA cores"
+        n_tc = (fa.flash_attention_fwd.tc_launches,
+                fa.flash_attention_bwd.tc_launches)
         o, lse = fa.flash_attention_fwd(q, k, v, causal)
         grads = fa.flash_attention_bwd(q, k, v, do, o, lse, causal)
+        if (fa.flash_attention_fwd.tc_launches - n_tc[0],
+                fa.flash_attention_bwd.tc_launches - n_tc[1]) != (tc, tc):
+            raise AssertionError(f"flash {name}: not on the {route} route")
         f32 = [x.float() for x in (q, k, v, do)]
         ro, rlse = fa.flash_attention_fwd_plain(*f32[:3], causal)
-        rgrads = fa.flash_attention_bwd_plain(*f32, o.float(), lse, causal)
         torch.cuda.synchronize()
-        errs = {"o": (float((o.float() - ro).abs().max()), 2e-5),
-                "lse": (float((lse - rlse).abs().max()), 2e-5)}
-        for n, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
-            errs[n] = (float((g.float() - r).abs().max()), 1e-4)
-        if dt == torch.bfloat16:
-            errs["o"] = _bf16_err(o, ro)
-            for n, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
-                errs[n] = _bf16_err(g, r)
-        for n, (err, lim) in errs.items():
-            if not err <= lim:
+        # name: (max abs error, limit, largest error / limit); the limit
+        # is one number, or "per element" (tc_tolerances)
+        errs = {"lse": (float((lse - rlse).abs().max()), 2e-5)}
+        if tc:
+            lims, (ro, *rgrads) = fa.tc_tolerances(q, k, v, do, o, lse,
+                                                   causal)
+            for n, g, r in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                               (ro, *rgrads)):
+                e = (g.float() - r).abs()
+                errs[n] = (float(e.max()), "per element",
+                           float((e / lims[n]).max()))
+            del lims, e
+        else:
+            rgrads = fa.flash_attention_bwd_plain(*f32, o.float(), lse,
+                                                  causal)
+            for n, g, r in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                               (ro, *rgrads)):
+                errs[n] = (_bf16_err(g, r) if dt == torch.bfloat16 else
+                           (float((g.float() - r).abs().max()),
+                            2e-5 if n == "o" else 1e-4))
+        errs = {n: e if len(e) == 3 else (*e, e[0] / e[1])
+                for n, e in errs.items()}
+        for n, (err, lim, ratio) in errs.items():
+            if not ratio <= 1:
                 raise AssertionError(f"flash {name} {n}: kernel vs plain "
-                                     f"max abs error {err:.3g} > {lim:.3g}")
+                                     f"max abs error {err:.3g}, {ratio:.3g}"
+                                     f" x its limit ({lim})")
         del ro, rlse, rgrads, f32
         plain = [x.to(dt) for x in (q, k, v, do)]
         ms_f = _time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal),
-                        20, flush)
+                        20, flush, spin=True)
         ms_b = _time_ms(lambda: fa.flash_attention_bwd(q, k, v, do, o, lse,
-                                                       causal), 10, flush)
+                                                       causal), 10, flush,
+                        spin=True)
         plain_f = _time_ms(lambda: fa.flash_attention_fwd_plain(
             *plain[:3], causal), 3, flush)
         plain_b = _time_ms(lambda: fa.flash_attention_bwd_plain(
             *plain, o, lse, causal), 3, flush)
         # the library yardstick: torch SDPA in [B, H, S, D], forward and
         # forward + backward (causal alignment differs when Sq != Sk, so
-        # only square cases get one); GQA by enable_gqa
+        # only square cases get one); GQA by enable_gqa. Its backward
+        # alone is taken as fwd+bwd less fwd, from the same run.
         lib_f = lib_fb = None
         if sq == sk:
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -574,28 +640,41 @@ def flash_cases(seed, power, flush):
                 sdpa().backward(dot)
 
             with torch.no_grad():
-                lib_f = _time_ms(sdpa, 20, flush)
-            lib_fb = _time_ms(sdpa_fb, 10, flush)
+                lib_f = _time_ms(sdpa, 20, flush, spin=True)
+            lib_fb = _time_ms(sdpa_fb, 10, flush, spin=True)
             del qt, kt, vt, dot
         esize = 2 if dt == torch.bfloat16 else 4
         shape = dict(q=[b, sq, hq, d], kv=[b, sk, hk, d], causal=causal,
                      dtype=str(dt).replace("torch.", ""))
+        lib_b = None if lib_fb is None else lib_fb - lib_f
         for rows, ms, pl, lib, bwd, which in (
                 (fwd_rows, ms_f, plain_f, lib_f, False, ("o", "lse")),
                 (bwd_rows, ms_b, plain_b, lib_fb, True, ("dq", "dk", "dv"))):
             bound_ms, bound_by, nbytes, flops = _flash_bound(
                 b, hq, hk, sq, sk, d, causal, esize, bwd)
-            row = dict(case=name, max_abs_err=max(errs[n][0] for n in which),
-                       tolerance={n: errs[n][1] for n in which}, ms=ms,
+            row = dict(case=name, route=route,
+                       source="flash_attention_sm90.cu" if tc else
+                       "flash_attention.cu",
+                       max_abs_err=max(errs[n][0] for n in which),
+                       errors={n: errs[n][0] for n in which},
+                       tolerance={n: errs[n][1] for n in which},
+                       err_to_limit={n: errs[n][2] for n in which}, ms=ms,
                        plain_ms=pl, bound_ms=bound_ms, bound_by=bound_by,
                        bytes=nbytes, flops=flops, library_ms=lib,
                        library=("torch sdpa fwd+bwd" if bwd else
                                 "torch sdpa fwd") if lib else None, **shape)
+            if bwd:
+                row["library_bwd_ms"] = lib_b
             log(f"kernel flash_attention_{'bwd' if bwd else 'fwd'} {name} "
-                f"q {shape['q']} kv {shape['kv']} {shape['dtype']}: max_abs_"
-                f"err {row['max_abs_err']:.3g}, {ms:.4f} ms (plain "
-                f"{pl:.3f} ms, library {lib if lib is None else round(lib, 4)}"
-                f" ms, bound {bound_ms:.4f} ms by {bound_by}, "
+                f"q {shape['q']} kv {shape['kv']} {shape['dtype']} on the "
+                f"{route} route: max abs errors "
+                + ", ".join(f"{n} {errs[n][0]:.3g} ({errs[n][2]:.3f} of "
+                            f"its limit)" for n in which)
+                + f"; {ms:.4f} ms (plain {pl:.3f} ms, library "
+                f"{lib if lib is None else round(lib, 4)} ms"
+                + (f", library bwd alone {lib_b:.4f} ms, "
+                   f"{ms / lib_b:.2f}x its time" if bwd and lib_b else "")
+                + f", bound {bound_ms:.4f} ms by {bound_by}, "
                 f"{bound_ms / ms:.1%} of bound) on {power}")
             rows.append(row)
         del q, k, v, do, o, lse, grads, plain
@@ -1734,8 +1813,14 @@ def _breakdown(prof, wall_ms, prof_wall_ms, what):
     for key, ms, n in kernels[:12]:
         log(f"profile:   {ms:9.3f} ms {ms / busy if busy else 0:6.1%} "
             f"x{n:<6d} {key[:100]}")
+    # the flash kernels of both routes (not their wrappers' own ops)
+    flash = sum(ms for key, ms, _ in kernels if "flash_" in key)
+    if flash:
+        log(f"profile: flash kernels {flash:.3f} ms = {flash / busy:.1%} of "
+            f"the device time")
     return dict(busy_ms=busy, wall_ms=wall_ms, busy_share=busy / wall_ms,
-                profiled_wall_ms=prof_wall_ms,
+                profiled_wall_ms=prof_wall_ms, flash_ms=flash,
+                flash_share=flash / busy if busy else 0.0,
                 launches=sum(n for *_, n in kernels),
                 top=[dict(name=k[:200], ms=ms, count=n)
                      for k, ms, n in kernels[:12]])
@@ -1906,43 +1991,53 @@ def gpt_train_config():
 
 def train_phase(seed, cfg=None, device="cuda", batch=8, seq=1024, warmup=2,
                 steps=10, power="", glue=False, norm_backend=False,
-                weights=None):
+                weights=None, flash=True):
     """Train GPT-124M in bench.py's configuration through the Paddle
     entry points (:func:`train_run`): the flash forward and backward once
-    per layer a step, the first loss within 0.5 of ln(vocab). With
+    per layer a step, all on the tensor-core route (bf16 under O2), the
+    first loss within 0.5 of ln(vocab); with ``flash=False``
+    (``use_flash_attention=False``) the unfused plain attention and no
+    flash launch. With
     ``glue`` (``train_glue_fusion``) also the fused residual + LayerNorm
     forward and backward 2 L times each (L - 1 ln1, L ln2 and ln_f);
     with ``norm_backend`` (``PDTPU_NORM_BACKEND=pallas``) the LayerNorm
     kernels 2 L + 1 times each. ``weights`` reuses one draw (JAX layout);
     ``cfg``/``device``/``batch``/``seq`` shrink it to rehearse on the CPU
     (no launch counts, no profile). The settings are restored after."""
+    import dataclasses
+
     from paddle_tpu_torch.models import GPTForCausalLM, load_gpt_from_jax
     cfg = gpt_train_config() if cfg is None else cfg
+    cfg = dataclasses.replace(cfg, use_flash_attention=flash)
     model = GPTForCausalLM(cfg, device=device)
     load_gpt_from_jax(model, jax_layout_gpt_weights(cfg, seed)
                       if weights is None else weights)
     L = cfg.num_layers
-    want = dict(flash_attention_fwd=L, flash_attention_bwd=L)
+    want = dict(flash_attention_fwd=L, flash_attention_bwd=L,
+                flash_attention_fwd_tc=L, flash_attention_bwd_tc=L) \
+        if flash else {}
     if glue:
         want.update(fused_residual_layer_norm_fwd=2 * L,
                     fused_residual_layer_norm_bwd=2 * L)
     if norm_backend:
         want.update(layer_norm_fwd=2 * L + 1, layer_norm_bwd=2 * L + 1)
     tag = "train: GPT" + (", glue on" if glue else "") + \
-        (", norm backend" if norm_backend else "")
+        (", norm backend" if norm_backend else "") + \
+        ("" if flash else ", use_flash_attention=False")
     with phase_settings(glue, norm_backend):
         out = train_run(model, cfg, seed, device, batch, seq, warmup, steps,
                         want, float(np.log(cfg.vocab_size)), tag, power)
-    return dict(out, glue=glue, norm_backend=norm_backend)
+    return dict(out, glue=glue, norm_backend=norm_backend, flash=flash)
 
 
 # the first losses of two runs from one draw and one first batch, glue or
-# the norm backend on and off, agree within this (the fused kernels round
-# in another order; the LLaMA runs differ by ~3e-4)
+# the norm backend on and off, or flash attention on and off, agree
+# within this (the fused kernels round in another order; the LLaMA runs
+# differ by ~3e-4)
 FIRST_LOSS_GAP = 1e-2
 
 
-def _compare_runs(tag, base, other, what):
+def _compare_runs(tag, base, other, what, base_name="off"):
     gap = abs(other["losses"][0] - base["losses"][0])
     if not gap <= FIRST_LOSS_GAP:
         raise AssertionError(f"{tag}: first loss {what} "
@@ -1951,7 +2046,8 @@ def _compare_runs(tag, base, other, what):
                              f"{FIRST_LOSS_GAP})")
     gaps = [abs(a - b) for a, b in zip(other["losses"], base["losses"])]
     prof = [r.get("profile", {}) for r in (other, base)]
-    log(f"{tag}: {what} vs off: first loss {other['losses'][0]:.5f} vs "
+    log(f"{tag}: {what} vs {base_name}: first loss "
+        f"{other['losses'][0]:.5f} vs "
         f"{base['losses'][0]:.5f} (gap {gap:.3g} <= {FIRST_LOSS_GAP}; "
         f"largest gap over the common steps {max(gaps):.3g}); step "
         f"{other['step_ms']:.2f} vs {base['step_ms']:.2f} ms; MFU "
@@ -1966,17 +2062,26 @@ def gpt_train_phases(seed, power):
     """The GPT train phase with glue off, glue on and, with glue off, the
     norm backend (5 timed steps), all from one draw of the weights and
     the same batches; each first loss within FIRST_LOSS_GAP of glue
-    off's."""
+    off's. Then glue off without flash attention (1 + 2 steps): its
+    first loss within FIRST_LOSS_GAP of the flash run's, kept in glue
+    off's result as ``no_flash``."""
     cfg = gpt_train_config()
     weights = jax_layout_gpt_weights(cfg, seed)
     off = train_phase(seed, cfg, power=power, weights=weights)
     on = train_phase(seed, cfg, power=power, weights=weights, glue=True)
     backend = train_phase(seed, cfg, power=power, weights=weights,
                           norm_backend=True, steps=5)
+    plain = train_phase(seed, cfg, power=power, weights=weights,
+                        flash=False, warmup=1, steps=2)
     del weights
     on["vs_glue_off"] = _compare_runs("train: GPT", off, on, "glue on")
     backend["vs_glue_off"] = _compare_runs("train: GPT", off, backend,
                                            "norm backend")
+    off["no_flash"] = dict(
+        _compare_runs("train: GPT", off, plain, "use_flash_attention=False",
+                      "flash attention"),
+        losses=plain["losses"], step_ms=plain["step_ms"],
+        busy_share=plain.get("profile", {}).get("busy_share"))
     return off, on, backend
 
 
@@ -2607,7 +2712,9 @@ def llama_train_phase(seed, glue, cfg=None, device="cuda", batch=2,
     model = LlamaForCausalLM(cfg, device=device)
     model.load_state_dict(state, strict=True)
     L = cfg.num_layers
-    want = dict(flash_attention_fwd=L, flash_attention_bwd=L, rope=4 * L)
+    want = dict(flash_attention_fwd=L, flash_attention_bwd=L,
+                flash_attention_fwd_tc=L, flash_attention_bwd_tc=L,
+                rope=4 * L)
     if glue:
         want.update(fused_residual_rms_norm_fwd=2 * L,
                     fused_residual_rms_norm_bwd=2 * L)
@@ -3307,10 +3414,10 @@ def main(argv=None):
         ("ragged_paged_attention", "paged_attention.cu",
          "paddle_tpu/ops/pallas/paged_attention.py:155", rows,
          serve["launches"]),
-        ("flash_attention_fwd", "flash_attention.cu",
+        ("flash_attention_fwd", "flash_attention_sm90.cu",
          "paddle_tpu/ops/pallas/flash_attention.py:80", fwd_rows,
          train["counts"]["flash_attention_fwd"]),
-        ("flash_attention_bwd", "flash_attention.cu",
+        ("flash_attention_bwd", "flash_attention_sm90.cu",
          "paddle_tpu/ops/pallas/flash_attention.py:206", bwd_rows,
          train["counts"]["flash_attention_bwd"]),
         ("fused_update", "fused_optimizer.cu",
@@ -3408,6 +3515,14 @@ def main(argv=None):
             out[-1]["launches_by_path"] = attn_paths
         if kname in fused_paths:
             out[-1]["launches_by_path"] = fused_paths[kname]
+        if kname.startswith("flash_attention"):
+            # the main path's bf16 launches take the tensor-core kernels;
+            # fp32 and other head dims the CUDA-core ones
+            out[-1]["sources"] = {"tensor cores": src + source,
+                                  "CUDA cores": src + "flash_attention.cu"}
+            out[-1]["tc_launches"] = {
+                "gpt_train": train["counts"][kname + "_tc"],
+                "llama_train": llama_off["counts"][kname + "_tc"]}
     print(json.dumps({"kernels": out, "serve": serve,
                       "serve_megakernel": serve_mk, "serve_turns": turns,
                       "serve_megakernel_int8_kv": serve_mk8,

@@ -11,14 +11,18 @@
 // cast to the input type. Rows that attend nothing give o = 0,
 // lse = -1e30 and zero gradients.
 //
-// What bounds it on an H100: arithmetic. At GPT-124M training shapes
-// (q, k, v [8, 1024, 12, 64] bf16, causal) the forward moves ~50 MB and
-// does ~1.3e10 flops; the tensor cores could do that in ~13 us. This is
-// the port's first, simple design: the products run as fp32 FMAs on the
-// CUDA cores (fp32 and bf16 inputs alike are widened to fp32 in shared
-// memory), so it is bound by the fp32 FMA rate and shared-memory reads,
-// far above the bf16 tensor-core bound. mma/wgmma tiles and TMA are later
-// work.
+// Which inputs it serves: flash_attention.py's route rule (tc_route)
+// sends bf16 inputs with head_dim 64 or 128 and 16-byte aligned base
+// pointers and strides to the tensor-core kernels of
+// flash_attention_sm90.cu (the training paths' calls); these kernels take
+// every other call: fp32 inputs (the fp32 parity steps, held to 1e-4
+// against the CPU), other head dims up to 128, and unaligned views.
+//
+// What bounds it on an H100: arithmetic. This is the port's first,
+// simple design: the products run as fp32 FMAs on the CUDA cores (fp32
+// and bf16 inputs alike are widened to fp32 in shared memory), so it is
+// bound by the fp32 FMA rate and shared-memory reads, far above the
+// tensor-core bound.
 //
 // Layout: q [B, Sq, Hq, D], k and v [B, Sk, Hk, D] with the last dim
 // contiguous and any (batch, seq, head) strides, so the unbound views of

@@ -11,11 +11,19 @@ recomputed from it in the backward, ``delta = rowsum(dO * O)`` in fp32,
 fp32 gradients cast to the input dtypes, GQA dk/dv summed over the
 group. Rows that attend nothing give ``o = 0`` and zero gradients.
 
-The kernels (``csrc/flash_attention.cu``) are fp32 FMAs on the CUDA
-cores, bound far above the tensor-core bound; their design notes are in
-the source. CPU tensors take :func:`flash_attention_fwd_plain` and
-:func:`flash_attention_bwd_plain`; CUDA tensors launch the kernels or
-raise.
+Two routes on a card, decided before launch by :func:`tc_route`, a
+plain rule on dtype, head_dim, alignment and strides: bf16 inputs with
+head_dim 64 or 128 whose base pointers and (batch, seq, head) strides
+are positive multiples of 16 bytes go to the tensor-core kernels
+(``csrc/flash_attention_sm90.cu``: ``wgmma`` fed by TMA, P and dS
+rounded to bf16 before their products, dq summed with fp32 atomics);
+every other call (fp32, other head dims, unaligned views) to the
+CUDA-core kernels (``csrc/flash_attention.cu``, fp32 FMAs). Each route
+counts its launches (``tc_launches`` beside ``launches``, which counts
+every call); a fault in either raises, and neither falls back to the
+other or to the plain version. Design notes are in the sources. CPU
+tensors take :func:`flash_attention_fwd_plain` and
+:func:`flash_attention_bwd_plain`.
 
 The gradient is registered on a ``torch.library`` custom op,
 ``paddle_tpu_torch::flash_attention_fwd`` returning ``(o, lse)``, whose
@@ -31,10 +39,11 @@ import torch
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "NEG_INF", "MAX_HEAD_DIM"]
+           "tc_route", "tc_tolerances", "NEG_INF", "MAX_HEAD_DIM"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
+TC_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARLEN = ("segment_ids (packed varlen sequences) arrive with the port's "
            "varlen slice (flash_attn_unpadded)")
@@ -63,6 +72,32 @@ def _kernels():
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
         _fns = (fwd, bwd, lib.pdt_cuda_error_string)
     return _fns
+
+
+_tc_fns = None
+
+
+def _tc_kernels():
+    global _tc_fns
+    if _tc_fns is None:
+        from ._build import load
+        lib = load("flash_attention_sm90")
+        fwd = lib.pdt_flash_attention_fwd_sm90
+        fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                        + [ctypes.c_longlong] * 9
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fwd.restype = ctypes.c_int
+        bwd = lib.pdt_flash_attention_bwd_sm90
+        bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                        + [ctypes.c_longlong] * 12
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        bwd.restype = ctypes.c_int
+        lib.pdt_flash_sm90_error_string.argtypes = [ctypes.c_int]
+        lib.pdt_flash_sm90_error_string.restype = ctypes.c_char_p
+        lib.pdt_flash_sm90_bwd_rows.restype = ctypes.c_int
+        _tc_fns = (fwd, bwd, lib.pdt_flash_sm90_error_string,
+                   lib.pdt_flash_sm90_bwd_rows())
+    return _tc_fns
 
 
 def _check(q, k, v):
@@ -123,6 +158,23 @@ def _vec_ok(tensors):
     per = 16 // tensors[0].element_size()
     return all(t.shape[-1] % per == 0 and t.data_ptr() % 16 == 0
                and all(st % per == 0 for st in _strides(t))
+               for t in tensors)
+
+
+def tc_route(*tensors):
+    """Whether a call on these ``[B, S, H, D]`` tensors (q, k, v and, for
+    the backward, do) goes to the tensor-core kernels: all bf16, head_dim
+    64 or 128, every base pointer 16-byte aligned and every (batch, seq,
+    head) stride a positive multiple of 16 bytes, which is what a TMA
+    tensor map takes. Decided before launch; a call it refuses takes the
+    CUDA-core kernels."""
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        return False
+    if tensors[0].shape[-1] not in TC_HEAD_DIMS:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(st > 0 and st * t.element_size() % 16 == 0
+                       for st in _strides(t))
                for t in tensors)
 
 
@@ -191,6 +243,55 @@ def flash_attention_bwd_plain(q, k, v, do, o, lse, causal=False,
             dv.transpose(1, 2).to(v.dtype).contiguous())
 
 
+def tc_tolerances(q, k, v, do, o, lse, causal=False, scale=None):
+    """Element-by-element error limits of the tensor-core route against
+    the plain fp32 version, from that version's own p and ds on the same
+    inputs (any device). The route rounds P (forward and backward) and dS
+    to bf16 (at most 2**-8 relative) before their products; Q, K, V and
+    dO are bf16, so their products are exact in fp32. Each limit is that
+    rounding carried through its product for this element, plus one bf16
+    rounding of the element's reference value and 1e-4 for the fp32
+    summation order:
+
+    * o: 2**-8 (sum_j p_ij |v_j|) / l_i (p normalised) + 2**-8 |o_i|;
+    * dv: 2**-8 |P|^T |dO|; dk: 2**-8 |dS|^T |q scale|;
+      dq: 2**-8 scale |dS| |K|; dk and dv summed over a GQA group.
+
+    Returns ``({"o", "dq", "dk", "dv": limit}, (o, dq, dk, dv))``: fp32
+    limits and plain outputs, each in its output's ``[B, S, H, D]``
+    layout. A result passes where ``|got - ref| <= limit`` everywhere."""
+    scale = _scale(q, scale)
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = hq // hk
+    f32 = [x.float() for x in (q, k, v, do)]
+    ro, rlse = flash_attention_fwd_plain(*f32[:3], causal, scale)
+    rdq, rdk, rdv = flash_attention_bwd_plain(*f32, o.float(), lse, causal,
+                                              scale)
+    qt = _heads_first(f32[0]) * scale
+    kt, vt = _heads_first(f32[1], rep), _heads_first(f32[2], rep)
+    dot = _heads_first(f32[3])
+    delta = (f32[3] * o.float()).sum(dim=-1).transpose(1, 2)
+    mask = _mask(sq, sk, causal, q.device)
+    s = qt @ kt.transpose(-1, -2)
+    u = 2.0 ** -8
+    # the forward's p from its own lse, the backward's from the lse given
+    p = torch.where(mask, torch.exp(s - rlse[..., None]), 0.0)
+    lim_o = p @ vt.abs()
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    ds = (p * ((dot @ vt.transpose(-1, -2)) - delta[..., None])).abs()
+
+    def group(x):    # [B, Hq, Sk, D] -> summed over each GQA group
+        return x.reshape(b, hk, rep, sk, d).sum(dim=2) if rep > 1 else x
+
+    lims = {"o": lim_o, "dq": (ds @ kt.abs()) * scale,
+            "dk": group(ds.transpose(-1, -2) @ qt.abs()),
+            "dv": group(p.transpose(-1, -2) @ dot.abs())}
+    refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
+    return ({n: u * lims[n].transpose(1, 2) + u * refs[n].abs() + 1e-4
+             for n in lims}, (ro, rdq, rdk, rdv))
+
+
 def _raise_rc(what, rc, err_str):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "
@@ -200,8 +301,10 @@ def _raise_rc(what, rc, err_str):
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """The forward kernel's wrapper: ``(o, lse)`` as
     :func:`flash_attention_fwd_plain` gives them. CPU tensors run the
-    plain version; CUDA tensors launch the kernel (counted in
-    ``flash_attention_fwd.launches``) or raise."""
+    plain version; CUDA tensors launch the kernel of their route
+    (:func:`tc_route`), counted in ``flash_attention_fwd.launches`` and,
+    on the tensor-core route, ``flash_attention_fwd.tc_launches``, or
+    raise."""
     dev = _check(q, k, v)
     scale = _scale(q, scale)
     if dev.type == "cpu":
@@ -214,25 +317,38 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
                          q.dtype)
     o = torch.empty(b, sq, hq, d, dtype=q.dtype, device=dev)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=dev)
-    fwd, _, err_str = _kernels()
+    tc = tc_route(q, k, v)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, hq, hk, sq,
-                 sk, d, *_strides(q), *_strides(k), *_strides(v), scale,
-                 int(bool(causal)), int(_vec_ok((q, k, v))), stream)
+        if tc:
+            fwd, _, err_str, _ = _tc_kernels()
+            rc = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     lse.data_ptr(), b, hq, hk, sq, sk, d, *_strides(q),
+                     *_strides(k), *_strides(v), scale, int(bool(causal)),
+                     stream)
+        else:
+            fwd, _, err_str = _kernels()
+            rc = fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, hq, hk,
+                     sq, sk, d, *_strides(q), *_strides(k), *_strides(v),
+                     scale, int(bool(causal)), int(_vec_ok((q, k, v))),
+                     stream)
     _raise_rc("flash_attention forward", rc, err_str)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tc_launches += tc
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 def flash_attention_bwd(q, k, v, do, o, lse, causal=False, scale=None):
     """The backward kernels' wrapper: ``(dq, dk, dv)`` as
     :func:`flash_attention_bwd_plain` gives them. On CUDA one call
-    launches the dk/dv kernel and then the dq kernel, and counts one in
+    launches the tensor-core kernel (:func:`tc_route`; one more count in
+    ``flash_attention_bwd.tc_launches``) or the CUDA-core dk/dv kernel
+    and then its dq kernel, and counts one in
     ``flash_attention_bwd.launches``; CPU tensors run the plain
     version."""
     dev = _check(q, k, v)
@@ -255,27 +371,53 @@ def flash_attention_bwd(q, k, v, do, o, lse, causal=False, scale=None):
     _check_kernel_inputs("flash_attention backward",
                          (("q", q), ("k", k), ("v", v), ("do", do)),
                          q.dtype)
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2) \
-        .contiguous()
-    lse = lse.contiguous()
-    dq = torch.empty(b, sq, hq, d, dtype=q.dtype, device=dev)
     dk = torch.empty(b, sk, hk, d, dtype=k.dtype, device=dev)
     dv = torch.empty(b, sk, hk, d, dtype=v.dtype, device=dev)
-    _, bwd, err_str = _kernels()
+    dq = torch.empty(b, sq, hq, d, dtype=q.dtype, device=dev)
+    tc = tc_route(q, k, v, do)
+    if tc:
+        # lse and delta [B, Hq, Sq], zero-padded to whole q tiles of the
+        # kernel's height (it takes them by bulk copy); dq summed in fp32
+        # by the kernel, scaled and cast below
+        _, bwd, err_str, rows = _tc_kernels()
+        stats = torch.zeros(2, b, hq, -(-sq // rows) * rows,
+                            dtype=torch.float32, device=dev)
+        lse_p, delta = stats[0], stats[1]
+        lse_p[..., :sq] = lse
+        torch.sum(do.float() * o.float(), dim=-1,
+                  out=delta[..., :sq].transpose(1, 2))
+        dq_acc = torch.zeros(b, sq, hq, d, dtype=torch.float32, device=dev)
+    else:
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2) \
+            .contiguous()
+        lse = lse.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = bwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, hq, hk, sq, sk, d, *_strides(q),
-                 *_strides(k), *_strides(v), *_strides(do), scale,
-                 int(bool(causal)), int(_vec_ok((q, k, v, do))), stream)
+        if tc:
+            rc = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse_p.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), b, hq, hk, sq, sk, d,
+                     lse_p.shape[-1], *_strides(q), *_strides(k),
+                     *_strides(v), *_strides(do), scale, int(bool(causal)),
+                     stream)
+        else:
+            _, bwd, err_str = _kernels()
+            rc = bwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), b, hq, hk, sq, sk, d, *_strides(q),
+                     *_strides(k), *_strides(v), *_strides(do), scale,
+                     int(bool(causal)), int(_vec_ok((q, k, v, do))), stream)
     _raise_rc("flash_attention backward", rc, err_str)
+    if tc:
+        torch.mul(dq_acc, scale, out=dq)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tc_launches += tc
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
 
 
 # ------------------------------------------------ autograd custom op --
@@ -321,7 +463,9 @@ def flash_attention(q, k, v, causal=False, scale=None, interpret=None,
     ``[batch, seq_q, num_heads, head_dim]`` in q's dtype.
 
     ``blocks`` and ``bwd_blocks`` are accepted for API parity with the
-    TPU entry and not read: the kernel picks its own 64 x 64 tiles.
+    TPU entry and not read: each route picks its own tiles (the
+    tensor-core kernels 128 q rows x 128 keys forward, 128 keys x 64 q
+    rows backward; the CUDA-core kernels 64 x 64).
     ``interpret`` (a Pallas mode) is refused; ``segment_ids`` waits for
     the varlen slice."""
     if interpret:

@@ -13,10 +13,18 @@ reference value) plus 1e-4, since both sides round an fp32 result that
 may differ in its last bits.
 
 On a card (``-m gpu``) the CUDA kernels are held against the plain
-versions, with TF32 off: fp32 o and lse within 2e-5, grads within 1e-4;
-bf16 as above, against the plain version run in fp32 on the same bf16
-inputs. JAX is imported inside a fixture, so this file also collects on
-a machine without JAX.
+versions, with TF32 off, each case on the route ``tc_route`` gives it:
+the CUDA-core kernels (fp32; bf16 head_dim 20, 32 and 96) fp32 o and
+lse within 2e-5, grads within 1e-4, bf16 as above, against the plain
+version run in fp32 on the same bf16 inputs; the tensor-core kernels
+(bf16, head_dim 64 or 128) round P and dS to bf16 before their
+products, so o, dq, dk and dv are held element by element to
+``tc_tolerances`` (that rounding carried through each product, from the
+plain version's own p and ds, plus one bf16 rounding of the element and
+1e-4), lse within 2e-5 as before. The route rule, and that those limits
+admit the rounding and refuse a kernel's likely faults, are tested on
+the CPU. JAX is imported inside a fixture, so this
+file also collects on a machine without JAX.
 """
 import numpy as np
 import pytest
@@ -206,9 +214,123 @@ def test_wrapper_validation():
     assert o.shape == x.shape
 
 
+def _route_case(kind):
+    """CPU tensors q, k, v, do (paddle layout) for one route-rule case."""
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def t(*shape, dtype=bf):
+        return torch.zeros(*shape, dtype=dtype)
+    if kind == "gpt_packed_qkv_views":
+        q, k, v = t(2, 16, 3, 4, 64).unbind(2)
+        return q, k, v, t(2, 16, 4, 64)
+    if kind == "misaligned_base":      # 8 bytes past a 16-byte boundary
+        x = t(2 * 16 * 4 * 64 + 4)[4:].view(2, 16, 4, 64)
+        return x, t(2, 16, 4, 64), t(2, 16, 4, 64), t(2, 16, 4, 64)
+    if kind == "head_stride_136_bytes":    # heads 68 apart, 64 read
+        x = t(2, 16, 4, 68)[..., :64]
+        return x, x, x, t(2, 16, 4, 64)
+    if kind == "zero_batch_stride":
+        x = t(1, 16, 4, 64).expand(2, 16, 4, 64)
+        return x, x, x, t(2, 16, 4, 64)
+    if kind == "fp32_do":
+        x = t(2, 16, 4, 64)
+        return x, x, x, t(2, 16, 4, 64, dtype=f32)
+    dtype, d = {"bf16_d64": (bf, 64), "bf16_d128": (bf, 128),
+                "bf16_d96": (bf, 96), "bf16_d20": (bf, 20),
+                "fp32_d64": (f32, 64)}[kind]
+    x = t(2, 16, 4, d, dtype=dtype)
+    return x, t(2, 16, 2, d, dtype=dtype), t(2, 16, 2, d, dtype=dtype), x
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("bf16_d64", True), ("bf16_d128", True), ("gpt_packed_qkv_views", True),
+    ("bf16_d96", False), ("bf16_d20", False), ("fp32_d64", False),
+    ("misaligned_base", False), ("head_stride_136_bytes", False),
+    ("zero_batch_stride", False), ("fp32_do", False)])
+def test_tc_route_rule(kind, want):
+    """The pre-launch rule of the tensor-core route: bf16, head_dim 64 or
+    128, 16-byte aligned base pointers and positive (batch, seq, head)
+    strides that are multiples of 16 bytes (the forward asks it of q, k,
+    v; the backward of do as well)."""
+    q, k, v, do = _route_case(kind)
+    assert tfa.tc_route(q, k, v, do) is want
+    if kind != "fp32_do":
+        assert tfa.tc_route(q, k, v) is want
+
+
+def _tc_worst(got, ref, lim):
+    """The largest ratio of |got - ref| to its element's limit."""
+    return float(((got.float() - ref).abs() / lim).max())
+
+
+def _tc_emulation(q, k, v, do, o, lse, fault=None):
+    """``(o, dq, dk, dv)`` of causal square attention, ``[B, S, H, D]``
+    rounded to bf16 as the tensor-core kernels write them, formed as
+    those kernels form them: the forward over 128-key tiles with the
+    online-softmax rescale of O, P and dS rounded to bf16 before their
+    products, the backward's P and delta from the ``o`` and ``lse``
+    given. ``fault`` puts in one mistake such a kernel could make."""
+    b, s, hq, d = q.shape
+    rep, scale = hq // k.shape[2], d ** -0.5
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+    qt, dot = q.float().transpose(1, 2), do.float().transpose(1, 2)
+    kt, vt = (x.float().transpose(1, 2).repeat_interleave(rep, 1)
+              for x in (k, v))
+    mask = torch.ones(s, s, dtype=torch.bool).tril()
+    sc = (qt @ kt.transpose(-1, -2) * scale).masked_fill(~mask, -np.inf)
+    m = torch.full((b, hq, s, 1), -np.inf)
+    l, acc = torch.zeros(b, hq, s, 1), torch.zeros(b, hq, s, d)
+    for t in range(0, s, 128):
+        st = sc[..., t:t + 128]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        p = torch.exp(st - m_new)
+        alpha = torch.exp(m - m_new)
+        m, l = m_new, l * alpha + p.sum(-1, keepdim=True)
+        if fault != "no_alpha_rescale":
+            acc = acc * alpha
+        pv = bf(p) @ vt[..., t:t + 128, :]
+        acc = acc + (2 * pv if fault == "doubled_late_key_tile"
+                     and t + 128 >= s else pv)
+    o_tc = acc / l
+    p = torch.exp(sc - lse[..., None])
+    delta = (dot * o.float().transpose(1, 2)).sum(-1, keepdim=True)
+    ds = p * (dot @ vt.transpose(-1, -2) - delta)
+    p, ds = bf(p), bf(ds)
+    if fault == "dropped_late_q_tile":     # the last 64 q rows
+        p[..., s - 64:, :] = 0.0
+        ds[..., s - 64:, :] = 0.0
+    dv, dk = p.transpose(-1, -2) @ dot, ds.transpose(-1, -2) @ qt * scale
+    dq = ds @ kt * scale
+    if rep > 1:
+        dk, dv = (x.reshape(b, hq // rep, rep, s, d).sum(2) for x in (dk, dv))
+    return tuple(bf(x.transpose(1, 2)) for x in (o_tc, dq, dk, dv))
+
+
+@pytest.mark.parametrize("fault,caught", [
+    (None, set()), ("no_alpha_rescale", {"o"}),
+    ("doubled_late_key_tile", {"o"}),
+    ("dropped_late_q_tile", {"dq", "dk", "dv"})])
+def test_tc_tolerances_hold_rounding_and_catch_faults(fault, caught):
+    """``tc_tolerances`` (element by element) admits the bf16 rounding of
+    P and dS that the tensor-core route makes, and refuses a kernel that
+    misses the rescale of O, adds a late K tile twice or drops the last
+    q tile: causal, 384 rows, GQA 2 on 1, head_dim 64, on the CPU."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(5, 1, 384, 384, 2, 1, 64))
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, True)
+    lims, refs = tfa.tc_tolerances(q, k, v, do, o, lse, True)
+    got = _tc_emulation(q, k, v, do, o, lse, fault)
+    worst = {n: _tc_worst(g, r, lims[n])
+             for n, g, r in zip(("o", "dq", "dk", "dv"), got, refs)}
+    assert {n for n, w in worst.items() if w > 1} == caught, worst
+
+
 # ------------------------------------------------------------ card --
 GPU_CASES = {
-    # name: (b, sq, sk, hq, hk, d, causal, dtype)
+    # name: (b, sq, sk, hq, hk, d, causal, dtype); square cases with as
+    # many kv heads as q heads take the unbound views of a packed qkv
     "causal_f32_d64": (2, 100, 100, 4, 4, 64, True, torch.float32),
     "noncausal_f32_d64": (2, 100, 100, 4, 4, 64, False, torch.float32),
     "causal_bf16_d64": (2, 130, 130, 4, 4, 64, True, torch.bfloat16),
@@ -217,6 +339,26 @@ GPU_CASES = {
     "sq_gt_sk_f32_d40": (1, 130, 70, 2, 1, 40, True, torch.float32),
     # rows of 40 bytes: not whole 16-byte chunks, the scalar-load path
     "scalar_loads_bf16_d20": (2, 90, 90, 4, 2, 20, True, torch.bfloat16),
+    # bf16 head dims the tensor-core route refuses: the CUDA-core
+    # kernels' 16-byte vector loads
+    "vec_loads_bf16_d96": (2, 130, 130, 4, 2, 96, True, torch.bfloat16),
+    "vec_loads_bf16_d32": (2, 100, 100, 4, 4, 32, False, torch.bfloat16),
+    # the tensor-core route: ragged tiles, rows that attend nothing
+    # (Sq > Sk causal), non-causal, GQA 32 on 8, GPT's packed views
+    "tc_ragged_130_d128": (1, 130, 130, 2, 1, 128, True, torch.bfloat16),
+    "tc_ragged_1000_d64": (1, 1000, 1000, 2, 2, 64, True, torch.bfloat16),
+    "tc_ragged_1000_d128": (1, 1000, 1000, 4, 2, 128, True,
+                            torch.bfloat16),
+    "tc_sq_lt_sk_d64": (2, 70, 300, 4, 2, 64, True, torch.bfloat16),
+    "tc_sq_lt_sk_d128": (1, 130, 260, 2, 2, 128, True, torch.bfloat16),
+    "tc_sq_gt_sk_d64": (1, 260, 130, 4, 4, 64, True, torch.bfloat16),
+    "tc_sq_gt_sk_d128": (1, 300, 70, 4, 2, 128, True, torch.bfloat16),
+    "tc_noncausal_d64": (2, 200, 200, 4, 4, 64, False, torch.bfloat16),
+    "tc_noncausal_sq_ne_sk_d128": (1, 90, 260, 4, 2, 128, False,
+                                   torch.bfloat16),
+    "tc_gqa_32_8_d128": (1, 256, 256, 32, 8, 128, True, torch.bfloat16),
+    "tc_gqa_32_8_d64": (1, 192, 192, 32, 8, 64, False, torch.bfloat16),
+    "tc_gpt_views_d64": (2, 256, 256, 12, 12, 64, True, torch.bfloat16),
 }
 
 
@@ -234,17 +376,32 @@ def test_kernels_match_plain_on_card(cuda, name):
         k = torch.randn(b, sk, hk, d, generator=gen, device=cuda).to(dtype)
         v = torch.randn(b, sk, hk, d, generator=gen, device=cuda).to(dtype)
     do = torch.randn(b, sq, hq, d, generator=gen, device=cuda).to(dtype)
-    n_fwd = tfa.flash_attention_fwd.launches
-    n_bwd = tfa.flash_attention_bwd.launches
+    fwd, bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
+    n = (fwd.launches, bwd.launches, fwd.tc_launches, bwd.tc_launches)
     assert tfa._vec_ok((q, k, v, do)) == (d % (16 // q.element_size())
                                           == 0)
+    tc = dtype == torch.bfloat16 and d in (64, 128)
+    assert tfa.tc_route(q, k, v, do) is tc
     o, lse = tfa.flash_attention_fwd(q, k, v, causal)
     grads = tfa.flash_attention_bwd(q, k, v, do, o, lse, causal)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_fwd.launches == n_fwd + 1
-    assert tfa.flash_attention_bwd.launches == n_bwd + 1
+    assert (fwd.launches, bwd.launches, fwd.tc_launches,
+            bwd.tc_launches) == (n[0] + 1, n[1] + 1, n[2] + tc, n[3] + tc)
     f32 = [x.float() for x in (q, k, v, do)]
     ro, rlse = tfa.flash_attention_fwd_plain(*f32[:3], causal)
+    if tc:
+        lims, (ro, *rgrads) = tfa.tc_tolerances(q, k, v, do, o, lse, causal)
+        for g, r, name in zip((o, *grads), (ro, *rgrads),
+                              ("o", "dq", "dk", "dv")):
+            assert g.dtype == dtype
+            worst = _tc_worst(g, r, lims[name])
+            assert worst <= 1, f"{name}: error {worst:.3g} x its limit"
+        torch.testing.assert_close(lse, rlse, rtol=1e-6, atol=2e-5)
+        rows = _attending_rows(sq, sk, causal)
+        dead = np.setdiff1d(np.arange(sq), rows)
+        assert (o[:, dead] == 0).all() and (grads[0][:, dead] == 0).all()
+        assert (lse[:, :, dead] == tfa.NEG_INF).all()
+        return
     rgrads = tfa.flash_attention_bwd_plain(*f32, o.float(), lse, causal)
     if dtype == torch.float32:
         torch.testing.assert_close(o, ro, rtol=0, atol=2e-5)

@@ -323,6 +323,12 @@ def test_chip_smoke_train_phase_rehearses_on_cpu():
                                  seq=32, warmup=1, steps=2)
     assert len(out["losses"]) == 3 and out["buckets"] == 2
     assert out["mfu"] is None and set(out["counts"].values()) == {0}
+    # the first-loss check against the unfused attention
+    plain = chip_smoke.train_phase(0, cfg=cfg, device="cpu", batch=2,
+                                   seq=32, warmup=1, steps=2, flash=False)
+    assert plain["flash"] is False and out["flash"] is True
+    cmp = chip_smoke._compare_runs("train", out, plain, "no flash")
+    assert cmp["first_loss_gap"] <= chip_smoke.FIRST_LOSS_GAP
 
 
 @pytest.mark.parametrize("glue", [False, True])
@@ -395,7 +401,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found") as ei:
         _build.build_all()
     assert "sm_90a" in str(ei.value)
-    assert _build.sources() == ["flash_attention", "fused_decode_mlp",
+    assert _build.sources() == ["flash_attention", "flash_attention_sm90",
+                                "fused_decode_mlp",
                                 "fused_decode_qkv", "fused_optimizer",
                                 "fused_residual_norm", "norms",
                                 "paged_attention", "quant_matmul", "rope"]
@@ -417,7 +424,8 @@ def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):
     assert not list((tmp_path / "build").glob("*"))
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "fused_optimizer",
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_sm90",
+                                  "fused_optimizer",
                                   "fused_decode_qkv", "fused_decode_mlp",
                                   "rope", "fused_residual_norm",
                                   "quant_matmul", "norms"])
