@@ -1,7 +1,8 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,decode,train,glue,rms} ROOT [ROOT ...]
+    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve} ROOT [ROOT ...]
     python3 chip_ab.py groups ROOT
+    python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
 ms per case, forward and backward), its GPT-124M fused decode kernel
@@ -11,7 +12,11 @@ ms, and the device busy ms and launches of the profiled step; ``glue``
 the same with ``train_glue_fusion`` on), or the fused residual
 + RMSNorm kernels on fixed inputs (``rms``: a sha256 of every output's
 bytes, so two checkouts' kernels can be held bitwise equal, and ms per
-launch), from each ROOT in the order given, each in a process of its
+launch), or the weight-only matmul's kernel cases (``qmm``: kernel ms
+per case) or the LLaMA-7B weight-only int8 serve phase (``qserve``:
+tokens/s, host ms per mixed step and per decode dispatch, the profiled
+run's device time by kernel, and the served logits' largest gap to the
+plain forward), from each ROOT in the order given, each in a process of its
 own, and prints one ``AB`` JSON line per run. Give the roots in turns (old, new, new, old) so that
 drift of the card or its host shows. Needs a card; the kernels build
 in each ROOT.
@@ -22,6 +27,11 @@ that differ only in how many weight rows a warp dots at once
 prints, for each copy, that kernel's ms at the LLaMA-7B decode shapes
 (B = 8 and 1; the epilogue also at GPT-124M's) and a sha256 of its
 outputs.
+
+``ptxas`` compiles each ``csrc/SOURCE.cu`` of ROOT with the port's
+``nvcc`` flags and ``--resource-usage`` into a scratch file under
+``ROOT/_chipcopy/ptxas/`` and prints ptxas's registers, spills and
+shared memory for each kernel.
 """
 from __future__ import annotations
 
@@ -62,6 +72,20 @@ def _one(what, root):
         out = _group_times(chip_smoke, what)
     elif what == "rms":
         out = _rms_digests(chip_smoke)
+    elif what == "qmm":
+        out = {r["case"]: r["ms"]
+               for r in chip_smoke.quant_matmul_cases(0, "")}
+    elif what == "qserve":
+        q = chip_smoke.llama_serve_phase(0)
+        out = {k: q[k] for k in ("tokens_per_s", "mixed_step_ms",
+                                 "decode_dispatch_ms", "logit_gap")}
+        out.update(busy_ms=q["profile"]["busy_ms"],
+                   busy_share=q["profile"]["busy_share"],
+                   top=q["profile"]["top"][:6],
+                   decode_device_ms_per_step=q["window"][
+                       "device_ms_per_step"],
+                   mixed_steps=q["stats"]["mixed_steps"],
+                   decode_dispatches=q["decode_dispatches"])
     else:
         # an older checkout's train_phase may not take ``glue``
         kw = {"glue": True} if what == "glue" else {}
@@ -259,7 +283,29 @@ def _group_copies(root):
     return out
 
 
+def _ptxas(root, names):
+    """ptxas's resource usage of ``csrc/<name>.cu`` for each of
+    ``names`` under ROOT, built with the port's own flags."""
+    sys.path.insert(0, root)
+    from paddle_tpu_torch.ops.cuda import _build
+    out_dir = Path(root) / "_chipcopy" / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        res = subprocess.run(
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "--resource-usage",
+             "-o", str(out_dir / f"{name}.so"),
+             str(_build.CSRC / f"{name}.cu")],
+            capture_output=True, text=True, timeout=600, check=True)
+        for line in (res.stdout + res.stderr).splitlines():
+            if "ptxas" in line and ("Used" in line or "Compiling" in line
+                                    or "spill" in line):
+                print("PTXAS", name, line.strip(), flush=True)
+
+
 def main(argv):
+    if len(argv) >= 3 and argv[0] == "ptxas":
+        _ptxas(argv[1], argv[2:])
+        return 0
     if len(argv) >= 3 and argv[0] == "--one":
         _one(argv[1], argv[2])
         return 0
@@ -271,7 +317,7 @@ def main(argv):
                            check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
-                                        "rms"):
+                                        "rms", "qmm", "qserve"):
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv[1:]:

@@ -80,10 +80,16 @@ card.
      magnitudes);
    * ``weight_only_matmul`` at the LLaMA-7B quantized serve phase's
      projections ((K, N) = (4096, 4096), (4096, 11008), (11008, 4096),
-     (4096, 32000)) at M = 8 (decode), 128 (the mixed step's token
-     budget) and 512, plus M = 1 and odd K and N: each output within
-     2e-5 of its sum of |x| |q| s; beside ``torch.matmul`` with the
-     weight dequantized beforehand (the library yardstick).
+     (4096, 32000)) at M = 8 (decode: the GEMV), 128 (the mixed step's
+     token budget: the tensor cores) and 512, plus M = 1 and odd K and
+     N (M = 3 on the GEMV, M = 130 on the tensor cores), and in bf16 at
+     M = 8 and 128 (the tensor cores):
+     each output within ``quant_matmul.tolerance`` of the plain version
+     (2e-5 of its sum of |x| |q| s; bf16 plus one bf16 step of |y|),
+     each case on the route ``quant_matmul.route`` names; beside
+     ``torch.matmul`` with the weight dequantized beforehand (the
+     library yardstick); then x's and the scale's gradients at M = 128
+     against the plain path's autograd.
 3. Serve phase: GPT-124M (``GPTConfig()`` defaults, weights drawn from
    the seed in the JAX package's layout and init) behind
    ``ContinuousBatchingEngine`` serves 16 requests (prompts 16-512
@@ -111,6 +117,7 @@ card.
    behind ``ContinuousBatchingEngine(kv_quant=True)`` (int8 KV pages),
    the same 16 requests and checks; every forward launches the int8
    attention 32 times and ``weight_only_matmul`` 225 times (7 L + 1),
+   every mixed step's 225 on the tensor cores,
    and every served token must be the pick of a plain fp32 forward that
    replays the quantization (dequantized weights, each K/V vector
    through ``kv_quantize`` -> ``kv_dequantize``) except near ties (a
@@ -211,9 +218,10 @@ MARGIN = 1e-4                # teacher-forced near-tie margin
 # summation order than the plain forward's, so kv_quantize rounds some
 # of them to the neighbouring int8 step, and the served path's logits
 # sit up to ~0.05 from the plain forward's at LLaMA-7B, 32 layers (the
-# LLaMA serve phase measures it: ``logit_gap``); a pick may differ only
-# where the top-2 gap is below twice that (PERF.md). GPT-124M's
-# int8 serve takes twice its own reading instead (``serve_phase``).
+# LLaMA serve phase measures it: ``logit_gap``; on an H100 0.0486 fused,
+# 0.0446 with the weight-only GEMM on the tensor cores); a pick may
+# differ only where the top-2 gap is below twice that (PERF.md). GPT-124M's int8 serve takes twice its own reading
+# instead (``serve_phase``).
 MARGIN_KV8 = 0.1
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's ~2 GHz clock
 TP_COLLECTIVE_S = 300        # a TP rank's rendezvous and each collective
@@ -264,14 +272,16 @@ def build():
     fused_residual_norm._kernels()
     norms._kernels()
     quant_matmul._kernel()
+    quant_matmul._tc_kernel()
     secs = time.perf_counter() - t0
     log(f"built {sorted(libs)} in {secs:.2f} s")
     return secs
 
 
 class _TcRoute:
-    """A flash wrapper's tensor-core route count, read and reset like a
-    wrapper's ``launches`` (``tc_launches`` beside ``launches``)."""
+    """A wrapper's tensor-core route count (flash attention, the
+    weight-only matmul), read and reset like a wrapper's ``launches``
+    (``tc_launches`` beside ``launches``)."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -287,7 +297,8 @@ class _TcRoute:
 
 def counters():
     """Every kernel wrapper's launch counter, by kernel name, and the
-    flash wrappers' tensor-core route counts (``*_tc``)."""
+    tensor-core route counts (``*_tc``) of the flash wrappers and the
+    weight-only matmul."""
     from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
                                            fused_decode_qkv, fused_optimizer,
                                            fused_residual_norm, norms,
@@ -313,6 +324,8 @@ def counters():
             "fused_residual_rms_norm_bwd":
                 fused_residual_norm.fused_residual_rms_norm_bwd,
             "weight_only_matmul": quant_matmul.weight_only_matmul,
+            "weight_only_matmul_tc":
+                _TcRoute(quant_matmul.weight_only_matmul),
             "fused_residual_layer_norm_fwd":
                 frn.fused_residual_layer_norm_fwd,
             "fused_residual_layer_norm_bwd":
@@ -1487,7 +1500,8 @@ def _drive(eng, on_card):
     what the path makes: a forward (a mixed step, or each decode step: the
     bootstrap's one, or each of a window's ``decode_window``) launches the
     attention once per layer and ``weight_only_matmul`` once per
-    weight-only projection of the model (none for a float model); a
+    weight-only projection of the model (none for a float model), in a
+    mixed step every one of them on the tensor cores; a
     decode step with ``megakernel`` also ``fused_decode_qkv`` and
     ``fused_decode_mlp`` (under tensor parallelism
     ``fused_decode_mlp_partial`` instead) once per layer and
@@ -1502,7 +1516,7 @@ def _drive(eng, on_card):
     tp = eng.tp > 1
     fused = ("fused_decode_qkv", "fused_decode_mlp",
              "fused_decode_mlp_partial", "fused_decode_epilogue",
-             "weight_only_matmul")
+             "weight_only_matmul", "weight_only_matmul_tc")
     launches = {"mixed": dict.fromkeys(counters(), 0),
                 "decode": dict.fromkeys(counters(), 0)}
     step_ms = {"mixed": [], "decode": []}
@@ -1519,7 +1533,8 @@ def _drive(eng, on_card):
         got = {k: after[k] - before[k] for k in after}
         if eng.stats["mixed_steps"] > st["mixed_steps"]:
             kind, k = "mixed", 1
-            want = {"ragged_paged_attention": L, "weight_only_matmul": n_mm}
+            want = {"ragged_paged_attention": L, "weight_only_matmul": n_mm,
+                    "weight_only_matmul_tc": n_mm}
         elif eng.stats["decode_dispatches"] > st["decode_dispatches"]:
             kind = "decode"
             k = 1 if single else eng.decode_window
@@ -3070,74 +3085,154 @@ def llama_megakernel_phases(seed, model, device="cuda"):
     return runs
 
 
+def _matmul_bound(nbytes, flops):
+    """(least ms, what bounds it) of a weight-only matmul, the same work
+    whatever route runs it: the bytes at the HBM rate or 2 M N K at the
+    bf16 tensor-core rate, whichever takes longer."""
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations"
+
+
 def quant_matmul_cases(seed, power):
     """``weight_only_matmul`` against its plain version on the card at the
-    LLaMA-7B quantized serve phase's shapes: x ``[M, K]`` fp32 and an
-    int8 weight ``[N, K]`` (the layout ``WeightOnlyLinear`` keeps) for
-    (K, N) in q/k/v/o (4096, 4096), gate/up (4096, 11008), down (11008,
-    4096) and the lm_head (4096, 32000), at M = 8 (a decode step of 8
-    slots) and M = 128 (the engine's mixed-step token budget), and at
-    M = 512; plus M = 1 and odd K and N. Each output within 2e-5 of its
-    sum of |x| |q| s. Every launch is timed behind the device spin of
-    :func:`_time_ms`. The library yardstick is one ``torch.matmul`` of x
-    with the weight dequantized beforehand (int8 times its scale, fp32;
-    TF32 off); it is never used by the port."""
-    from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul_plain,
-                                                        weight_only_matmul)
+    LLaMA-7B quantized serve phase's shapes: x ``[M, K]`` and an int8
+    weight ``[N, K]`` (the layout ``WeightOnlyLinear`` keeps) for (K, N)
+    in q/k/v/o (4096, 4096), gate/up (4096, 11008), down (11008, 4096)
+    and the lm_head (4096, 32000); fp32 at M = 8 (a decode step of 8
+    slots: the GEMV), M = 128 (the engine's mixed-step token budget: the
+    tensor cores) and M = 512; M = 1, and odd K and N at M = 3 (the
+    GEMV) and 130 (the tensor cores, K zero-padded to a multiple of 16);
+    bf16 at M = 8 and 128 (the tensor cores). Each case must run on the
+    route ``quant_matmul.route`` names and stay within
+    ``quant_matmul.tolerance`` of the plain version, element by element.
+    Every launch is timed behind the device spin of :func:`_time_ms`.
+    The library yardstick is one ``torch.matmul`` of x with the weight
+    dequantized beforehand (int8 times its scale, in x's dtype; TF32
+    off); an fp32 case on the tensor cores also times it in bf16 (x and
+    that weight cast to bf16: the library's matmul on the tensor cores,
+    at less precision than the kernel's three-term x); it is never used
+    by the port. The bound
+    (:func:`_matmul_bound`) is the same for every route. Then one
+    backward at M = 128: x's and the scale's gradients of the kernel
+    path against the plain path's autograd, within
+    ``quant_matmul.grad_tolerance``."""
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+    wom = qm.weight_only_matmul
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    f32, bf16 = torch.float32, torch.bfloat16
     shapes = [(4096, 4096, "qkvo"), (4096, 11008, "gate_up"),
               (11008, 4096, "down"), (4096, 32000, "lm_head")]
-    cases = [(f"llama7b_{what}_m{m}", m, k, n)
+    cases = [(f"llama7b_{what}_m{m}", m, k, n, f32)
              for m in (8, 128, 512) for k, n, what in shapes]
-    cases += [("m1_qkvo", 1, 4096, 4096), ("odd_m3_k4099_n1001", 3, 4099,
-                                           1001),
-              ("odd_m130_k4099_n1001", 130, 4099, 1001)]
+    cases += [("m1_qkvo", 1, 4096, 4096, f32),
+              ("odd_m3_k4099_n1001", 3, 4099, 1001, f32),
+              ("odd_m130_k4099_n1001", 130, 4099, 1001, f32)]
+    cases += [(f"llama7b_{what}_m{m}_bf16", m, k, n, bf16)
+              for m in (8, 128) for k, n, what in shapes]
+    routes = {"tc": ("tensor cores", "quant_matmul_sm90.cu"),
+              "gemv": ("GEMV", "quant_matmul.cu")}
     rows = []
-    for name, m, k, n in cases:
-        x = torch.randn(m, k, generator=gen, device=dev)
+    for name, m, k, n, dt in cases:
+        x = torch.randn(m, k, generator=gen, device=dev).to(dt)
         qw = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                            dtype=torch.int8).t()
         s = torch.rand(n, generator=gen, device=dev) * 0.002 + 1e-4
-        out = weight_only_matmul(x, qw, s)
-        ref = quant_matmul_plain(x, qw, s)
-        mag = (x.abs() @ qw.abs().float()) * s
+        which = qm.route(m, dt)
+        tc0 = wom.tc_launches
+        out = wom(x, qw, s)
+        if wom.tc_launches - tc0 != (which == "tc"):
+            raise AssertionError(f"weight_only_matmul {name}: not on the "
+                                 f"{routes[which][0]} route")
+        ref = qm.quant_matmul_plain(x, qw, s)
+        e = (out.float() - ref.float()).abs()
+        ratio = float((e / qm.tolerance(x, qw, s)).max())
+        err = float(e.max())
         torch.cuda.synchronize()
-        excess = float(((out - ref).abs() - 2e-5 * mag).max())
-        err = float((out - ref).abs().max())
-        if not excess <= 0:
+        if not ratio <= 1:
             raise AssertionError(f"weight_only_matmul {name}: kernel vs "
-                                 f"plain error above 2e-5 of |x| |q| s "
-                                 f"(max abs error {err:.3g})")
-        del mag
+                                 f"plain max abs error {err:.3g}, "
+                                 f"{ratio:.3g} x its limit")
+        del e
         reps = 20 if m * k * n < 5e10 else 5
-        ms = _time_ms(lambda: weight_only_matmul(x, qw, s), reps, flush,
-                      spin=True)
-        plain_ms = _time_ms(lambda: quant_matmul_plain(x, qw, s), 3, flush,
-                            spin=True)
-        w_deq = qw.float() * s
+        ms = _time_ms(lambda: wom(x, qw, s), reps, flush, spin=True)
+        plain_ms = _time_ms(lambda: qm.quant_matmul_plain(x, qw, s), 3,
+                            flush, spin=True)
+        w_deq = (qw.float() * s).to(dt)
         lib_ms = _time_ms(lambda: torch.matmul(x, w_deq), reps, flush,
                           spin=True)
+        lib_bf16_ms = None
+        if dt == f32 and which == "tc":
+            xb, wb = x.to(bf16), w_deq.to(bf16)
+            lib_bf16_ms = _time_ms(lambda: torch.matmul(xb, wb), reps,
+                                   flush, spin=True)
+            del xb, wb
         del w_deq
         # x, the int8 weight and the scales read once, y written once
-        nbytes = 4 * m * k + k * n + 4 * n + 4 * m * n
+        esize = x.element_size()
+        nbytes = esize * m * k + k * n + 4 * n + esize * m * n
         flops = 2 * m * k * n
-        bound_ms, bound_by = _fp32_bound(nbytes, flops)
-        row = dict(case=name, m=m, k=k, n=n, max_abs_err=err, ms=ms,
+        bound_ms, bound_by = _matmul_bound(nbytes, flops)
+        dname = str(dt).replace("torch.", "")
+        row = dict(case=name, m=m, k=k, n=n, dtype=dname,
+                   route=routes[which][0], source=routes[which][1],
+                   max_abs_err=err, err_to_limit=ratio, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, flops=flops, library_ms=lib_ms,
-                   library="torch.matmul(x, dequantized fp32 weight)")
-        log(f"kernel weight_only_matmul {name} x [{m}, {k}] w [{n}, {k}] "
-            f"int8: max_abs_err {err:.3g}, {ms:.4f} ms (plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                   library=f"torch.matmul(x, dequantized {dname} weight)",
+                   library_bf16_ms=lib_bf16_ms)
+        log(f"kernel weight_only_matmul {name} x [{m}, {k}] {dname} "
+            f"w [{n}, {k}] int8 on the {routes[which][0]} route: max_abs_err "
+            f"{err:.3g} ({ratio:.3f} of its limit), {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms"
+            + ("" if lib_bf16_ms is None else
+               f", library in bf16 {lib_bf16_ms:.4f} ms")
+            + f", bound "
             f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
             f"bound) on {power}")
         rows.append(row)
         del x, qw, s, out, ref
+    rows[0]["backward"] = quant_matmul_grad_check(gen, power)
     del flush
     torch.cuda.empty_cache()
     return rows
+
+
+def quant_matmul_grad_check(gen, power, m=128, k=4096, n=4096):
+    """``loss.backward()`` through ``weight_only_matmul`` on the card (the
+    tensor cores at M = 128, fp32): x's, the scale's and the bias's
+    gradients against the plain path's autograd, each within
+    ``quant_matmul.grad_tolerance``. Returns the largest ratios."""
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+    dev = torch.device("cuda")
+    x0 = torch.randn(m, k, generator=gen, device=dev)
+    qw = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                       dtype=torch.int8).t()
+    s0 = torch.rand(n, generator=gen, device=dev) * 0.002 + 1e-4
+    b0 = torch.randn(n, generator=gen, device=dev)
+    gy = torch.randn(m, n, generator=gen, device=dev)
+    grads = []
+    for fn in (qm.weight_only_matmul, qm.quant_matmul_plain):
+        x, s, b = (t.clone().requires_grad_() for t in (x0, s0, b0))
+        fn(x, qw, s, bias=b).backward(gy)
+        grads.append((x.grad, s.grad, b.grad))
+    lims = qm.grad_tolerance(x0, qw, s0, gy, grads[1])
+    ratios = {}
+    for name, a, r, lim in zip(("x", "scale", "bias"), *grads, lims):
+        if a is None:
+            raise AssertionError(f"weight_only_matmul backward: no {name} "
+                                 f"gradient on the card")
+        ratios[name] = float(((a - r).abs() / lim).max())
+    torch.cuda.synchronize()
+    log(f"weight_only_matmul backward x [{m}, {k}] w [{n}, {k}]: gradients "
+        f"vs the plain path's, largest error / limit "
+        + ", ".join(f"{k_} {v:.3g}" for k_, v in ratios.items())
+        + f" on {power}")
+    if not max(ratios.values()) <= 1:
+        raise AssertionError(f"weight_only_matmul backward: {ratios}")
+    return ratios
 
 
 # The LLaMA-7B TP legs serve the first 8 of the 16 requests: two ranks on
@@ -3523,6 +3618,13 @@ def main(argv=None):
             out[-1]["tc_launches"] = {
                 "gpt_train": train["counts"][kname + "_tc"],
                 "llama_train": llama_off["counts"][kname + "_tc"]}
+        if kname == "weight_only_matmul":
+            # decode steps take the GEMV, mixed steps the tensor cores
+            out[-1]["sources"] = {
+                "tensor cores": src + "quant_matmul_sm90.cu",
+                "GEMV": src + source}
+            out[-1]["tc_launches"] = {
+                "llama7b_int8_serve": llama_q["counts"][kname + "_tc"]}
     print(json.dumps({"kernels": out, "serve": serve,
                       "serve_megakernel": serve_mk, "serve_turns": turns,
                       "serve_megakernel_int8_kv": serve_mk8,

@@ -1,6 +1,8 @@
-// Weight-only int8 matmul for Hopper (sm_90a): y = (x @ q) * s [+ b].
+// Weight-only int8 matmul for Hopper (sm_90a), decode rows: y = (x @ q)
+// * s [+ b] for an fp32 x of at most 16 rows.
 //
-// Replaces the Pallas TPU kernel `_pallas_matmul` / `_kernel`
+// Replaces, with quant_matmul_sm90.cu (every other call: the tensor
+// cores), the Pallas TPU kernel `_pallas_matmul` / `_kernel`
 // (paddle_tpu/ops/pallas/quant_matmul.py): x [M, K] fp32 times an int8
 // weight with one fp32 scale per output channel, accumulated in fp32, the
 // scale applied once per output element after the K reduction (per-channel
@@ -8,33 +10,20 @@
 // layout nn.Linear keeps, [N, K] (each output channel's K bytes
 // contiguous); no float copy of it is ever written.
 //
-// What bounds it on an H100 depends on M:
-// * decode (M <= 16): the weight bytes. A step reads K * N int8 bytes
-//   once and does 2 M K N flops, far below the card's ratio of flops to
-//   bytes, so the kernel is a weight-streaming GEMV: a warp owns 4
-//   output columns and reads their rows with 16-byte loads (16 int8 a
-//   lane), 8 of them in flight a lane; the activation rows sit in shared
-//   memory (staged in chunks of K, float4 slots XOR-swizzled so the 16
-//   floats a lane reads for its 16 bytes hit distinct banks) and each
-//   float4 read feeds the 4 columns. Bytes become floats by a byte
-//   permute into the mantissa of 2^23 and one subtraction (exact), not by
-//   an integer-to-float conversion, whose rate on an SM is lower than
-//   the bytes arrive.
-// * mixed prefill + decode (M up to the engine's token budget): the fp32
-//   FMAs (2 M K N of them at 67 TFLOP/s; tensor cores are a later PR's
-//   work, with their own tolerance). A plain SIMT GEMM: 64 x 64 output
-//   tiles, 256 threads with 4 x 4 outputs each, K in steps of 32; the
-//   int8 tile becomes fp32 as it is written to shared memory, the next
-//   tile's global loads are in registers while the current one is
-//   multiplied, and both shared tiles are stored transposed with a
-//   float4-slot XOR swizzle so stores and float4 reads avoid bank
-//   conflicts. Where the output tiles alone would leave SMs idle, K is
-//   split over up to 4 CTAs a tile whose partial sums a second small
-//   kernel adds in split order (deterministic, no atomics).
-// Both regimes sum over k in order with fmaf and apply the scale after
-// the sum, so a result is within fp32 rounding of the plain version.
-// Shapes need not be multiples of anything: rows whose K is not a
-// multiple of 16 (GEMV) or 8 (GEMM) take a path with byte loads.
+// What bounds it on an H100 at decode (M <= 16): the weight bytes. A
+// step reads K * N int8 bytes once and does 2 M K N flops, far below the
+// card's ratio of flops to bytes, so the kernel is a weight-streaming
+// GEMV: a warp owns 4 output columns and reads their rows with 16-byte
+// loads (16 int8 a lane), 8 of them in flight a lane; the activation
+// rows sit in shared memory (staged in chunks of K, float4 slots
+// XOR-swizzled so the 16 floats a lane reads for its 16 bytes hit
+// distinct banks) and each float4 read feeds the 4 columns. Bytes become
+// floats by a byte permute into the mantissa of 2^23 and one subtraction
+// (exact), not by an integer-to-float conversion, whose rate on an SM is
+// lower than the bytes arrive. It sums over k in order with fmaf and
+// applies the scale after the sum, so a result is within fp32 rounding
+// of the plain version. Shapes need not be multiples of anything: rows
+// whose K is not a multiple of 16 take a path with byte loads.
 //
 // Plain C interface (bound with ctypes); the wrapper in quant_matmul.py
 // checks shapes, types and contiguity and allocates the output. The
@@ -261,164 +250,6 @@ gemv_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-// ------------------------------------------------------- mixed: GEMM ----
-
-constexpr int BM = 64, BN = 64, BK = 32, kGemmThreads = 256;
-
-// Tiles in shared memory are [BK][64] floats, k-major, with the float4
-// slot of column c at row k stored at slot (c / 4) ^ tswz(k): the eight
-// k rows a warp's tile stores touch, and its float4 reads, spread over
-// the banks.
-__device__ __forceinline__ int tswz(int k) { return (k & 7) ^ (((k >> 3) & 3) << 1); }
-
-__device__ __forceinline__ int tidx(int k, int c) {
-  return k * 64 + (((c >> 2) ^ tswz(k)) << 2) + (c & 3);
-}
-
-// Each thread loads 8 consecutive k of one row of the x tile (row
-// tid / 4) and of one weight row (n = tid / 4): k = (tid % 4) * 8 + 0..7,
-// zero at or past ke (the end of this CTA's K range).
-template <bool VEC>
-__device__ __forceinline__ void gemm_load(const float* __restrict__ x,
-                                          const int8_t* __restrict__ q, int M, int K, int N,
-                                          int m0, int n0, int k0, int ke, float (&xa)[8],
-                                          float (&wa)[8]) {
-  const int r = threadIdx.x / 4, kk = k0 + (threadIdx.x % 4) * 8;
-  const int m = m0 + r, n = n0 + r;
-  if (VEC) {  // K % 8 == 0 and ke % 8 == 0: a group of 8 is wholly in or out
-    if (m < M && kk < ke) {
-      const float4* p = reinterpret_cast<const float4*>(x + (size_t)m * K + kk);
-      const float4 a = __ldg(p), b = __ldg(p + 1);
-      xa[0] = a.x; xa[1] = a.y; xa[2] = a.z; xa[3] = a.w;
-      xa[4] = b.x; xa[5] = b.y; xa[6] = b.z; xa[7] = b.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) xa[i] = 0.f;
-    }
-    if (n < N && kk < ke) {
-      const uint2 w = __ldg(reinterpret_cast<const uint2*>(q + (size_t)n * K + kk));
-      bytes4_to_float(w.x, wa);
-      bytes4_to_float(w.y, wa + 4);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) wa[i] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const bool ink = kk + i < ke;
-      xa[i] = (m < M && ink) ? __ldg(x + (size_t)m * K + kk + i) : 0.f;
-      wa[i] = (n < N && ink) ? (float)__ldg(q + (size_t)n * K + kk + i) : 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ void gemm_store(float* As, float* Bs, const float (&xa)[8],
-                                           const float (&wa)[8]) {
-  const int r = threadIdx.x / 4, kk = (threadIdx.x % 4) * 8;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    As[tidx(kk + i, r)] = xa[i];
-    Bs[tidx(kk + i, r)] = wa[i];
-  }
-}
-
-// A 64 x 64 output tile over K range [z k_per, (z + 1) k_per) for split
-// z = blockIdx.z. With one split (ws null) the tile is scaled, biased and
-// written to y; with several, the raw sums go to ws [splits, M, N] and
-// gemm_reduce finishes them.
-template <bool VEC>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-               const float* __restrict__ s, const float* __restrict__ bias,
-               float* __restrict__ y, float* __restrict__ ws, int M, int K, int N,
-               int k_per) {
-  __shared__ __align__(16) float As[BK * 64];
-  __shared__ __align__(16) float Bs[BK * 64];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int kb = blockIdx.z * k_per, ke = min(K, kb + k_per);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  float xa[8], wa[8];
-  gemm_load<VEC>(x, q, M, K, N, m0, n0, kb, ke, xa, wa);
-  gemm_store(As, Bs, xa, wa);
-  __syncthreads();
-  for (int k0 = kb; k0 < ke; k0 += BK) {
-    const bool more = k0 + BK < ke;
-    if (more) gemm_load<VEC>(x, q, M, K, N, m0, n0, k0 + BK, ke, xa, wa);
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(As + tidx(k, 4 * ty));
-      const float4 b = *reinterpret_cast<const float4*>(Bs + tidx(k, 4 * tx));
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      gemm_store(As, Bs, xa, wa);
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n >= N) continue;
-      if (ws != nullptr) {
-        ws[((size_t)blockIdx.z * M + m) * N + n] = acc[i][j];
-        continue;
-      }
-      float v = acc[i][j] * __ldg(s + n);
-      if (bias != nullptr) v += __ldg(bias + n);
-      y[(size_t)m * N + n] = v;
-    }
-  }
-}
-
-// y = (sum over splits, in split order, of ws) * s [+ b]: deterministic.
-__global__ void gemm_reduce(const float* __restrict__ ws, const float* __restrict__ s,
-                            const float* __restrict__ bias, float* __restrict__ y, int M,
-                            int N, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  const int n = (int)(i % N);
-  float t = 0.f;
-  for (int z = 0; z < splits; ++z) t += ws[(size_t)z * M * N + i];
-  float v = t * __ldg(s + n);
-  if (bias != nullptr) v += __ldg(bias + n);
-  y[i] = v;
-}
-
-// K splits of the GEMM: enough CTAs for two per SM when the output tiles
-// alone leave SMs idle (a mixed step's M of 128 on a 4096-wide output is
-// 128 tiles for 132 SMs), at most 4, each split at least 8 K steps. One
-// split means none.
-int gemm_splits(int M, int K, int N, int num_sms, int* k_per) {
-  const int tiles = ((N + BN - 1) / BN) * ((M + BM - 1) / BM);
-  const int nk = (K + BK - 1) / BK;
-  int splits = 2 * num_sms / tiles;
-  if (splits > nk / 8) splits = nk / 8;
-  if (splits > 4) splits = 4;
-  if (splits < 2) {
-    *k_per = nk * BK;
-    return 1;
-  }
-  *k_per = (nk + splits - 1) / splits * BK;
-  return (K + *k_per - 1) / *k_per;
-}
-
 // Shared memory of the GEMV: MT rows of a K chunk. One chunk covers K
 // when it fits in kGemvSmemMax; else chunks of the largest multiple of
 // 512 floats that fits.
@@ -462,49 +293,20 @@ cudaError_t dispatch_gemv(const float* x, const int8_t* q, const float* s, const
 
 extern "C" {
 
-// Largest M the GEMV regime takes.
-int pdt_quant_matmul_gemv_max_rows() { return 16; }
-
-// Floats of workspace pdt_quant_matmul_f32 needs for these shapes (0: none).
-size_t pdt_quant_matmul_workspace_floats(int M, int K, int N, int num_sms) {
-  if (M <= 16 || M <= 0 || N <= 0) return 0;
-  int k_per;
-  const int splits = gemm_splits(M, K, N, num_sms, &k_per);
-  return splits > 1 ? (size_t)splits * M * N : 0;
-}
-
-// y [M, N] = (x [M, K] @ q^T) * s [+ b], q [N, K] int8 rows, s [N] fp32,
-// b [N] fp32 or null. x, q 16-byte aligned when K allows vector loads;
-// ws: pdt_quant_matmul_workspace_floats floats (or null when that is 0).
-// Launch on `stream` (a cudaStream_t); returns a cudaError_t as int.
+// y [M, N] = (x [M, K] @ q^T) * s [+ b] for 1 <= M <= 16, q [N, K] int8
+// rows, s [N] fp32, b [N] fp32 or null. x, q 16-byte aligned when K
+// allows vector loads. Launch on `stream` (a cudaStream_t); returns a
+// cudaError_t as int (cudaErrorInvalidValue for M > 16).
 int pdt_quant_matmul_f32(const float* x, const int8_t* q, const float* s, const float* b,
-                         float* y, int M, int K, int N, int num_sms, float* ws,
-                         void* stream) {
+                         float* y, int M, int K, int N, int num_sms, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
+  if (M > 16) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (M <= 16) {
-    switch (gemv_rows(M)) {
-      case 4: return (int)dispatch_gemv<4>(x, q, s, b, y, M, K, N, num_sms, st);
-      case 8: return (int)dispatch_gemv<8>(x, q, s, b, y, M, K, N, num_sms, st);
-      default: return (int)dispatch_gemv<16>(x, q, s, b, y, M, K, N, num_sms, st);
-    }
+  switch (gemv_rows(M)) {
+    case 4: return (int)dispatch_gemv<4>(x, q, s, b, y, M, K, N, num_sms, st);
+    case 8: return (int)dispatch_gemv<8>(x, q, s, b, y, M, K, N, num_sms, st);
+    default: return (int)dispatch_gemv<16>(x, q, s, b, y, M, K, N, num_sms, st);
   }
-  int k_per;
-  const int splits = gemm_splits(M, K, N, num_sms, &k_per);
-  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  float* part = splits > 1 ? ws : nullptr;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  if (K % 8 == 0)
-    gemm_i8_kernel<true><<<grid, kGemmThreads, 0, st>>>(x, q, s, b, y, part, M, K, N, k_per);
-  else
-    gemm_i8_kernel<false><<<grid, kGemmThreads, 0, st>>>(x, q, s, b, y, part, M, K, N, k_per);
-  if (splits > 1) {
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const size_t n = (size_t)M * N;
-    gemm_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(ws, s, b, y, M, N, splits);
-  }
-  return (int)cudaGetLastError();
 }
 
 const char* pdt_cuda_error_string(int err) {

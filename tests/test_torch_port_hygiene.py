@@ -78,7 +78,7 @@ def test_import_pulls_in_no_jax():
             "assert _build._loaded == {}, _build._loaded\n"
             "assert rope._fn is None and fused_residual_norm._fns is None\n"
             "assert norms._fns is None\n"
-            "assert quant_matmul._fn is None\n"
+            "assert quant_matmul._fn is None and quant_matmul._tc_fn is None\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -405,7 +405,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
                                 "fused_decode_mlp",
                                 "fused_decode_qkv", "fused_optimizer",
                                 "fused_residual_norm", "norms",
-                                "paged_attention", "quant_matmul", "rope"]
+                                "paged_attention", "quant_matmul",
+                                "quant_matmul_sm90", "rope"]
 
 
 def test_failed_build_names_command_and_stderr(monkeypatch, tmp_path):

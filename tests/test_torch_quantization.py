@@ -7,7 +7,12 @@ against the JAX package.
 * ``weight_only_matmul`` (plain, on the CPU) against the JAX package's
   ``quant_matmul_jnp`` and its Pallas kernel in interpret mode, with
   bias and leading dims: rtol = atol = 1e-5 (fp32, another summation
-  order);
+  order); with bf16 x within ``quant_matmul.tolerance`` (one bf16 step
+  of each rounded value); its x, scale and bias gradients against
+  ``jax.vjp`` through the kernel's custom VJP: 1e-5;
+* the tensor-core route's arithmetic, emulated (fp32 x as three bf16
+  terms, scale after the sum), within ``tolerance`` of the JAX
+  reference at K = 4096, and three faulty variants outside it;
 * the int8-pool ragged and decode paged attention (plain) against the
   JAX entries in interpret mode with scale pools: 1e-5;
 * ``generation.rope_at`` against a JITTED JAX ``rope_at`` (traced
@@ -26,6 +31,7 @@ from paddle_tpu_torch.models.generation import rope_at
 from paddle_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention, ragged_paged_attention,
     ragged_paged_attention_plain)
+from paddle_tpu_torch.ops.cuda import quant_matmul as tqm
 from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul_plain,
                                                     weight_only_matmul)
 
@@ -154,6 +160,120 @@ def test_weight_only_matmul_matches_jax(name):
     np.testing.assert_allclose(
         weight_only_matmul(torch.tensor(x), view, torch.tensor(s),
                            bias=tb).numpy(), ref_jnp, **TOL)
+
+
+@pytest.fixture(scope="module")
+def jqm():
+    pytest.importorskip("jax")
+    from paddle_tpu.ops.pallas import quant_matmul
+    return quant_matmul
+
+
+@pytest.mark.parametrize("name", sorted(MATMUL))
+def test_weight_only_matmul_grad_matches_jax_vjp(jqm, name):
+    """x, scale and bias gradients through the port's autograd rule (the
+    one the card's launch sits under) against ``jax.vjp`` of the Pallas
+    path, which reaches the kernel's custom VJP."""
+    import jax
+    import jax.numpy as jnp
+    x, qw, s, b = _matmul_inputs(name)
+    rng = np.random.default_rng(7)
+    g = rng.normal(size=x.shape[:-1] + (qw.shape[1],)).astype(np.float32)
+    jqw = jnp.asarray(qw)
+
+    def f(x_, s_, *b_):
+        return jqm.weight_only_matmul(x_, jqw, s_, bias=b_[0] if b_ else None,
+                                      impl="pallas_interpret")
+
+    args = (x, s) + (() if b is None else (b,))
+    _, vjp = jax.vjp(f, *map(jnp.asarray, args))
+    refs = vjp(jnp.asarray(g))
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    out = weight_only_matmul(ts[0], torch.tensor(qw), ts[1],
+                             bias=ts[2] if b is not None else None)
+    out.backward(torch.tensor(g))
+    for t, r in zip(ts, refs):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), **TOL)
+
+
+@pytest.mark.parametrize("name", ["decode_m8", "lead_dims_bias",
+                                  "mixed_m40", "odd_k_n_bias"])
+def test_weight_only_matmul_bf16_matches_jax(jqm, name):
+    """bf16 x: the plain version (the CPU path) against the reference's
+    jnp and interpret paths, within one bf16 step of each rounded value
+    plus 2e-5 of sum |x| |q| s (``tolerance``)."""
+    import jax.numpy as jnp
+    x, qw, s, b = _matmul_inputs(name)
+    tx = torch.tensor(x).to(torch.bfloat16)
+    jx = jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16)
+    jb = None if b is None else jnp.asarray(b)
+    tb = None if b is None else torch.tensor(b)
+    out = weight_only_matmul(tx, torch.tensor(qw), torch.tensor(s), bias=tb)
+    assert out.dtype == torch.bfloat16
+    lim = tqm.tolerance(tx, torch.tensor(qw), torch.tensor(s), tb).numpy()
+    for impl in ("jnp", "pallas_interpret"):
+        ref = np.asarray(jqm.weight_only_matmul(jx, qw, s, bias=jb,
+                                                impl=impl).astype(jnp.float32))
+        assert (np.abs(out.float().numpy() - ref) <= lim).all(), impl
+
+
+@pytest.mark.parametrize("m,dtype,want", [
+    (1, torch.float32, "gemv"), (16, torch.float32, "gemv"),
+    (17, torch.float32, "tc"), (128, torch.float32, "tc"),
+    (130, torch.float32, "tc"), (4096, torch.float32, "tc"),
+    (8, torch.bfloat16, "tc"), (300, torch.bfloat16, "tc"),
+    (128, torch.float16, None)])
+def test_route_rule(m, dtype, want):
+    assert tqm.route(m, dtype) == want
+
+
+def _tc_emulate(x, qw, s, fault=None):
+    """The tensor-core route's arithmetic on the CPU: fp32 x split into
+    hi = bf16(x), mid = bf16(x - hi) and lo = bf16(x - hi - mid), the
+    three products accumulated in fp32 (each product of a bf16 and an
+    int8 is exact), the scale after the sum. ``fault``: "drop_mid" (the
+    second plane's product never added), "unsigned" (the int8 weight read
+    as unsigned bytes), "drop_last_tile" (the last K stage, 64 wide for
+    an fp32 x, never added)."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    lo = (x - hi - mid).to(torch.bfloat16).float()
+    q = qw.to(torch.int16)
+    q = (q & 0xFF if fault == "unsigned" else q).float()
+    if fault == "drop_last_tile":
+        q[(x.shape[1] - 1) // 64 * 64:] = 0.0
+    acc = hi @ q
+    if fault != "drop_mid":
+        acc = acc + mid @ q
+    return (acc + lo @ q) * s
+
+
+@pytest.fixture(scope="module")
+def tc_case(jqm):
+    """M 16, K 4096 (a LLaMA-7B projection's K), N 64, and the JAX
+    reference's output, built once."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(16, 4096)).astype(np.float32)
+    qw = rng.integers(-127, 128, size=(4096, 64)).astype(np.int8)
+    s = rng.uniform(1e-4, 2.1e-3, size=(64,)).astype(np.float32)
+    ref = np.asarray(jqm.quant_matmul_jnp(x, qw, s))
+    return [torch.tensor(a) for a in (x, qw, s, ref)]
+
+
+@pytest.mark.parametrize("fault,caught", [(None, False), ("drop_mid", True),
+                                          ("unsigned", True),
+                                          ("drop_last_tile", True)])
+def test_tc_tolerance_holds_split_and_catches_faults(tc_case, fault, caught):
+    """``tolerance`` admits the route's own arithmetic (three bf16
+    terms) and refuses a dropped mid term, an unsigned reading of the
+    weight and a dropped last K stage. (A dropped lo term, at most
+    ``2**-18 |x|`` a term, lies below the limit.)"""
+    x, qw, s, ref = tc_case
+    ratio = float(((_tc_emulate(x, qw, s, fault) - ref).abs()
+                   / tqm.tolerance(x, qw, s)).max())
+    assert (ratio > 1) == caught, ratio
+    if not caught:
+        assert ratio < 0.5, ratio
 
 
 def test_weight_only_linear_layer_matches_jax(jq):
@@ -356,6 +476,89 @@ def test_weight_only_matmul_kernel_matches_plain(cuda, m, k, n):
     # |x| |q| s, plus the bias's rounding
     mag = (x.abs() @ qw.float().abs()) * s + b.abs()
     assert ((out - ref).abs() <= 2e-5 * mag + 1e-6).all()
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (128, 4096, 4096, F32), (128, 11008, 4096, F32), (17, 4096, 512, F32),
+    (200, 4096, 1001, F32), (512, 4096, 4096, F32), (130, 4099, 1001, F32),
+    (8, 4096, 4096, BF16), (128, 4096, 11008, BF16),
+    (128, 11008, 4096, BF16), (8, 4096, 32000, BF16), (40, 4096, 130, BF16),
+    (5, 77, 33, BF16)])
+def test_weight_only_matmul_tc_route_matches_plain(cuda, m, k, n, dtype):
+    """The tensor-core route (every bf16 call; fp32 with M > 16, K
+    padded to a multiple of 16) against the plain version within
+    ``tolerance``, element by element, and the same bits on a second
+    call."""
+    g = torch.Generator(device=cuda).manual_seed(m * 13 + n)
+    x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    qw = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                       dtype=torch.int8).t()
+    s = torch.rand(n, generator=g, device=cuda) * 0.002 + 1e-4
+    b = torch.randn(n, generator=g, device=cuda)
+    assert tqm.route(m, dtype) == "tc"
+    before = (weight_only_matmul.launches, weight_only_matmul.tc_launches)
+    out = weight_only_matmul(x, qw, s, bias=b)
+    ref = quant_matmul_plain(x, qw, s, bias=b)
+    torch.cuda.synchronize()
+    assert (weight_only_matmul.launches,
+            weight_only_matmul.tc_launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and out.shape == (m, n)
+    lim = tqm.tolerance(x, qw, s, b)
+    assert ((out.float() - ref.float()).abs() <= lim).all()
+    assert torch.equal(out, weight_only_matmul(x, qw, s, bias=b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_weight_only_matmul_grad_on_card(cuda, dtype):
+    """x, scale and bias gradients of the kernel path (M 128: the
+    tensor cores) against the plain path's autograd, within
+    ``grad_tolerance``."""
+    m, k, n = 128, 4096, 1024
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x0 = torch.randn(m, k, generator=g, device=cuda).to(dtype)
+    qw = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                       dtype=torch.int8).t()
+    s0 = torch.rand(n, generator=g, device=cuda) * 0.002 + 1e-4
+    b0 = torch.randn(n, generator=g, device=cuda)
+    gy = torch.randn(m, n, generator=g, device=cuda).to(dtype)
+    got, refs = [], []
+    for fn, into in ((weight_only_matmul, got), (quant_matmul_plain, refs)):
+        x, s, b = (t.clone().requires_grad_() for t in (x0, s0, b0))
+        before = weight_only_matmul.tc_launches
+        fn(x, qw, s, bias=b).backward(gy)
+        assert weight_only_matmul.tc_launches == before + (
+            fn is weight_only_matmul)
+        into.extend(t.grad for t in (x, s, b))
+    torch.cuda.synchronize()
+    for a, r, lim in zip(got, refs, tqm.grad_tolerance(x0, qw, s0, gy, refs)):
+        assert a is not None and a.dtype == r.dtype
+        assert ((a.float() - r.float()).abs() <= lim).all()
+
+
+@pytest.mark.gpu
+def test_weight_only_linear_backward_on_card(cuda):
+    """``loss.backward()`` through a ``WeightOnlyLinear`` on the card
+    gives x its gradient (the layer keeps ``scale`` as a buffer)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    lin = torch.nn.Linear(4096, 512, device=cuda)
+    wl = tq.WeightOnlyLinear(lin)
+    x0 = torch.randn(2, 32, 4096, generator=g, device=cuda)
+    gy = torch.randn(2, 32, 512, generator=g, device=cuda)
+    x = x0.clone().requires_grad_()
+    (wl(x) * gy).sum().backward()
+    xr = x0.clone().requires_grad_()
+    (quant_matmul_plain(xr, wl.qweight.t(), wl.scale, wl.bias)
+     * gy).sum().backward()
+    torch.cuda.synchronize()
+    assert x.grad is not None and wl.bias.grad is not None
+    lim = tqm.grad_tolerance(x0.reshape(64, 4096), wl.qweight.t(), wl.scale,
+                             gy.reshape(64, 512), [None] * 3)[0]
+    assert ((x.grad - xr.grad).abs().reshape(64, 4096) <= lim).all()
 
 
 @pytest.mark.gpu
