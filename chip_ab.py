@@ -1,7 +1,7 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve} ROOT [ROOT ...]
-    python3 chip_ab.py groups ROOT
+    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
+    python3 chip_ab.py groups ROOT [NAME ...]
     python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
@@ -16,17 +16,26 @@ launch), or the weight-only matmul's kernel cases (``qmm``: kernel ms
 per case) or the LLaMA-7B weight-only int8 serve phase (``qserve``:
 tokens/s, host ms per mixed step and per decode dispatch, the profiled
 run's device time by kernel, and the served logits' largest gap to the
-plain forward), from each ROOT in the order given, each in a process of its
-own, and prints one ``AB`` JSON line per run. Give the roots in turns (old, new, new, old) so that
+plain forward), or the paged attention's kernel cases (``attn``: ms and
+max abs error per case) or the fused optimizer update's (``opt``: ms per
+case, and fused AdamW's), both at THIS checkout's cases (its
+``chip_smoke.attention_cases`` and ``optimizer_cases``, run against
+ROOT's kernels; ``attn_splits``: the attention's decode-route cases at
+several decode split lengths, in turns; ``attn_probe``: each case as
+served, with every kv_len 1 and with every q_len 0), from each ROOT in the order given, each in a process of its
+own, and prints one ``AB`` JSON line per run. Give the roots in turns
+(old, new, new, old) so that
 drift of the card or its host shows. Needs a card; the kernels build
 in each ROOT.
 
 ``groups`` builds copies of ROOT's port under ``ROOT/_chipcopy/groups/``
-that differ only in how many weight rows a warp dots at once
-(``GROUPS``: the per-head ingress, the SwiGLU egress, the epilogue) and
-prints, for each copy, that kernel's ms at the LLaMA-7B decode shapes
-(B = 8 and 1; the epilogue also at GPT-124M's) and a sha256 of its
-outputs.
+that differ only in one constant (``GROUPS``, or the NAMEs given): how
+many weight rows a warp dots at once in the per-head ingress, the SwiGLU
+egress and the epilogue, for which it prints that kernel's ms at the
+LLaMA-7B decode shapes (B = 8 and 1; the epilogue also at GPT-124M's)
+and a sha256 of its outputs; and how many resident CTAs the paged
+attention's mixed route plans a unit for (``attn_units``), for which it
+prints the mixed cases' ms and max abs error.
 
 ``ptxas`` compiles each ``csrc/SOURCE.cu`` of ROOT with the port's
 ``nvcc`` flags and ``--resource-usage`` into a scratch file under
@@ -35,6 +44,7 @@ shared memory for each kernel.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import re
 import shutil
@@ -45,7 +55,9 @@ from pathlib import Path
 # kernel: (source, the constant that sets the group, the sizes tried)
 GROUPS = {"qkv": ("fused_decode_qkv.cu", "kHeadCols", (1, 2, 4)),
           "swiglu": ("fused_decode_mlp.cu", "kGroup", (2, 4)),
-          "epilogue": ("fused_decode_mlp.cu", "kEpiGroup", (1, 2, 4))}
+          "epilogue": ("fused_decode_mlp.cu", "kEpiGroup", (1, 2, 4)),
+          # the paged attention's mixed route: resident CTAs a unit
+          "attn_units": ("paged_attention.cu", "kCtasPerUnit", (1, 2, 4, 8))}
 
 
 def _one(what, root):
@@ -68,6 +80,26 @@ def _one(what, root):
         out = {name: {r["case"]: r["ms"] for r in rs}
                for name, rs in rows.items()}
         out["sha256"] = _decode_digests()
+    elif what == "attn_units":
+        # the mixed route's cases (this copy's kernel): ms and max abs error
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+        from paddle_tpu_torch.ops.cuda import paged_attention as pa
+        gen = torch.Generator().manual_seed(0)
+        out = {}
+        for (name, kvl, ql, hq, hk, d, ps, qb, pages, width,
+             T) in chip_smoke.attention_cases(0):
+            if pa.route(qb, hq // hk) != "mixed":
+                continue
+            args, sc = chip_smoke._attn_case(gen, kvl, ql, hq, hk, d, ps, qb,
+                                             pages, width, T,
+                                             int8="int8" in name)
+            err = float((pa.ragged_paged_attention(*args, q_block=qb, **sc)
+                         - pa.ragged_paged_attention_plain(
+                             *args, q_block=qb, **sc)).abs().max())
+            out[name] = {"ms": chip_smoke._time_ms(
+                lambda: pa.ragged_paged_attention(*args, q_block=qb, **sc),
+                50, flush, spin=True), "max_abs_err": err}
+            del args, sc
     elif what in GROUPS:
         out = _group_times(chip_smoke, what)
     elif what == "rms":
@@ -75,6 +107,68 @@ def _one(what, root):
     elif what == "qmm":
         out = {r["case"]: r["ms"]
                for r in chip_smoke.quant_matmul_cases(0, "")}
+    elif what == "attn_splits":
+        # the decode route's split length (DECODE_SPLIT) in turns, ROOT's
+        # kernel at this checkout's cases
+        from paddle_tpu_torch.ops.cuda import paged_attention as pa
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_cases", Path(__file__).resolve().parent
+            / "chip_smoke.py")
+        cases = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cases)
+        out = []
+        for split in (64, 128, 256, 512, 256, 128, 64):
+            pa.DECODE_SPLIT = split
+            out.append({"decode_split": split,
+                        "ms": {r["case"]: r["ms"] for r in
+                               cases.kernel_phase(0, "")
+                               if r["route"] == "decode"}})
+    elif what == "attn_probe":
+        # each attention case as served, with every kv_len 1 (the least
+        # work), and with every q_len 0 (no unit: the launch, the plan and
+        # the zeroed rows alone)
+        from paddle_tpu_torch.ops.cuda import paged_attention as pa
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_cases", Path(__file__).resolve().parent
+            / "chip_smoke.py")
+        cases = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cases)
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+        gen = torch.Generator().manual_seed(0)
+        out = {}
+        for (name, kvl, ql, hq, hk, d, ps, qb, pages, width,
+             T) in cases.attention_cases(0):
+            args, sc = cases._attn_case(gen, kvl, ql, hq, hk, d, ps, qb,
+                                        pages, width, T, int8="int8" in name)
+            q, k, v, bt, kv, qlen = args
+            row = {}
+            for what_, kv_, ql_ in (("served", kv, qlen),
+                                    ("kv_len_1", torch.ones_like(kv), qlen),
+                                    ("q_len_0", kv, torch.zeros_like(qlen))):
+                row[what_] = cases._time_ms(
+                    lambda: pa.ragged_paged_attention(
+                        q, k, v, bt, kv_, ql_, q_block=qb, **sc), 50, flush,
+                    spin=True)
+            out[name] = row
+            del args, sc, q, k, v
+            torch.cuda.empty_cache()
+    elif what in ("attn", "opt"):
+        # this checkout's cases, ROOT's kernels (ROOT is first on sys.path)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_cases", Path(__file__).resolve().parent
+            / "chip_smoke.py")
+        cases = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cases)
+        if what == "attn":
+            out = {r["case"]: {"ms": r["ms"], "max_abs_err": r["max_abs_err"],
+                               "bound_ms": r["bound_ms"]}
+                   for r in cases.kernel_phase(0, "", check_routes=False)}
+        else:
+            flush = torch.empty(64 * 2**20, dtype=torch.float32,
+                                device="cuda")
+            out = {r["case"]: {"ms": r["ms"], "library_ms": r["library_ms"],
+                               "bound_ms": r["bound_ms"]}
+                   for r in cases.optimizer_cases(0, "", flush)}
     elif what == "qserve":
         q = chip_smoke.llama_serve_phase(0)
         out = {k: q[k] for k in ("tokens_per_s", "mixed_step_ms",
@@ -259,12 +353,14 @@ def _group_times(chip_smoke, what):
     return out
 
 
-def _group_copies(root):
-    """One copy of ROOT's port a group size, under ROOT/_chipcopy/groups:
-    [(kernel, size, copy root)]."""
+def _group_copies(root, names=()):
+    """One copy of ROOT's port a group size, under ROOT/_chipcopy/groups,
+    for each of GROUPS (or of ``names``): [(kernel, size, copy root)]."""
     base = Path(root).resolve()
     out = []
     for what, (src, const, sizes) in GROUPS.items():
+        if names and what not in names:
+            continue
         for n in sizes:
             dst = base / "_chipcopy" / "groups" / f"{what}{n}"
             shutil.rmtree(dst, ignore_errors=True)
@@ -309,15 +405,17 @@ def main(argv):
     if len(argv) >= 3 and argv[0] == "--one":
         _one(argv[1], argv[2])
         return 0
-    if len(argv) == 2 and argv[0] == "groups":
-        for what, n, root in _group_copies(argv[1]):
+    if len(argv) >= 2 and argv[0] == "groups":
+        for what, n, root in _group_copies(argv[1], argv[2:]):
             print("GROUP", json.dumps({"kernel": what, "group": n}),
                   flush=True)
             subprocess.run([sys.executable, __file__, "--one", what, root],
                            check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
-                                        "rms", "qmm", "qserve"):
+                                        "rms", "qmm", "qserve", "attn",
+                                        "opt", "attn_splits",
+                                        "attn_probe"):
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv[1:]:

@@ -8,15 +8,20 @@ card.
    (one ``nvcc`` per source, all started together).
 2. Kernel phase, each kernel against its plain PyTorch version on the
    card at the shapes its main path gives it, timed with CUDA events
-   with the L2 flushed before each launch, beside the least time the
-   card could take (bound) and, where one PyTorch call computes the
-   same function, that call's time (never used by the port):
+   with the L2 flushed before each launch (rows 1-8 and 17 also behind a
+   ~1 ms device spin, so the events time the device's work and not the
+   host's enqueue), beside the least time the card could take (bound)
+   and, where one PyTorch call computes the same function, that call's
+   time (never used by the port):
    * ``ragged_paged_attention`` at the serve phase's engine shapes (a
      mixed prefill + decode step and a decode step at GPT-124M widths)
      and one GQA case; with int8 pools and scale pools at the LLaMA-7B
      quantized serve phase's shapes (mixed and decode, 32 heads of 128,
      pools ``[32, 1025, 16, 128]``) and a GQA case (32 q heads on 8 kv
-     heads); max abs error <= 2e-5 (fp32);
+     heads); with fp32 pools at the fp32 LLaMA-7B serves' shapes (mixed
+     and decode); each on the route ``paged_attention.route`` names (a
+     mixed step the tensor-core route, a decode step the decode route,
+     each launch counted on its route): max abs error <= 2e-5 (fp32);
    * ``flash_attention_fwd`` / ``flash_attention_bwd`` at the train
      phase's shape (q, k, v ``[8, 1024, 12, 64]`` bf16 causal, the
      unbound views of a packed qkv), an fp32 case with Sq != Sk, a
@@ -39,7 +44,8 @@ card.
      LayerNorm params, padded), the bf16 bucket with a clip scale and
      the LLaMA train phase's bucket (1,071,681,536 bf16 params):
      fp32 state within 1e-6 of its largest value, bf16 weights within
-     one bf16 rounding;
+     one bf16 rounding; bound by 28 B a parameter (with fp32 masters
+     the kernel never reads w);
    * ``fused_decode_qkv``, ``fused_decode_mlp`` and
      ``fused_decode_epilogue`` at the LLaMA-7B megakernel serve's shapes
      (hidden 4096, 32 heads of 128, intermediate 11008, the untied head
@@ -95,7 +101,8 @@ card.
    ``ContinuousBatchingEngine`` serves 16 requests (prompts 16-512
    tokens, 32 new tokens each). Every request must finish by length,
    the page pool must be conserved, and every dispatch must launch the
-   attention kernel once per layer per step. A teacher-forced plain
+   attention kernel once per layer per step (a mixed step on its mixed
+   route, a decode step on its decode route). A teacher-forced plain
    fp32 forward must pick every served token, except where its top-2
    margin is below 1e-4 (a near tie). One more run under
    ``torch.profiler`` breaks the device time down by kernel, and one
@@ -187,7 +194,8 @@ card.
 7. LLaMA parity: one fp32 AdamW step with glue on (LLaMA-7B widths, 1
    layer, batch 1 x 256) on the card against a CPU copy.
 8. Prints the ``train`` JSON line, the ``kernels`` JSON line (eighteen
-   kernels, each with the launches of its own path: the three fused
+   kernels, each with the launches of its own path, the paged
+   attention's also by route for every serve path: the three fused
    decode kernels those of the fp32 LLaMA-7B megakernel serve,
    ``fused_decode_mlp_partial`` those of the LLaMA-7B TP=2 megakernel
    leg's rank 0, with every megakernel path's count beside them; with
@@ -278,40 +286,46 @@ def build():
     return secs
 
 
-class _TcRoute:
-    """A wrapper's tensor-core route count (flash attention, the
-    weight-only matmul), read and reset like a wrapper's ``launches``
-    (``tc_launches`` beside ``launches``)."""
+class _Route:
+    """A wrapper's count of one route's launches (``tc_launches`` of
+    flash attention and the weight-only matmul, ``mixed_launches`` and
+    ``decode_launches`` of the paged attention), read and reset like a
+    wrapper's ``launches``."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, attr="tc_launches"):
         self.fn = fn
+        self.attr = attr
 
     @property
     def launches(self):
-        return self.fn.tc_launches
+        return getattr(self.fn, self.attr)
 
     @launches.setter
     def launches(self, n):
-        self.fn.tc_launches = n
+        setattr(self.fn, self.attr, n)
 
 
 def counters():
-    """Every kernel wrapper's launch counter, by kernel name, and the
+    """Every kernel wrapper's launch counter, by kernel name, the
     tensor-core route counts (``*_tc``) of the flash wrappers and the
-    weight-only matmul."""
+    weight-only matmul, and the paged attention's by route (``*_mixed``,
+    ``*_decode``)."""
     from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
                                            fused_decode_qkv, fused_optimizer,
                                            fused_residual_norm, norms,
                                            paged_attention, quant_matmul,
                                            rope)
     frn = fused_residual_norm
-    return {"ragged_paged_attention": paged_attention.ragged_paged_attention,
+    rpa = paged_attention.ragged_paged_attention
+    return {"ragged_paged_attention": rpa,
+            "ragged_paged_attention_mixed": _Route(rpa, "mixed_launches"),
+            "ragged_paged_attention_decode": _Route(rpa, "decode_launches"),
             "flash_attention_fwd": flash_attention.flash_attention_fwd,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "flash_attention_fwd_tc":
-                _TcRoute(flash_attention.flash_attention_fwd),
+                _Route(flash_attention.flash_attention_fwd),
             "flash_attention_bwd_tc":
-                _TcRoute(flash_attention.flash_attention_bwd),
+                _Route(flash_attention.flash_attention_bwd),
             "fused_update": fused_optimizer.fused_update,
             "fused_decode_qkv": fused_decode_qkv.fused_decode_qkv,
             "fused_decode_mlp": fused_decode_mlp.fused_decode_mlp,
@@ -325,7 +339,7 @@ def counters():
                 fused_residual_norm.fused_residual_rms_norm_bwd,
             "weight_only_matmul": quant_matmul.weight_only_matmul,
             "weight_only_matmul_tc":
-                _TcRoute(quant_matmul.weight_only_matmul),
+                _Route(quant_matmul.weight_only_matmul),
             "fused_residual_layer_norm_fwd":
                 frn.fused_residual_layer_norm_fwd,
             "fused_residual_layer_norm_bwd":
@@ -390,11 +404,13 @@ def _attn_case(gen, kv_lens, q_lens, hq, hk, d, ps, q_block, total_pages,
             torch.tensor(q_lens, dtype=torch.int32, device=dev)), scales
 
 
-def _bound(kv_lens, q_lens, hq, hk, d, page_size, int8=False):
+def _bound(kv_lens, q_lens, hq, hk, d, page_size, int8=False, tc=False):
     """Least time for the work these inputs need: each needed K/V token
     read once per kv head (fp32: 4 d bytes; int8: d bytes and a 4-byte
     scale), q read and o written once; 4 d flops per attended (row,
-    head, kv position) plus ~5 for the softmax."""
+    head, kv position) plus ~5 for the softmax, at the bf16 tensor-core
+    rate on the tensor-core route (``tc``), else the fp32 CUDA-core
+    rate."""
     per_tok = d + 4 if int8 else 4 * d
     nbytes = flops = 0
     for kv, ql in zip(kv_lens, q_lens):
@@ -405,7 +421,7 @@ def _bound(kv_lens, q_lens, hq, hk, d, page_size, int8=False):
         flops += hq * attended * (4 * d + 5)
     nbytes += len(kv_lens) * (2 + -(-max(kv_lens) // page_size)) * 4
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS_PER_S if tc else FP32_FLOPS_PER_S) * 1e3
     return (max(t_mem, t_ops), "bytes" if t_mem >= t_ops else "operations",
             nbytes, flops)
 
@@ -433,26 +449,24 @@ def _time_ms(fn, n, flush, spin=False):
     return sum(s.elapsed_time(e) for s, e in evs) / n
 
 
-def kernel_phase(seed, power):
-    """Kernel vs plain on the card. The two GPT-124M cases have the
-    shapes the serve phase's engine gives the kernel (``GEO``); the GQA
-    case is a LLaMA-like head layout. The int8 cases have the shapes the
-    LLaMA-7B quantized serve phase gives it (32 kv heads of 128, pools
-    ``[32, 1025, 16, 128]`` int8 with ``[32, 1025, 16]`` scales, tables
-    ``[8, 128]``, the serve phase's lengths up to 544 tokens), plus a GQA
-    case (32 q heads on 8 kv heads)."""
-    from paddle_tpu_torch.ops.cuda.paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_plain)
-    gen = torch.Generator().manual_seed(seed)
+def attention_cases(seed):
+    """The paged attention's kernel cases: (name, kv_lens, q_lens, hq,
+    hk, d, page_size, q_block, total pages, table width, packed tokens).
+    The GPT-124M cases have the shapes the serve phase's engine gives the
+    kernel (``GEO``); the GQA cases a LLaMA-like head layout (32 q heads
+    on 8 kv heads). The LLaMA-7B cases have the shapes the LLaMA-7B serve
+    phases give it (32 kv heads of 128, pools ``[32, 1025, 16, 128]``:
+    int8 with ``[32, 1025, 16]`` scales in the quantized serve, fp32 in
+    the fp32 serves; tables ``[8, 128]``, the serve phase's lengths up to
+    544 tokens)."""
     rng = np.random.default_rng(seed)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     slots, ps, qb = GEO["max_slots"], GEO["page_size"], GEO["q_block"]
     NP = 1024 // ps                               # GPT-124M max_seq_len
     pages = 1 + slots * NP
     budget = slots * qb + GEO["prefill_chunk"]
     NP7 = 2048 // ps                              # LLaMA-7B max_seq_len
     longest = 512 + NEW_TOKENS
-    rng7 = np.random.default_rng(seed + 7)        # the int8 cases' own
+    rng7 = np.random.default_rng(seed + 7)        # the LLaMA cases' own
     kv7 = [int(x) for x in rng7.integers(16, longest + 1, slots)]
     kv7[1] = max(kv7[1], 64)                      # the prefill chunk's
     kv7[3] = 1
@@ -461,9 +475,8 @@ def kernel_phase(seed, power):
     kv_mixed = [int(x) for x in rng.integers(64, 1025, slots)]
     kv_mixed[3] = 1
     q_mixed = [1, 64, 1, 0, 1, 1, 1, 1]
-    cases = [
-        # name, kv_lens, q_lens, hq, hk, d, page_size, q_block, pages,
-        # table width, packed tokens
+    kv7_decode = [int(x) for x in rng7.integers(16, longest + 1, slots)]
+    return [
         ("gpt124m_mixed", kv_mixed, q_mixed, 12, 12, 64, ps, qb, pages,
          NP, budget),
         ("gpt124m_decode", [int(x) for x in rng.integers(1, 1025, slots)],
@@ -472,19 +485,46 @@ def kernel_phase(seed, power):
          [64, 1, 17, 1], 32, 8, 128, 16, 8, 257, None, None),
         ("llama7b_int8_mixed", kv7, q_mixed, 32, 32, 128, ps, qb,
          1 + slots * NP7, NP7, budget),
-        ("llama7b_int8_decode",
-         [int(x) for x in rng7.integers(16, longest + 1, slots)],
-         [1] * slots, 32, 32, 128, ps, 1, 1 + slots * NP7, NP7, slots),
+        ("llama7b_int8_decode", kv7_decode, [1] * slots, 32, 32, 128, ps, 1,
+         1 + slots * NP7, NP7, slots),
         ("int8_gqa_32q_8kv_d128",
          [int(x) for x in rng7.integers(64, 1025, 4)], [64, 1, 17, 1], 32,
          8, 128, 16, 8, 257, None, None),
+        ("llama7b_fp32_mixed", kv7, q_mixed, 32, 32, 128, ps, qb,
+         1 + slots * NP7, NP7, budget),
+        ("llama7b_fp32_decode", kv7_decode, [1] * slots, 32, 32, 128, ps, 1,
+         1 + slots * NP7, NP7, slots),
     ]
+
+
+def kernel_phase(seed, power, check_routes=True):
+    """Kernel vs plain on the card, at :func:`attention_cases`' shapes,
+    each case on the route ``paged_attention.route`` names (its launch
+    counted on that route, with ``check_routes``), within TOL of the
+    plain version in every element; beside its bound (the tensor-core
+    rate for the mixed route's operations)."""
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    ragged_paged_attention = pa.ragged_paged_attention
+    ragged_paged_attention_plain = pa.ragged_paged_attention_plain
+    gen = torch.Generator().manual_seed(seed)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = []
-    for name, kvl, ql, hq, hk, d, ps, qb, pages, width, T in cases:
+    for (name, kvl, ql, hq, hk, d, ps, qb, pages, width,
+         T) in attention_cases(seed):
         int8 = "int8" in name
         args, sc = _attn_case(gen, kvl, ql, hq, hk, d, ps, qb, pages, width,
                               T, int8=int8)
+        which = pa.route(qb, hq // hk) if check_routes else None
+        before = (ragged_paged_attention.mixed_launches,
+                  ragged_paged_attention.decode_launches) \
+            if check_routes else None
         out = ragged_paged_attention(*args, q_block=qb, **sc)
+        if check_routes:
+            got = (ragged_paged_attention.mixed_launches - before[0],
+                   ragged_paged_attention.decode_launches - before[1])
+            if got != ((1, 0) if which == "mixed" else (0, 1)):
+                raise AssertionError(f"{name}: launches by route (mixed, "
+                                     f"decode) {got}, want one {which}")
         ref = ragged_paged_attention_plain(*args, q_block=qb, **sc)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -492,24 +532,28 @@ def kernel_phase(seed, power):
             raise AssertionError(f"{name}: kernel vs plain max abs error "
                                  f"{err:.3g} > {TOL}")
         ms = _time_ms(lambda: ragged_paged_attention(*args, q_block=qb,
-                                                     **sc), 100, flush)
+                                                     **sc), 100, flush,
+                      spin=True)
         plain_ms = _time_ms(
             lambda: ragged_paged_attention_plain(*args, q_block=qb, **sc),
-            5, flush)
-        bound_ms, bound_by, nbytes, flops = _bound(kvl, ql, hq, hk, d,
-                                                   ps, int8)
-        row = dict(case=name, pools="int8" if int8 else "fp32",
+            5, flush, spin=True)
+        bound_ms, bound_by, nbytes, flops = _bound(
+            kvl, ql, hq, hk, d, ps, int8, tc=which == "mixed")
+        row = dict(case=name, pools="int8" if int8 else "fp32", route=which,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                    flops=flops, q_shape=list(args[0].shape),
                    pool_shape=list(args[1].shape),
                    table_shape=list(args[3].shape), kv_lens=kvl,
                    q_lens=ql, q_block=qb)
-        log(f"kernel {name} q {row['q_shape']} pools {row['pool_shape']} "
-            f"tables {row['table_shape']}: max_abs_err {err:.3g}, "
-            f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
-            f"ms by {bound_by}, {bound_ms / ms:.1%} of bound) on {power}")
+        log(f"kernel {name} ({which} route) q {row['q_shape']} pools "
+            f"{row['pool_shape']} tables {row['table_shape']}: max_abs_err "
+            f"{err:.3g}, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
+            f"bound) on {power}")
         rows.append(row)
+        del args, sc, out, ref
+        torch.cuda.empty_cache()
     del flush
     return rows
 
@@ -725,10 +769,14 @@ def optimizer_cases(seed, power, flush):
         ref = {k: None if t is None else t.clone() for k, t in state.items()}
         b1p = torch.tensor(0.9 ** 4, device=dev)
         b2p = torch.tensor(0.999 ** 4, device=dev)
-        kw = dict(lr=1e-4, clip_scale=clip, b1p=b1p, b2p=b2p)
-        fo.fused_update(spec, **state, **kw)
         lr = torch.tensor(1e-4, device=dev)
         scale = torch.tensor(1.0 if clip is None else clip, device=dev)
+        # lr and the clip scale as device tensors, as the optimizer passes
+        # them: a Python number would become a tensor by a pageable copy,
+        # which waits for the stream, inside the timed call
+        kw = dict(lr=lr, clip_scale=None if clip is None else scale,
+                  b1p=b1p, b2p=b2p)
+        fo.fused_update(spec, **state, **kw)
         fo.fused_update_plain(spec, lr, scale, ref["w"], ref["g"],
                               ref["master"], ref["m"], ref["v"],
                               b1p * 0.9, b2p * 0.999)
@@ -748,21 +796,25 @@ def optimizer_cases(seed, power, flush):
             err = max(err, e)
         del ref
         ms = _time_ms(lambda: fo.fused_update(spec, **state, **kw), 10,
-                      flush)
+                      flush, spin=True)
         plain_ms = _time_ms(lambda: fo.fused_update_plain(
             spec, lr, scale, state["w"], state["g"], state["master"],
-            state["m"], state["v"], b1p * 0.9, b2p * 0.999), 3, flush)
+            state["m"], state["v"], b1p * 0.9, b2p * 0.999), 3, flush,
+            spin=True)
         lib_ms = None
         if dt == torch.bfloat16 and clip is None:
             p = torch.nn.Parameter(state["master"].clone())
             p.grad = state["g"].float()
             lib = torch.optim.AdamW([p], lr=1e-4, weight_decay=0.01,
                                     fused=True)
-            lib_ms = _time_ms(lib.step, 10, flush)
+            lib_ms = _time_ms(lib.step, 10, flush, spin=True)
             del p, lib
         esize = 2 if dt == torch.bfloat16 else 4
-        # w read + written, g read, m and v (and master) read + written
-        nbytes = n * (3 * esize + (6 if use_master else 4) * 4)
+        # g read, w written, m and v (and master) read + written; w read
+        # only without a master (the master holds its value): 28 B a
+        # parameter either way
+        nbytes = n * ((2 if use_master else 3) * esize
+                      + (6 if use_master else 4) * 4)
         bound_ms = nbytes / MEM_BYTES_PER_S * 1e3
         row = dict(case=name, n=n, dtype=str(dt).replace("torch.", ""),
                    clip=clip, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1499,9 +1551,11 @@ def _drive(eng, on_card):
     """Step ``eng`` to the drain. Per dispatch, the kernel launches must be
     what the path makes: a forward (a mixed step, or each decode step: the
     bootstrap's one, or each of a window's ``decode_window``) launches the
-    attention once per layer and ``weight_only_matmul`` once per
-    weight-only projection of the model (none for a float model), in a
-    mixed step every one of them on the tensor cores; a
+    attention once per layer (a mixed step's on the attention's mixed
+    route, a decode step's on its decode route) and
+    ``weight_only_matmul`` once per weight-only projection of the model
+    (none for a float model), in a mixed step every one of them on the
+    tensor cores; a
     decode step with ``megakernel`` also ``fused_decode_qkv`` and
     ``fused_decode_mlp`` (under tensor parallelism
     ``fused_decode_mlp_partial`` instead) once per layer and
@@ -1533,12 +1587,15 @@ def _drive(eng, on_card):
         got = {k: after[k] - before[k] for k in after}
         if eng.stats["mixed_steps"] > st["mixed_steps"]:
             kind, k = "mixed", 1
-            want = {"ragged_paged_attention": L, "weight_only_matmul": n_mm,
+            want = {"ragged_paged_attention": L,
+                    "ragged_paged_attention_mixed": L,
+                    "weight_only_matmul": n_mm,
                     "weight_only_matmul_tc": n_mm}
         elif eng.stats["decode_dispatches"] > st["decode_dispatches"]:
             kind = "decode"
             k = 1 if single else eng.decode_window
             want = {"ragged_paged_attention": L * k,
+                    "ragged_paged_attention_decode": L * k,
                     "weight_only_matmul": n_mm * k}
             if eng.megakernel:
                 want.update(fused_decode_qkv=L * k, fused_decode_epilogue=k)
@@ -1546,8 +1603,9 @@ def _drive(eng, on_card):
                      else "fused_decode_mlp"] = L * k
         else:
             continue
-        want = {n: want.get(n, 0) for n in ("ragged_paged_attention",)
-                + fused}
+        want = {n: want.get(n, 0) for n in (
+            "ragged_paged_attention", "ragged_paged_attention_mixed",
+            "ragged_paged_attention_decode") + fused}
         if on_card and {n: got[n] for n in want} != want:
             raise AssertionError(f"{kind} dispatch (single step: {single}) "
                                  f"launched {got}, want {want}")
@@ -3573,6 +3631,17 @@ def main(argv=None):
     attn_paths.update({f"llama7b_fp32_serve_{n}": r["launches"]
                        for n, r in llama_fp.items() if n != "turns"})
     attn_paths.update({n: r["launches"] for n, r in tp.items()})
+    attn_runs = {"gpt_serve": serve, "gpt_serve_megakernel": serve_mk,
+                 "gpt_serve_megakernel_int8_kv": serve_mk8,
+                 "llama7b_int8_serve": llama_q}
+    attn_runs.update({f"llama7b_fp32_serve_{n}": r
+                      for n, r in llama_fp.items() if n != "turns"})
+    attn_runs.update(tp)
+    attn_routes = {n: {w: r["counts"][f"ragged_paged_attention_{w}"]
+                       for w in ("mixed", "decode")}
+                   for n, r in attn_runs.items()}
+    if any(min(v.values()) <= 0 for v in attn_routes.values()):
+        raise AssertionError(f"attention launches by route: {attn_routes}")
     mk_runs = {"gpt_serve_megakernel": serve_mk,
                "gpt_serve_megakernel_int8_kv": serve_mk8,
                "llama7b_fp32_serve_fp32_megakernel": llama_mk,
@@ -3607,7 +3676,11 @@ def main(argv=None):
             "library_ms": main_row.get("library_ms"),
             "shape": main_row["case"], "cases": cases})
         if kname == "ragged_paged_attention":
+            # mixed steps take the tensor-core route, decode steps the
+            # decode route (each dispatch checked in _drive)
             out[-1]["launches_by_path"] = attn_paths
+            out[-1]["launches_by_route"] = attn_routes
+            out[-1]["routes"] = {r["case"]: r["route"] for r in cases}
         if kname in fused_paths:
             out[-1]["launches_by_path"] = fused_paths[kname]
         if kname.startswith("flash_attention"):

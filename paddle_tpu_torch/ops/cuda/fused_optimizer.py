@@ -11,7 +11,10 @@ decoupled decay and the master-weight cast.
 The kernel (``csrc/fused_optimizer.cu``, CUDA C++ rather than Triton:
 one build path for all the port's kernels) updates w, m, v and the
 master weights IN PLACE, as the TPU kernel's ``input_output_aliases``
-donate them: the returned tensors are the ones passed in. The four
+donate them: the returned tensors are the ones passed in. It takes runs
+of 8 elements with 16-byte loads and stores from the first element at
+which every array is 16-byte aligned (:func:`vector_plan`), and the
+elements outside the runs one at a time. The four
 scalars (lr, clip scale, advanced beta powers) travel in a small device
 tensor, so no host sync happens. CPU tensors take the plain version,
 :func:`_math` transcribed op for op from the JAX package, and write its
@@ -29,6 +32,8 @@ __all__ = ["UpdateSpec", "fused_update", "fused_update_plain"]
 _KINDS = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 3}
 _REGS = {None: 0, "l2": 1, "l1": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+RUN = 8            # elements a thread takes a turn (one 16-byte bf16 load)
 
 _fn = None
 
@@ -67,13 +72,25 @@ def _kernel():
         lib = load("fused_optimizer")
         f = lib.pdt_fused_update
         f.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                      + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                      + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5
                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
         _fn = (f, lib.pdt_cuda_error_string)
     return _fn
+
+
+def vector_plan(n, arrays):
+    """``(head, runs)``: the kernel takes ``runs`` runs of RUN elements
+    from element ``head``, where every array of ``arrays`` (``(address,
+    element bytes)`` pairs) is 16-byte aligned, and the ``n - RUN * runs``
+    others one at a time. Arrays that share no such element give
+    ``(n, 0)``: every element one at a time."""
+    for head in range(RUN):
+        if head <= n and all((a + head * e) % 16 == 0 for a, e in arrays):
+            return head, (n - head) // RUN
+    return n, 0
 
 
 def _folded_grad(spec, g, w32, scale):
@@ -219,12 +236,16 @@ def _launch(spec, dev, lr, scale, w, g, master, m, v, nb1, nb2):
         return None if t is None else t.data_ptr()
 
     reg = spec.reg if spec.reg_coeff else None
+    n = w.numel()
+    head, runs = vector_plan(n, [(t.data_ptr(), t.element_size())
+                                 for t in (w, g, master, m, v)
+                                 if t is not None])
     fn, err_str = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(_DTYPE_CODE[w.dtype], w.data_ptr(), g.data_ptr(),
-                ptr(master), ptr(m), ptr(v), scal.data_ptr(), w.numel(),
-                _KINDS[spec.kind], int(spec.has_clip), _REGS[reg],
+                ptr(master), ptr(m), ptr(v), scal.data_ptr(), n, head,
+                runs, _KINDS[spec.kind], int(spec.has_clip), _REGS[reg],
                 int(spec.use_master), int(spec.nesterov), spec.beta1,
                 spec.beta2, 1 - spec.beta1, 1 - spec.beta2, spec.eps,
                 spec.momentum, spec.rescale, spec.decay, spec.reg_coeff,

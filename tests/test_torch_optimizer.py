@@ -15,7 +15,11 @@ fp32 and with bf16 params and fp32 master weights.
 On a card (``-m gpu``) the CUDA kernel is held against the plain
 version on the same inputs: the kernel performs the plain version's
 operations in its order without FMA contraction, so the tolerance is
-1e-6 relative for fp32 state and one bf16 rounding for bf16 weights.
+1e-6 relative for fp32 state and one bf16 rounding for bf16 weights;
+and, at lengths that are not a multiple of the kernel's 8-element runs
+and on views at odd offsets (the runs start later, or not at all),
+bitwise against the plain version on the card. The plan of those runs
+(``vector_plan``) is a plain function tested on the CPU.
 """
 import numpy as np
 import pytest
@@ -155,6 +159,26 @@ def test_fused_update_updates_in_place_and_validates():
     with pytest.raises(ValueError, match="must match"):
         tfo.fused_update(tfo.UpdateSpec(kind="sgd"), w=w,
                          g=g.to(torch.bfloat16), lr=0.1)
+
+
+@pytest.mark.parametrize("n,arrays,want", [
+    (100, [(0, 2), (0, 2), (256, 4)], (0, 12)),       # all aligned
+    (100, [(6, 2), (6, 2), (12, 4), (12, 4)], (5, 11)),   # a view at 3
+    (20, [(8, 4), (8, 4)], (2, 2)),                    # fp32 at 2
+    (100, [(2, 2), (0, 4)], (100, 0)),                 # no common run
+    (5, [(2, 2)], (5, 0)),                             # shorter than a head
+    (7, [(0, 2), (0, 4)], (0, 0)),                     # shorter than a run
+])
+def test_vector_plan(n, arrays, want):
+    """The kernel's runs start at the first element where every array
+    is 16-byte aligned and cover whole runs of 8; the rest go one at a
+    time."""
+    head, runs = tfo.vector_plan(n, arrays)
+    assert (head, runs) == want
+    assert head + tfo.RUN * runs <= n
+    for a, e in arrays:
+        if runs:
+            assert (a + head * e) % 16 == 0
 
 
 # ------------------------------------------------------------ card --
@@ -406,3 +430,57 @@ def test_master_update_reads_the_unrounded_fp32_main_grad(name, fused):
     np.testing.assert_array_equal(
         p.detach().float().numpy(),
         torch.tensor(master).to(torch.bfloat16).float().numpy())
+
+
+def _views(n, offsets, master, device, seed=3):
+    """w, g, master, m, v of length n, each a view at ``offsets[i]``
+    elements into a larger buffer (a misaligned start)."""
+    gen = torch.Generator().manual_seed(seed)
+    dt = torch.bfloat16 if master else torch.float32
+
+    def view(x, off, dtype):
+        buf = torch.zeros(n + 16, dtype=dtype, device=device)
+        buf[off:off + n] = x.to(dtype).to(device)
+        return buf[off:off + n]
+
+    w32 = torch.randn(n, generator=gen) * 0.02
+    vals = [w32, torch.randn(n, generator=gen) * 1e-3, w32,
+            torch.randn(n, generator=gen) * 1e-4,
+            torch.rand(n, generator=gen) * 1e-7]
+    dts = [dt, dt, torch.float32, torch.float32, torch.float32]
+    out = [view(x, off, d) for x, off, d in zip(vals, offsets, dts)]
+    if not master:
+        out[2] = None
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0, 0), (3, 3, 3, 3, 3),
+                                     (3, 0, 1, 0, 2)],
+                         ids=["aligned", "view_at_3", "unaligned"])
+@pytest.mark.parametrize("n", [8 * 1000 + 5, 37])
+@pytest.mark.parametrize("clip", [None, 0.37], ids=["noclip", "clip"])
+@pytest.mark.parametrize("master", [False, True], ids=["f32", "master"])
+def test_kernel_runs_and_tails_bitwise_on_card(cuda, master, clip, n,
+                                               offsets):
+    """AdamW at lengths off the 8-element runs and on views whose runs
+    start late (or nowhere): every element equals the plain version's
+    on the card, bit for bit."""
+    spec = tfo.UpdateSpec(kind="adamw", decay=0.01, use_master=master,
+                          has_clip=clip is not None)
+    w, g, mw, m, v = _views(n, offsets, master, cuda)
+    ref = [None if t is None else t.clone() for t in (w, g, mw, m, v)]
+    b1p = torch.tensor(0.9 ** 4, device=cuda)
+    b2p = torch.tensor(0.999 ** 4, device=cuda)
+    n0 = tfo.fused_update.launches
+    tfo.fused_update(spec, w=w, g=g, lr=1e-4, clip_scale=clip, master=mw,
+                     m=m, v=v, b1p=b1p, b2p=b2p)
+    assert tfo.fused_update.launches == n0 + 1
+    tfo.fused_update_plain(
+        spec, torch.tensor(1e-4, device=cuda),
+        torch.tensor(1.0 if clip is None else clip, device=cuda),
+        ref[0], ref[1], ref[2], ref[3], ref[4], b1p * 0.9, b2p * 0.999)
+    torch.cuda.synchronize()
+    for got, want in zip((w, mw, m, v), (ref[0], ref[2], ref[3], ref[4])):
+        if got is not None:
+            assert torch.equal(got, want)
