@@ -1,8 +1,9 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
+    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
     python3 chip_ab.py groups ROOT [NAME ...]
     python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
+    python3 chip_ab.py stamps ROOT
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
 ms per case, forward and backward), its GPT-124M fused decode kernel
@@ -13,7 +14,10 @@ the same with ``train_glue_fusion`` on), or the fused residual
 + RMSNorm kernels on fixed inputs (``rms``: a sha256 of every output's
 bytes, so two checkouts' kernels can be held bitwise equal, and ms per
 launch), or the weight-only matmul's kernel cases (``qmm``: kernel ms
-per case) or the LLaMA-7B weight-only int8 serve phase (``qserve``:
+per case), or the TP shard-local decode MLP's (row 6: ``partial``, the
+``tp_partial_cases`` with the LLaMA-7B SwiGLU egress cases, row 5,
+beside them: kernel ms per case), both at THIS checkout's cases against
+ROOT's kernels, or the LLaMA-7B weight-only int8 serve phase (``qserve``:
 tokens/s, host ms per mixed step and per decode dispatch, the profiled
 run's device time by kernel, and the served logits' largest gap to the
 plain forward), or the paged attention's kernel cases (``attn``: ms and
@@ -36,6 +40,13 @@ LLaMA-7B decode shapes (B = 8 and 1; the epilogue also at GPT-124M's)
 and a sha256 of its outputs; and how many resident CTAs the paged
 attention's mixed route plans a unit for (``attn_units``), for which it
 prints the mixed cases' ms and max abs error.
+
+``stamps`` builds a copy of ROOT's port under ``ROOT/_chipcopy/stamps/``
+whose GEMV (row 17) and LLaMA egress kernel (rows 5-6) write
+``%globaltimer`` stamps at their phases (x staged, slice done, sums
+done, grid barrier, exit), and prints for one call of each at the
+LLaMA-7B decode shapes the (min, median, max) over CTAs of each stamp,
+in us from the first CTA's start.
 
 ``ptxas`` compiles each ``csrc/SOURCE.cu`` of ROOT with the port's
 ``nvcc`` flags and ``--resource-usage`` into a scratch file under
@@ -67,7 +78,7 @@ def _one(what, root):
     import chip_smoke
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if what not in GROUPS:    # a group copy builds its one source at use
+    if what not in GROUPS and what != "stamps":   # a copy builds at use
         chip_smoke.build()
     if what == "flash":
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
@@ -104,9 +115,26 @@ def _one(what, root):
         out = _group_times(chip_smoke, what)
     elif what == "rms":
         out = _rms_digests(chip_smoke)
-    elif what == "qmm":
-        out = {r["case"]: r["ms"]
-               for r in chip_smoke.quant_matmul_cases(0, "")}
+    elif what == "stamps":
+        out = _stamps(chip_smoke)
+    elif what in ("qmm", "partial"):
+        # this checkout's cases, ROOT's kernels (ROOT is first on sys.path)
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_cases", Path(__file__).resolve().parent
+            / "chip_smoke.py")
+        cases = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cases)
+        if what == "qmm":
+            out = {r["case"]: r["ms"]
+                   for r in cases.quant_matmul_cases(0, "")}
+        else:
+            flush = torch.empty(64 * 2**20, dtype=torch.float32,
+                                device="cuda")
+            out = {"row6": {r["case"]: r["ms"] for r in
+                            cases.tp_partial_cases(0, "", flush)},
+                   "row5": {r["case"]: r["ms"] for r in
+                            cases.llama_decode_kernel_cases(
+                                0, "", flush)["fused_decode_mlp"]}}
     elif what == "attn_splits":
         # the decode route's split length (DECODE_SPLIT) in turns, ROOT's
         # kernel at this checkout's cases
@@ -379,6 +407,152 @@ def _group_copies(root, names=()):
     return out
 
 
+# Phase stamps of the two decode kernels (``stamps``): a copy of ROOT's
+# port under ROOT/_chipcopy/stamps whose sources write %globaltimer at
+# these points, thread 0 of each CTA, into a __device__ array read back
+# with cudaMemcpyFromSymbol: (anchor, stamp index) inserted after the
+# anchor's text.
+_STAMP_HEAD = '''
+__device__ unsigned long long g_stamps[4096 * 8];
+__device__ __forceinline__ unsigned long long stamp_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+extern "C" int pdt_read_stamps(unsigned long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_stamps, (size_t)n * 8);
+}
+'''
+_STAMP = "if (threadIdx.x == 0) g_stamps[blockIdx.x * 8 + {}] = stamp_now();"
+STAMPS = {
+    # GEMV: 0 entry, 1 x staged, 2 K-slice done, 3 exit
+    "quant_matmul.cu": (
+        "#include <stdint.h>\n",
+        [("  extern __shared__ __align__(16) uint4 xs[];\n", 0),
+         ("        __syncthreads();\n", 1),
+         ("  // sum[nt][e]: channel rA (e < 2) or rB, x row 8 nt + 2 t + e % 2\n", 2)],
+        [("  if (one) return;", "  if (one) {{ {} return; }}"),
+         ("  if (!is_last) return;", "  if (!is_last) {{ {} return; }}"),
+         ("  if (threadIdx.x == 0) a.tickets[rb] = 0;\n}",
+          "  if (threadIdx.x == 0) a.tickets[rb] = 0;\n  {}\n}}")]),
+    # LLaMA egress: 0 entry, 1 first activations staged, 2 gate/up items
+    # done, 3 gate/up sums done, 4 past the grid barrier, 5 down items
+    # done, 6 exit
+    "fused_decode_mlp.cu": (
+        '#include "decode_gemv.cuh"\n',
+        [("  float* stat = reinterpret_cast<float*>(xs + (size_t)p.rows * kSliceQ);\n", 0),
+         ("    stage_a();\n  }\n", 1),
+         ("  auto boundary_a = [&]() {\n", 2),
+         ("    if (!full) reset(tB, p.CB);\n", 3),
+         ("    reset(tA, p.CA);\n", 4),
+         ("  // after the down product: out = the slices' sum (row 6), y1 + (that +\n"
+          "  // b2) (row 5)\n", 5)],
+        [("      p.out[o] = t;\n    }\n  }\n}",
+          "      p.out[o] = t;\n    }}\n  }}\n  {}\n}}")]),
+}
+
+
+def _stamp_copy(root):
+    """ROOT's port with the STAMPS points, under ROOT/_chipcopy/stamps."""
+    base = Path(root).resolve()
+    dst = base / "_chipcopy" / "stamps"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(base / "paddle_tpu_torch", dst / "paddle_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copy(base / "chip_smoke.py", dst / "chip_smoke.py")
+    for src, (head, after, replace) in STAMPS.items():
+        cu = dst / "paddle_tpu_torch" / "ops" / "cuda" / "csrc" / src
+        text = cu.read_text()
+        edits = [(head, head + _STAMP_HEAD)]
+        edits += [(a, a + "  " + _STAMP.format(i) + "\n") for a, i in after]
+        edits += [(a, b.format(_STAMP.format(3 if src == "quant_matmul.cu"
+                                             else 6)))
+                  for a, b in replace]
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{src}: stamp anchor found "
+                                   f"{text.count(old)} times: {old!r}")
+            text = text.replace(old, new)
+        cu.write_text(text)
+    return str(dst)
+
+
+def _stamps(chip_smoke):
+    """One traced call of the GEMV (M 1 and 8 at q/k/v/o, gate/up and the
+    lm_head) and of the LLaMA egress (row 6 at TP=2, B 8 and 1; row 5 at
+    B 8), each after the L2 flush and device spin of ``_time_ms``: per
+    stamp, the (min, median, max) over CTAs of us since the first CTA
+    began, and the call's event ms."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def trace(lib_name, fn, grid, points):
+        lib = _build.load(lib_name)
+        lib.pdt_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        for _ in range(3):
+            fn()
+        flush.zero_()
+        torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * (4096 * 8))()
+        if lib.pdt_read_stamps(buf, 4096 * 8) != 0:
+            raise RuntimeError("reading the stamps failed")
+        ts = np.array(buf, dtype=np.float64).reshape(4096, 8)[:grid, :points]
+        rel = (ts - ts[:, 0].min()) / 1e3
+        return {"event_ms": s.elapsed_time(e), "grid": grid, "us": {
+            i: [round(float(f(rel[:, i])), 2) for f in (np.min, np.median,
+                                                         np.max)]
+            for i in range(points)}}
+
+    out = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k, n in ((4096, 4096), (4096, 11008), (4096, 32000)):
+        qw = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                           dtype=torch.int8).t()
+        s = torch.rand(n, generator=gen, device=dev) * 0.002 + 1e-4
+        blocks, splits = qm.gemv_plan(k, n, sms)
+        for m in (1, 8):
+            x = rn(m, k)
+            out[f"gemv_m{m}_k{k}_n{n}"] = trace(
+                "quant_matmul", lambda: qm.weight_only_matmul(x, qw, s),
+                blocks * splits, 4)
+        del qw
+    kw = dict(arch="llama", norm="rms", eps=1e-6)
+    H, inter = 4096, 5504
+    for B in (8, 1):
+        args = (rn(B, H), 1.0 + rn(H, std=0.1), None, rn(inter, H, std=0.02),
+                None, rn(H, inter, std=0.0025), rn(inter, H, std=0.02))
+        out[f"row6_b{B}"] = trace(
+            "fused_decode_mlp",
+            lambda: fm.fused_decode_mlp_partial(*args, **kw),
+            fm.swiglu_plan(B, H, 0, inter, dev)["grid"], 7)
+        del args
+    B, inter = 8, 11008
+    args = (rn(B, H), rn(B, H), rn(H, H, std=0.02), None, 1.0 + rn(H, std=0.1),
+            None, rn(inter, H, std=0.02), None, rn(H, inter, std=0.0025), None,
+            rn(inter, H, std=0.02))
+    out["row5_b8"] = trace("fused_decode_mlp",
+                           lambda: fm.fused_decode_mlp(*args, **kw),
+                           fm.swiglu_plan(B, H, H, inter, dev)["grid"], 7)
+    return out
+
+
 def _ptxas(root, names):
     """ptxas's resource usage of ``csrc/<name>.cu`` for each of
     ``names`` under ROOT, built with the port's own flags."""
@@ -405,6 +579,10 @@ def main(argv):
     if len(argv) >= 3 and argv[0] == "--one":
         _one(argv[1], argv[2])
         return 0
+    if len(argv) == 2 and argv[0] == "stamps":
+        subprocess.run([sys.executable, __file__, "--one", "stamps",
+                        _stamp_copy(argv[1])], check=True, timeout=900)
+        return 0
     if len(argv) >= 2 and argv[0] == "groups":
         for what, n, root in _group_copies(argv[1], argv[2:]):
             print("GROUP", json.dumps({"kernel": what, "group": n}),
@@ -413,7 +591,8 @@ def main(argv):
                            check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
-                                        "rms", "qmm", "qserve", "attn",
+                                        "rms", "qmm", "qserve", "partial",
+                                        "attn",
                                         "opt", "attn_splits",
                                         "attn_probe"):
         print(__doc__, file=sys.stderr)

@@ -86,8 +86,9 @@ card.
      magnitudes);
    * ``weight_only_matmul`` at the LLaMA-7B quantized serve phase's
      projections ((K, N) = (4096, 4096), (4096, 11008), (11008, 4096),
-     (4096, 32000)) at M = 8 (decode: the GEMV), 128 (the mixed step's
-     token budget: the tensor cores) and 512, plus M = 1 and odd K and
+     (4096, 32000)) at M = 1, 3, 8 and 16 (decode: the GEMV, on the
+     tensor cores), 128 (the mixed step's token budget: the wgmma route)
+     and 512, plus odd K and
      N (M = 3 on the GEMV, M = 130 on the tensor cores), and in bf16 at
      M = 8 and 128 (the tensor cores):
      each output within ``quant_matmul.tolerance`` of the plain version
@@ -1075,7 +1076,7 @@ def llama_decode_kernel_cases(seed, power, flush):
             2 * B * (H * H + 3 * inter * H) + 8 * B * inter,
             dict(x=[B, H], wo=[H, H], w_gate=[inter, H], w_up=[inter, H],
                  w_down=[H, inter],
-                 grid=fm.swiglu_grid(B, H, H, inter, dev)),
+                 plan=_swiglu_plan(fm, B, H, H, inter, dev)),
             power, "fused_decode_mlp"))
         del x, att, margs, out, ref
     del wo, wg, wu, wd
@@ -1128,6 +1129,15 @@ def llama_decode_kernel_cases(seed, power, flush):
     del w_lm, norm_w
     torch.cuda.empty_cache()
     return rows
+
+
+def _swiglu_plan(fm, bsz, hid, a_w, inter, dev):
+    """The SwiGLU egress kernel's launch plan at these widths (``a_w`` 0:
+    the partial mode); an older checkout timed by ``chip_ab.py`` reports
+    its grid alone."""
+    if hasattr(fm, "swiglu_plan"):
+        return fm.swiglu_plan(bsz, hid, a_w, inter, dev)
+    return dict(grid=fm.swiglu_grid(bsz, hid, a_w, inter, dev))
 
 
 def tp_partial_cases(seed, power, flush):
@@ -1198,7 +1208,7 @@ def tp_partial_cases(seed, power, flush):
                 + f"_tp2_decode_b{B}"
             shape = dict(y1=[B, H], w1=[inter, H], w2=[H, inter],
                          w_up=None if w_up is None else [inter, H],
-                         grid=(fm.swiglu_grid(B, H, 0, inter, dev)
+                         plan=(_swiglu_plan(fm, B, H, 0, inter, dev)
                                if arch == "llama" else None))
             rows.append(_decode_row(name, _max_err(out, ref), ms, plain_ms,
                                     unfused_ms, nbytes, flops, shape, power,
@@ -1747,7 +1757,37 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
             out["profile"] = profile_serve(model, prompts, NEW_TOKENS, geo,
                                            wall)
         out["window"] = profile_window(model, prompts, NEW_TOKENS, geo)
+        _check_window_kernels(model, out["window"], megakernel)
     return out
+
+
+# device kernels (by name) a profiled decode window counts
+WINDOW_KERNELS = ("gemv_tc_kernel", "swiglu_kernel")
+
+
+def _check_window_kernels(model, window, megakernel):
+    """In a profiled decode window of k steps (every slot decoding, fp32
+    activations): row 17's GEMV runs once per weight-only projection a
+    step, and the LLaMA egress kernel (rows 5 and 6) once per layer a
+    step of a megakernel serve of LLaMA, with or without TP, on the
+    device, and neither runs anywhere else: no launch beyond those (the
+    wrappers' counts, checked exactly per dispatch by :func:`_drive`,
+    show each call is one launch). The profiler's activity records can
+    drop a kernel (seen once in 256 on the card), so the device counts
+    may fall short by at most one a step."""
+    from paddle_tpu_torch.quantization import WeightOnlyLinear
+    k, L = window["steps"], model.cfg.num_layers
+    n_mm = sum(isinstance(m, WeightOnlyLinear) for m in model.modules())
+    llama = type(model).__name__.startswith("Llama")
+    want = {"gemv_tc_kernel": n_mm * k,
+            "swiglu_kernel": L * k if megakernel and llama else 0}
+    got = window["kernel_launches"]
+    log(f"decode window: device launches {got} (want {want}, at most one "
+        f"a step fewer)")
+    if any(not want[n] - k * (want[n] > 0) <= got[n] <= want[n]
+           for n in want):
+        raise AssertionError(f"decode window: device launches {got}, want "
+                             f"{want}")
 
 
 def _teacher_check(model, teacher, prompts, seqs, margin, tag):
@@ -1842,6 +1882,10 @@ def profile_window(model, prompts, new_tokens, geo):
            and e.self_device_time_total > 0]
     n = sum(e.count for e in evs)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    # the device launches of the two decode kernels whose count per step
+    # the serve checks (row 17's GEMV, rows 5-6's LLaMA egress kernel)
+    named = {key: sum(e.count for e in evs if key in e.key)
+             for key in WINDOW_KERNELS}
     path = "megakernel" if geo.get("megakernel") else "unfused"
     if geo.get("kv_quant"):
         path += ", int8 KV"
@@ -1852,6 +1896,7 @@ def profile_window(model, prompts, new_tokens, geo):
         f"of wall clock = {host_ms / k:.4f} ms per step, device busy "
         f"{dev_ms / host_ms:.1%}")
     out = dict(steps=k, device_launches=n, launches_per_step=n / k,
+               kernel_launches=named,
                device_ms=dev_ms, device_ms_per_step=dev_ms / k,
                wall_ms=host_ms, wall_ms_per_step=host_ms / k,
                busy_share=dev_ms / host_ms)
@@ -3158,8 +3203,9 @@ def quant_matmul_cases(seed, power):
     weight ``[N, K]`` (the layout ``WeightOnlyLinear`` keeps) for (K, N)
     in q/k/v/o (4096, 4096), gate/up (4096, 11008), down (11008, 4096)
     and the lm_head (4096, 32000); fp32 at M = 8 (a decode step of 8
-    slots: the GEMV), M = 128 (the engine's mixed-step token budget: the
-    tensor cores) and M = 512; M = 1, and odd K and N at M = 3 (the
+    slots: the GEMV), M = 1 and 3 (fewer slots decoding), M = 16 (the
+    GEMV's widest: two n8 tiles), M = 128 (the engine's mixed-step token
+    budget: the tensor cores) and M = 512; odd K and N at M = 3 (the
     GEMV) and 130 (the tensor cores, K zero-padded to a multiple of 16);
     bf16 at M = 8 and 128 (the tensor cores). Each case must run on the
     route ``quant_matmul.route`` names and stay within
@@ -3184,9 +3230,8 @@ def quant_matmul_cases(seed, power):
     shapes = [(4096, 4096, "qkvo"), (4096, 11008, "gate_up"),
               (11008, 4096, "down"), (4096, 32000, "lm_head")]
     cases = [(f"llama7b_{what}_m{m}", m, k, n, f32)
-             for m in (8, 128, 512) for k, n, what in shapes]
-    cases += [("m1_qkvo", 1, 4096, 4096, f32),
-              ("odd_m3_k4099_n1001", 3, 4099, 1001, f32),
+             for m in (8, 1, 3, 16, 128, 512) for k, n, what in shapes]
+    cases += [("odd_m3_k4099_n1001", 3, 4099, 1001, f32),
               ("odd_m130_k4099_n1001", 130, 4099, 1001, f32)]
     cases += [(f"llama7b_{what}_m{m}_bf16", m, k, n, bf16)
               for m in (8, 128) for k, n, what in shapes]
@@ -3692,7 +3737,8 @@ def main(argv=None):
                 "gpt_train": train["counts"][kname + "_tc"],
                 "llama_train": llama_off["counts"][kname + "_tc"]}
         if kname == "weight_only_matmul":
-            # decode steps take the GEMV, mixed steps the tensor cores
+            # decode steps take the GEMV (mma.sync), mixed steps the
+            # wgmma route
             out[-1]["sources"] = {
                 "tensor cores": src + "quant_matmul_sm90.cu",
                 "GEMV": src + source}

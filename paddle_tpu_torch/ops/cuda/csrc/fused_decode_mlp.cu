@@ -5,17 +5,17 @@
 //   layer, in one launch. Replaces `_mlp_block` (arch="gpt") run by
 //   `_blocked_call` (paddle_tpu/ops/pallas/fused_decode_mlp.py):
 //     y1 = x + (att @ wo + bo);  out = y1 + (gelu(norm(y1) @ w1 + b1) @ w2 + b2).
-// * fused_decode_swiglu: the same layer for arch="llama" (`_mlp_tail`'s
-//   SwiGLU branch), LayerNorm or RMSNorm, with the activation rows
-//   streamed through shared memory in K-chunks (its design is written
-//   above it):
+//   Its tensor-parallel partial mode replaces `_mlp_partial_block`
+//   (fused_decode_mlp_partial, same file) for GPT: y1 given, no first
+//   phase, no fc2 bias, no residual: the partial sum before the layer's
+//   all-reduce.
+// * swiglu_kernel: the same layer for arch="llama" (`_mlp_tail`'s SwiGLU
+//   branch), LayerNorm or RMSNorm,
 //     y1 = x + (att @ wo + bo);  h = norm(y1);
-//     out = y1 + ((silu(h @ wg) * (h @ wu)) @ wd + b2).
-// * Their tensor-parallel partial mode replaces `_mlp_partial_block`
-//   (fused_decode_mlp_partial, same file): y1 is given, so the first
-//   phase and its grid barrier are skipped, and the last product has no
-//   bias and no residual: out = mlp(norm(y1)) with a rank's slices of
-//   the MLP weights, the partial sum before the layer's all-reduce.
+//     out = y1 + ((silu(h @ wg) * (h @ wu)) @ wd + b2),
+//   and its partial mode (`_mlp_partial_block` for LLaMA): out =
+//   (silu(h @ wg) * (h @ wu)) @ wd with a rank's slices, y1 given. One
+//   weight stream with split K; its design is written above it.
 // * fused_decode_epilogue: the final LayerNorm or RMSNorm, the LM head
 //   and the guarded greedy pick, in one launch. Replaces
 //   `_epilogue_block` (same file): logits = norm(x) @ w_lm^T (+ b_lm),
@@ -35,10 +35,10 @@
 // activation rows in shared memory).
 //
 // The MLP's three products depend on each other across columns (fc1 needs
-// every column of y1, fc2 every column of f), so the kernel is a
-// cooperative launch, its grid capped by the occupancy API so that all
-// CTAs are resident, with a grid barrier (cooperative_groups
-// this_grid().sync()) between the phases; y1 [B, H] and f [B, I] pass
+// every column of y1, fc2 every column of f), so both MLP kernels are
+// cooperative launches, their grid capped by the occupancy API so that
+// all CTAs are resident, with a grid barrier (cooperative_groups
+// this_grid().sync()) between the products; y1 [B, H] and f [B, I] pass
 // through a global scratch that stays in L2. A refused cooperative launch
 // returns its error and the wrapper raises: there is no fallback.
 //
@@ -48,8 +48,8 @@
 // those partials, ties going to the lower index, and resets the ticket
 // for the next launch. One launch, on one stream at a time per ticket.
 //
-// fp32 FMAs on the CUDA cores; tensor cores, TMA and split-K are later
-// work. Plain C interface (bound with ctypes); the wrappers in
+// fp32 FMAs on the CUDA cores (at 8 rows they are not the limit). Plain C
+// interface (bound with ctypes); the wrappers in
 // fused_decode_mlp.py check shapes, types and contiguity and allocate the
 // outputs and the scratch.
 
@@ -292,207 +292,6 @@ fused_decode_epilogue_kernel(EpiParams p) {
 }
 
 
-// ---------------------------------------------------------------------------
-// fused_decode_swiglu_kernel. Same plan as fused_decode_mlp_kernel (a
-// cooperative launch, all output columns of each product spread over every
-// warp of the grid, a grid barrier between the three products, y1 and the
-// activations passing through a global scratch that stays in L2), with three
-// changes for LLaMA-7B's width:
-//
-// * The activation rows stream through shared memory in K-chunks
-//   (decode::load_chunk): 8 rows of the down projection's 11008 floats are
-//   352 KB, above the 227 KB a CTA may have. A chunk is at most 64 KB
-//   (2048 columns at 8 rows); two CTAs then share an SM (registers, 125 a
-//   thread, allow no third). Each warp keeps its columns' partial sums in
-//   the phase's output buffer, only it touching them, and the last chunk
-//   finishes the column. The norm of y1 is applied as each chunk loads,
-//   from per-row statistics every CTA computes once (row_norm_stats).
-// * A warp dots two weight rows against each activation float4 it reads
-//   from shared memory (decode::warp_dot_multi): two neighbouring columns
-//   of the out and down projections, a column's gate and up rows. That
-//   halves the shared-memory traffic; four rows at once measured slower
-//   on the H100 (fewer column groups than warps in the out and down
-//   projections, and spills).
-// * The L2 prefetch is bounded: one layer's weights are 608 MB at
-//   LLaMA-7B, twelve times the 50 MB L2, so a prefetch of all of them
-//   (the GPT kernel's) would evict itself. Before each grid barrier every
-//   warp asks only for the first chunk of the first row of its first
-//   column group of the next product, so the fetch overlaps the barrier's
-//   wait. At 8 rows (8 KB chunks, 264 CTAs) that is 16.8 MB before the
-//   out projection, 69.2 MB of gate and up rows before the second phase
-//   (more than the L2 holds) and 16.8 MB before the down projection; at
-//   one row (whole-row chunks) 33.6, 138.4 and 90.2 MB.
-//
-// The grid is every CTA that can be resident (the occupancy API), capped at
-// one warp per column group of the widest product; the phases stride their
-// column groups over whatever grid runs, so every column is covered at any
-// grid size, and a refused launch returns its error. What bounds it: the weight
-// bytes (608 MB a layer at LLaMA-7B, 0.18 ms at 3.35 TB/s).
-
-constexpr size_t kSwigluChunkBytes = 64 * 1024;
-
-struct SwigluParams {
-  const float* x;      // [B, H] residual stream
-  const float* att;    // [B, A] attention output
-  const float* wo;     // [H, A]
-  const float* bo;     // [H] or null
-  const float* nw;     // [H]
-  const float* nb;     // [H] or null
-  const float* wg;     // [I, H] gate
-  const float* wu;     // [I, H] up
-  const float* wd;     // [H, I] down
-  const float* b2;     // [H] or null
-  float* y1;           // [B, H] scratch
-  float* g;            // [B, I] scratch: gate partials, then silu(g) * u
-  float* u;            // [B, I] scratch: up partials
-  float* out;          // [B, H]
-  int B, H, A, I, kc, rms;
-  float eps;
-  int partial;         // y1 given: no phase 1, no down bias, no residual
-};
-
-__device__ inline float silu(float v) { return v / (1.f + expf(-v)); }
-
-// Weight rows a warp dots at once: two neighbouring columns of the out
-// or down projection, or one column's gate and up rows.
-constexpr int kGroup = 2;
-
-// One product over K-chunks of src [B, K] (normalised on load where `stat`
-// is given): for every output column n (each warp takes groups of
-// kGroup / kW neighbouring columns, grid-strided), every row b and every
-// chunk, part(b, n, dots, first, last) with dots[i] this chunk's dot of
-// row b with w[i]'s row n, called by one lane. A group's kGroup weight
-// rows go through one decode::warp_dot_multi.
-template <int kW, typename Part>
-__device__ inline void chunked_phase(float* s, const float* src, int B, int K, int kc,
-                                     const float* stat, bool rms, const float* nw,
-                                     const float* nb, const float* const (&w)[kW],
-                                     int N, Part part) {
-  static_assert(kGroup % kW == 0, "a group holds whole columns");
-  constexpr int kCols = kGroup / kW;
-  constexpr int kN = kGroup;
-  const int lane = threadIdx.x % 32;
-  const int gwarp = (int)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int nwarps = (int)gridDim.x * kWarps;
-  const int groups = (N + kCols - 1) / kCols;
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int len = min(kc, K - k0);
-    __syncthreads();   // the previous chunk's readers are done
-    decode::load_chunk(s, src, B, K, k0, len, stat, rms, nw, nb);
-    __syncthreads();
-    for (int g = gwarp; g < groups; g += nwarps) {
-      const float* rows[kN];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int n = min(g * kCols + j, N - 1);   // a tail column repeats
-#pragma unroll
-        for (int i = 0; i < kW; ++i) rows[j * kW + i] = w[i] + (size_t)n * K + k0;
-      }
-      for (int r0 = 0; r0 < B; r0 += kRowTile) {
-        const int nr = min(kRowTile, B - r0);
-        float acc[kN][kRowTile];
-        decode::warp_dot_multi<kN>(rows, s + (size_t)r0 * len, len, nr, acc);
-#pragma unroll
-        for (int r = 0; r < kRowTile; ++r) {
-          if (r >= nr || lane != r) continue;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const int n = g * kCols + j;
-            if (n >= N) break;
-            float dots[kW];
-#pragma unroll
-            for (int i = 0; i < kW; ++i) dots[i] = acc[j * kW + i][r];
-            part(r0 + r, n, dots, k0 == 0, k0 + len >= K);
-          }
-        }
-      }
-    }
-  }
-}
-
-// Ask the L2 for the first chunk of the first row of this warp's first
-// column group of w [N, K] (groups of `cols` columns).
-__device__ inline void prefetch_first_chunk(const float* w, int N, int K, int kc,
-                                            int cols) {
-  const int gwarp = (int)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (gwarp * cols < N)
-    decode::prefetch_row_l2(w + (size_t)gwarp * cols * K, min(kc, K));
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_decode_swiglu_kernel(SwigluParams p) {
-  extern __shared__ __align__(16) float s[];   // [B, kc] chunk, then [B, 2] stats
-  float* stat = s + (size_t)p.B * p.kc;
-  cg::grid_group grid = cg::this_grid();
-  const bool rms = p.rms != 0;
-
-  // phase 1: y1 = x + (att @ wo^T + bo); the partial mode is given y1
-  if (!p.partial) {
-    prefetch_first_chunk(p.wo, p.H, p.A, p.kc, kGroup);
-    const float* w[1] = {p.wo};
-    chunked_phase<1>(s, p.att, p.B, p.A, p.kc, nullptr, rms, nullptr, nullptr, w,
-                     p.H, [&](int b, int n, const float* d, bool first, bool last) {
-      float* y = p.y1 + (size_t)b * p.H + n;
-      float t = first ? d[0] : *y + d[0];
-      if (last) {
-        if (p.bo != nullptr) t += __ldg(p.bo + n);
-        t = p.x[(size_t)b * p.H + n] + t;
-      }
-      *y = t;
-    });
-  }
-  prefetch_first_chunk(p.wg, p.I, p.H, p.kc, kGroup / 2);
-  prefetch_first_chunk(p.wu, p.I, p.H, p.kc, kGroup / 2);
-  if (!p.partial) grid.sync();
-
-  // phase 2: f = silu(norm(y1) @ wg^T) * (norm(y1) @ wu^T)
-  decode::row_norm_stats(stat, p.y1, p.B, p.H, rms, p.eps);
-  {
-    const float* w[2] = {p.wg, p.wu};
-    chunked_phase<2>(s, p.y1, p.B, p.H, p.kc, stat, rms, p.nw, p.nb, w, p.I,
-                     [&](int b, int n, const float* d, bool first, bool last) {
-      float* g = p.g + (size_t)b * p.I + n;
-      float* u = p.u + (size_t)b * p.I + n;
-      const float gv = first ? d[0] : *g + d[0];
-      const float uv = first ? d[1] : *u + d[1];
-      if (last) {
-        *g = silu(gv) * uv;
-      } else {
-        *g = gv;
-        *u = uv;
-      }
-    });
-  }
-  prefetch_first_chunk(p.wd, p.H, p.I, p.kc, kGroup);
-  grid.sync();
-
-  // phase 3: out = y1 + (f @ wd^T + b2); the partial mode: f @ wd^T
-  {
-    const float* w[1] = {p.wd};
-    chunked_phase<1>(s, p.g, p.B, p.I, p.kc, nullptr, rms, nullptr, nullptr, w, p.H,
-                     [&](int b, int n, const float* d, bool first, bool last) {
-      float* o = p.out + (size_t)b * p.H + n;
-      float t = first ? d[0] : *o + d[0];
-      if (last) {
-        if (p.b2 != nullptr) t += __ldg(p.b2 + n);
-        if (!p.partial) t = p.y1[(size_t)b * p.H + n] + t;
-      }
-      *o = t;
-    });
-  }
-}
-
-// K-chunk of the SwiGLU kernel: the widest product's K where it fits in
-// kSwigluChunkBytes, else a multiple of 128 (of 4 for very many rows;
-// 0: too many rows).
-int swiglu_chunk(int B, int H, int A, int I) {
-  const int widest = A > H ? (A > I ? A : I) : (H > I ? H : I);
-  long long kc = (long long)(kSwigluChunkBytes / sizeof(float)) / B;
-  if (kc >= widest) return widest;
-  kc = kc >= 128 ? kc & ~127LL : kc & ~3LL;
-  return kc >= 4 ? (int)kc : 0;
-}
-
 // Cooperative launch of the GELU MLP kernel, full or partial; returns a
 // cudaError_t.
 cudaError_t launch_mlp(MlpParams p, size_t smem, cudaStream_t stream) {
@@ -588,95 +387,558 @@ int pdt_fused_decode_epilogue_f32(const float* x, const float* nw, const float* 
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one SwiGLU CTA, in bytes (0: B rows do not fit).
-size_t pdt_fused_decode_swiglu_smem_bytes(int B, int H, int A, int I) {
-  const int kc = swiglu_chunk(B, H, A, I);
-  return kc == 0 ? 0 : ((size_t)B * kc + 2 * (size_t)B) * sizeof(float);
-}
-
-// CTAs of one SwiGLU launch into *grid: every CTA that can be resident
-// (set the kernel's shared-memory limit first), at most one warp per
-// column group of the widest product. Returns a cudaError_t as int.
-int pdt_fused_decode_swiglu_grid(int B, int H, int A, int I, int* grid) {
-  const size_t smem = pdt_fused_decode_swiglu_smem_bytes(B, H, A, I);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = decode::allow_smem(fused_decode_swiglu_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_decode_swiglu_kernel, kThreads, smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int g13 = (H + kGroup - 1) / kGroup;               // phases 1 and 3
-  const int g2 = (I + kGroup / 2 - 1) / (kGroup / 2);      // gate and up
-  const int widest = g13 > g2 ? g13 : g2;
-  *grid = (widest + kWarps - 1) / kWarps;
-  if (*grid > per_sm * sms) *grid = per_sm * sms;
-  return (int)cudaSuccess;
-}
-
 }  // extern "C"
 
 namespace {
 
-// Cooperative launch of the SwiGLU kernel, full or partial, over the grid
-// pdt_fused_decode_swiglu_grid picks; returns a cudaError_t as int.
-int launch_swiglu(SwigluParams p, void* stream) {
-  const size_t smem = pdt_fused_decode_swiglu_smem_bytes(p.B, p.H, p.A, p.I);
-  int grid = 0;
-  cudaError_t err = (cudaError_t)pdt_fused_decode_swiglu_grid(p.B, p.H, p.A, p.I, &grid);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)fused_decode_swiglu_kernel,
-                                    dim3(grid), dim3(kThreads), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+__device__ inline float silu(float v) { return v / (1.f + expf(-v)); }
+
+// ---------------------------------------------------------------------------
+// swiglu_kernel: the LLaMA egress (row 5), y1 = x + (att @ wo^T + bo);
+// out = y1 + ((silu(h @ wg^T) * (h @ wu^T)) @ wd^T + b2) with h =
+// norm(y1), and its tensor-parallel partial mode (row 6, y1 given, a
+// rank's slices, out = the last product alone), as one unbroken weight
+// stream. At LLaMA-7B a call reads 608 MB (row 5; 0.18 ms at 3.35 TB/s)
+// or 270 MB (row 6 at TP=2; 81 us); fp32 FMAs on the CUDA cores are 2 a
+// weight byte at 8 rows, far from the SM's rate, so the design is of the
+// memory pipeline:
+//
+// * Fixed, even slices. Each product's K is cut into slices of at most
+//   kSliceQ float4s (out projection: A / 512, gate/up: H / 512, down: I /
+//   512), and the grid's CTAs into that many groups: CTA c takes slice c %
+//   S of one block of about N / (grid / S) columns, so every CTA streams
+//   the same bytes (+-1 column) and every warp the same number of items
+//   (+-1). An item is two weight rows over the slice (a column's gate and
+//   up rows; two neighbouring out-projection or down columns), kQ 16-byte
+//   loads a row a lane, past L1.
+// * No reloads. A CTA stages its activation slice in shared memory once
+//   (for the gate/up product under an RMSNorm without bias, y1 * w: the
+//   row's 1 / rms multiplies the finished sums, from the slices' sums of
+//   squares; any other norm is applied on the way from full-row
+//   statistics), its warps dot the items against it, RT rows at once in
+//   registers, and a transposed butterfly leaves each lane one (row,
+//   weight row) total. A slice's sums go to a global scratch; the S CTAs
+//   of a column block count their arrivals and, once all are in (every
+//   CTA is resident: a cooperative launch), each adds the slices in slice
+//   order for its 1/S of the block's outputs (one round trip to L2, where
+//   one CTA doing it all took several), so two calls give the same bits, and
+//   finishes them there, once: y1 with x and bo, silu(g) * u, or out
+//   (with b2 and y1 in row 5).
+// * The stream does not wait. A warp keeps the next item's weights in
+//   registers while it computes the current one: the next product's first
+//   items are in flight before each grid barrier, and land while the sums
+//   finish and the grid waits. The first activation row's loads go out
+//   before the first weights' (behind them they came back late, and every
+//   product waits for them). (An L2 prefetch of the items beyond,
+//   rolling or only where the stream would idle, measured slower on the
+//   card.)
+//
+// One cooperative launch, its grid every CTA the occupancy API lets be
+// resident (two an SM at LLaMA-7B), capped by the work; a refused launch
+// returns its error and the wrapper raises.
+
+constexpr int kSwThreads = 256;
+constexpr int kSwWarps = kSwThreads / 32;
+constexpr int kSliceQ = 128;              // float4s of a K-slice, at most
+constexpr int kQ = kSliceQ / 32;          // float4s of a weight row a lane loads
+constexpr int kBuf = 2;                   // items a warp holds in registers
+constexpr int kReduceBatch = 8;           // slice sums of an output loaded at once
+
+struct SwigluParams {
+  const float* x;      // [B, H] residual stream (row 5)
+  const float* att;    // [B, A] attention output (row 5)
+  const float* wo;     // [H, A] out projection (row 5)
+  const float* bo;     // [H] or null
+  const float* nw;     // [H]
+  const float* nb;     // [H] or null
+  const float* wg;     // [I, H] gate
+  const float* wu;     // [I, H] up
+  const float* wd;     // [H, I] down
+  const float* b2;     // [H] or null (row 5)
+  float* y1;           // [B, H]: written by the out projection (row 5), else given
+  float* part0;        // [S0, B, H] out-projection slice sums (row 5)
+  float* part_a;       // [SA, 2, B, I] gate and up slice sums
+  float* part_b;       // [SB, B, H] down slice sums
+  float* ss;           // [CA, SA, B] slice sums of squares (fast path)
+  float* f;            // [B, I] silu(g) * u
+  float* out;          // [B, H]
+  unsigned* tickets;   // [C0 + CA + CB] arrival counts
+  int B, H, A, I, S0, SA, SB, C0, CA, CB, rows;   // rows: B rounded up to RT
+  int rms, fast;       // fast: RMSNorm without bias, 1 / rms factored out
+  float eps;
+};
+
+// A weight float4 that is used once: stream it past L1.
+__device__ __forceinline__ float4 ld_stream4(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0,%1,%2,%3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 w, float acc) {
+  acc = fmaf(a.x, w.x, acc);
+  acc = fmaf(a.y, w.y, acc);
+  acc = fmaf(a.z, w.z, acc);
+  return fmaf(a.w, w.w, acc);
+}
+
+// The warp's totals of V values (V a power of two, 2 to 32): each
+// exchange halves the values a lane keeps, so lane l ends with the total
+// of value l / (32 / V) after 5 + V - 1 - log2(V) shuffles (V = 8: 10,
+// against 40 for a butterfly a value). A fixed order: the same bits on
+// every call.
+template <int V>
+__device__ __forceinline__ float warp_sum_transposed(float (&v)[V]) {
+  const int lane = threadIdx.x % 32;
+  int m = 16;
+#pragma unroll
+  for (int n = V; n > 1; n >>= 1, m >>= 1) {
+    const bool up = (lane & m) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? v[i] : v[i + n / 2];
+      const float keep = up ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+  float r = v[0];
+  for (; m >= 1; m >>= 1) r += __shfl_xor_sync(0xffffffffu, r, m);
+  return r;
+}
+
+// Part s of n units cut into S parts (the first index of the part).
+__device__ __forceinline__ int cut(int s, int n, int S) {
+  return (int)((long long)s * n / S);
+}
+
+// A product's share of this CTA: K-slice s of its float4s [q0, q1) and
+// columns [n0, n1) of column block cb (none where the CTA has no share).
+struct Share {
+  bool in;
+  int s, cb, q0, q1, n0, n1;
+};
+
+__device__ __forceinline__ Share share_of(int K4, int N, int S, int C) {
+  Share r{false, 0, 0, 0, 0, 0, 0};
+  if (S == 0 || (int)blockIdx.x >= C * S) return r;
+  r.in = true;
+  r.s = blockIdx.x % S;
+  r.cb = blockIdx.x / S;
+  r.q0 = cut(r.s, K4, S);
+  r.q1 = cut(r.s + 1, K4, S);
+  r.n0 = cut(r.cb, N, C);
+  r.n1 = cut(r.cb + 1, N, C);
+  return r;
+}
+
+// FULL: row 5 (the out projection first), else row 6.
+template <int RT, bool FULL>
+__global__ void __launch_bounds__(kSwThreads, 2) swiglu_kernel(SwigluParams p) {
+  extern __shared__ __align__(16) float4 xs[];   // [rows][kSliceQ], then stats
+  float* stat = reinterpret_cast<float*>(xs + (size_t)p.rows * kSliceQ);
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr bool full = FULL;
+  // the three products' shares, read from shared memory where used (in
+  // registers they spilled the hot loop's)
+  __shared__ Share shares[3];
+  if (threadIdx.x == 0) {
+    shares[0] = FULL ? share_of(p.A / 4, p.H, p.S0, p.C0) : Share{false, 0, 0, 0, 0, 0, 0};
+    shares[1] = share_of(p.H / 4, p.I, p.SA, p.CA);
+    shares[2] = share_of(p.I / 4, p.H, p.SB, p.CB);
+  }
+  __syncthreads();
+  const volatile Share& s0 = shares[0];
+  const volatile Share& sa = shares[1];
+  const volatile Share& sb = shares[2];
+  const int tA = p.C0, tB = p.C0 + p.CA;   // the products' first counts
+  // this warp's items: out-projection column pairs, gate/up columns, down
+  // column pairs, warp + 8 i of each
+  auto count = [&](int n) { return n > warp ? (n - warp + kSwWarps - 1) / kSwWarps : 0; };
+  const int eA = FULL ? count((s0.n1 - s0.n0 + 1) / 2) : 0;   // the first gate/up item
+  const int eB = eA + count(sa.n1 - sa.n0);        // the first down item
+  const int nItems = eB + count((sb.n1 - sb.n0 + 1) / 2);
+
+  // item i: its two weight rows from the slice start, the slice's length
+  // in float4s and its (first) output column
+  auto item = [&](int i, const float4*& r0, const float4*& r1, int& qlen, int& n) {
+    if (i >= eA && i < eB) {
+      n = sa.n0 + warp + kSwWarps * (i - eA);
+      r0 = reinterpret_cast<const float4*>(p.wg + (size_t)n * p.H) + sa.q0;
+      r1 = reinterpret_cast<const float4*>(p.wu + (size_t)n * p.H) + sa.q0;
+      qlen = sa.q1 - sa.q0;
+      return;
+    }
+    const bool out_proj = i < eA;
+    const volatile Share& sh = out_proj ? s0 : sb;
+    const float* w = out_proj ? p.wo : p.wd;
+    const int K = out_proj ? p.A : p.I;
+    n = sh.n0 + 2 * (warp + kSwWarps * (out_proj ? i : i - eB));
+    const int n1 = min(n + 1, sh.n1 - 1);   // an odd block's last pair repeats
+    r0 = reinterpret_cast<const float4*>(w + (size_t)n * K) + sh.q0;
+    r1 = reinterpret_cast<const float4*>(w + (size_t)n1 * K) + sh.q0;
+    qlen = sh.q1 - sh.q0;
+  };
+  auto load = [&](float4 (&w)[2][kQ], int i) {
+    if (i >= nItems) return;
+    const float4 *r0, *r1;
+    int qlen, n;
+    item(i, r0, r1, qlen, n);
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int q = lane + 32 * j;
+      w[0][j] = q < qlen ? ld_stream4(r0 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      w[1][j] = q < qlen ? ld_stream4(r1 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // the item's 2 RT sums a row tile: value r < RT is row b0 + r against
+  // the first weight row, RT + r against the second
+  auto compute = [&](const float4 (&w)[2][kQ], int i) {
+    if (i >= nItems) return;
+    const float4 *r0, *r1;
+    int qlen, n;
+    item(i, r0, r1, qlen, n);
+    for (int b0 = 0; b0 < p.rows; b0 += RT) {
+      float v[2 * RT];
+#pragma unroll
+      for (int r = 0; r < 2 * RT; ++r) v[r] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int q = lane + 32 * j;
+        if (q < qlen) {
+#pragma unroll
+          for (int r = 0; r < RT; ++r) {
+            const float4 a = xs[(b0 + r) * kSliceQ + q];
+            v[r] = dot4(a, w[0][j], v[r]);
+            v[RT + r] = dot4(a, w[1][j], v[RT + r]);
+          }
+        }
+      }
+      const float t = warp_sum_transposed<2 * RT>(v);
+      constexpr int kSpan = 32 / (2 * RT);
+      const int idx = lane / kSpan, b = b0 + idx % RT, second = idx / RT;
+      if (lane % kSpan != 0 || b >= p.B) continue;
+      if (i >= eA && i < eB) {
+        p.part_a[((size_t)(sa.s * 2 + second) * p.B + b) * p.I + n] = t;
+      } else if (i < eA) {
+        if (n + second < s0.n1) p.part0[((size_t)s0.s * p.B + b) * p.H + n + second] = t;
+      } else if (n + second < sb.n1) {
+        p.part_b[((size_t)sb.s * p.B + b) * p.H + n + second] = t;
+      }
+    }
+  };
+
+  // The first activation row of each warp, and w for the gate/up product,
+  // asked for before any weight: att's slice (row 5) or y1's (row 6).
+  float4 pre[kQ], prew[kQ];
+  const bool pre_att = full && s0.in, pre_y1 = !full && sa.in;
+  if ((pre_att || pre_y1) && warp < p.B) {
+    const float4* src = pre_att
+        ? reinterpret_cast<const float4*>(p.att + (size_t)warp * p.A) + s0.q0
+        : reinterpret_cast<const float4*>(p.y1 + (size_t)warp * p.H) + sa.q0;
+    const int qlen = pre_att ? s0.q1 - s0.q0 : sa.q1 - sa.q0;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      const int q = lane + 32 * j;
+      if (q < qlen) {
+        pre[j] = __ldcg(src + q);
+        if (pre_y1) prew[j] = __ldg(reinterpret_cast<const float4*>(p.nw) + sa.q0 + q);
+      }
+    }
+  }
+
+  // att's slice for the out projection, rows B .. rows - 1 zeros
+  auto stage_0 = [&]() {
+    const int qlen = s0.q1 - s0.q0;
+    for (int r = warp; r < p.rows; r += kSwWarps) {
+      const float4* src = reinterpret_cast<const float4*>(p.att + (size_t)r * p.A) + s0.q0;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int q = lane + 32 * j;
+        if (q >= qlen) break;
+        xs[r * kSliceQ + q] = r >= p.B   ? make_float4(0.f, 0.f, 0.f, 0.f)
+                              : r == warp ? pre[j]
+                                          : __ldcg(src + q);
+      }
+    }
+    __syncthreads();
+  };
+
+  // y1's slice for the gate/up product: y1 * w (and each row's sum of
+  // squares over the slice) on the fast path, else normalised from
+  // full-row statistics; rows B .. rows - 1 are zeros. A warp a row. y1
+  // is read from L2: row 5 wrote it in this launch.
+  auto stage_a = [&]() {
+    const bool rms = p.rms != 0;
+    if (!p.fast) decode::row_norm_stats(stat, p.y1, p.B, p.H, rms, p.eps);
+    const int qlen = sa.q1 - sa.q0;
+    const float4* w4 = reinterpret_cast<const float4*>(p.nw) + sa.q0;
+    for (int r = warp; r < p.rows; r += kSwWarps) {
+      const float4* y4 = reinterpret_cast<const float4*>(p.y1 + (size_t)r * p.H) + sa.q0;
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) {
+        const int q = lane + 32 * j;
+        if (q >= qlen) break;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < p.B) {
+          const bool first = pre_y1 && r == warp;
+          v = first ? pre[j] : __ldcg(y4 + q);
+          const float4 w = first ? prew[j] : __ldg(w4 + q);
+          if (p.fast) {
+            sq = dot4(v, v, sq);
+            v = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+          } else {
+            const float mean = stat[2 * r], rstd = stat[2 * r + 1];
+            const int k = 4 * (sa.q0 + q);
+            v.x = decode::norm_one(v.x, mean, rstd, rms, w.x, p.nb, k);
+            v.y = decode::norm_one(v.y, mean, rstd, rms, w.y, p.nb, k + 1);
+            v.z = decode::norm_one(v.z, mean, rstd, rms, w.z, p.nb, k + 2);
+            v.w = decode::norm_one(v.w, mean, rstd, rms, w.w, p.nb, k + 3);
+          }
+        }
+        xs[r * kSliceQ + q] = v;
+      }
+      if (p.fast && r < p.B) {
+        sq = decode::warp_sum(sq);
+        if (lane == 0) p.ss[((size_t)sa.cb * p.SA + sa.s) * p.B + r] = sq;
+      }
+    }
+    __syncthreads();
+  };
+
+  // f's slice for the down product (written in this launch: read from L2)
+  auto stage_b = [&]() {
+    const int qlen = sb.q1 - sb.q0;
+    for (int e = threadIdx.x; e < p.rows * qlen; e += kSwThreads) {
+      const int r = e / qlen, q = e - r * qlen;
+      xs[r * kSliceQ + q] =
+          r < p.B ? __ldcg(reinterpret_cast<const float4*>(p.f + (size_t)r * p.I) + sb.q0 + q)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+  };
+
+  // after a product's items: publish this CTA's slice sums, then wait
+  // until the S CTAs of its column block all have (every CTA is resident:
+  // a cooperative launch), so that each adds the slices, in slice order,
+  // of its own share of the block's outputs; a product's counts go back
+  // to 0 after the next grid barrier, the last product's before the first
+  auto arrive_all = [&](int t, int S) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      atomicAdd(p.tickets + t, 1u);
+      while (*reinterpret_cast<volatile unsigned*>(p.tickets + t) < (unsigned)S)
+        __nanosleep(32);
+    }
+    __syncthreads();
+    __threadfence();
+  };
+  // the sum in slice order of S slice sums `step` floats apart from src
+  auto slice_sum = [&](const float* src, size_t step, int S) {
+    float o = 0.f;
+    for (int s0_ = 0; s0_ < S; s0_ += kReduceBatch) {
+      float t[kReduceBatch];
+#pragma unroll
+      for (int j = 0; j < kReduceBatch; ++j)
+        if (s0_ + j < S) t[j] = __ldcg(src + (s0_ + j) * step);
+#pragma unroll
+      for (int j = 0; j < kReduceBatch; ++j)
+        if (s0_ + j < S) o += t[j];
+    }
+    return o;
+  };
+  auto reset = [&](int t0, int n) {
+    if (threadIdx.x == 0 && (int)blockIdx.x < n) p.tickets[t0 + blockIdx.x] = 0u;
+  };
+
+  // after the out projection (row 5): y1 = x + (att @ wo^T + bo)
+  auto boundary_0 = [&]() {
+    if (s0.in) {
+      arrive_all(s0.cb, p.S0);
+      const int cols = s0.n1 - s0.n0, total = p.B * cols;
+      for (int e = cut(s0.s, total, p.S0) + threadIdx.x; e < cut(s0.s + 1, total, p.S0);
+           e += kSwThreads) {
+        const int b = e / cols, n = s0.n0 + e % cols;
+        float t = slice_sum(p.part0 + (size_t)b * p.H + n, (size_t)p.B * p.H, p.S0);
+        if (p.bo != nullptr) t += __ldg(p.bo + n);
+        p.y1[(size_t)b * p.H + n] = __ldg(p.x + (size_t)b * p.H + n) + t;
+      }
+    }
+    reset(tB, p.CB);
+    grid.sync();
+    reset(0, p.C0);
+    if (sa.in) stage_a();
+  };
+
+  // after the gate/up product: silu(g) * u
+  auto boundary_a = [&]() {
+    if (sa.in) {
+      arrive_all(tA + sa.cb, p.SA);
+      if (p.fast) {   // each row's 1 / rms from its slices' sums of squares
+        for (int b = threadIdx.x; b < p.B; b += kSwThreads) {
+          const float sq = slice_sum(p.ss + (size_t)sa.cb * p.SA * p.B + b, p.B, p.SA);
+          stat[b] = rsqrtf(sq / p.H + p.eps);
+        }
+        __syncthreads();
+      }
+      const int cols = sa.n1 - sa.n0, total = p.B * cols;
+      for (int e = cut(sa.s, total, p.SA) + threadIdx.x; e < cut(sa.s + 1, total, p.SA);
+           e += kSwThreads) {
+        const int b = e / cols, n = sa.n0 + e % cols;
+        const float* pg = p.part_a + (size_t)b * p.I + n;
+        const size_t step = (size_t)p.B * p.I;   // a gate (or up) slice's sums
+        const float r = p.fast ? stat[b] : 1.f;
+        const float g = slice_sum(pg, 2 * step, p.SA) * r;
+        const float u = slice_sum(pg + step, 2 * step, p.SA) * r;
+        p.f[(size_t)b * p.I + n] = silu(g) * u;
+      }
+    }
+    if (!full) reset(tB, p.CB);
+    grid.sync();
+    reset(tA, p.CA);
+    if (sb.in) stage_b();
+  };
+
+  // the products end to end, the next kBuf - 1 items' loads in flight
+  // during each
+  float4 wb[kBuf][2][kQ];
+#pragma unroll
+  for (int u = 0; u < kBuf - 1; ++u) load(wb[u], u);
+  if (full) {
+    if (s0.in) stage_0();
+  } else if (sa.in) {
+    stage_a();
+  }
+  const int steps = nItems > eB ? nItems : eB + 1;   // the boundaries run once
+  for (int i = 0; i < steps; i += kBuf) {
+#pragma unroll
+    for (int u = 0; u < kBuf; ++u) {
+      if (i + u >= steps) break;
+      load(wb[(u + kBuf - 1) % kBuf], i + u + kBuf - 1);
+      if (full && i + u == eA) boundary_0();
+      if (i + u == eB) boundary_a();
+      compute(wb[u], i + u);
+    }
+  }
+
+  // after the down product: out = the slices' sum (row 6), y1 + (that +
+  // b2) (row 5)
+  if (sb.in) {
+    arrive_all(tB + sb.cb, p.SB);
+    const int cols = sb.n1 - sb.n0, total = p.B * cols;
+    for (int e = cut(sb.s, total, p.SB) + threadIdx.x; e < cut(sb.s + 1, total, p.SB);
+         e += kSwThreads) {
+      const size_t o = (size_t)(e / cols) * p.H + sb.n0 + e % cols;
+      float t = slice_sum(p.part_b + o, (size_t)p.B * p.H, p.SB);
+      if (full) {
+        if (p.b2 != nullptr) t += __ldg(p.b2 + sb.n0 + e % cols);
+        t = __ldcg(p.y1 + o) + t;
+      }
+      p.out[o] = t;
+    }
+  }
+}
+
+// Rows the SwiGLU kernel's registers hold at once for B rows: B itself
+// up to 2, else 4 (more rows in tiles of 4: 8 spilled at 128 registers).
+int swiglu_row_tile(int B) { return B <= 2 ? B : 4; }
+
+template <int RT>
+cudaError_t swiglu_plan_rt(int B, int H, int A, int I, int* plan) {
+  auto kernel = A > 0 ? swiglu_kernel<RT, true> : swiglu_kernel<RT, false>;
+  const int rows = (B + RT - 1) / RT * RT;
+  const size_t smem = (size_t)rows * kSliceQ * sizeof(float4) + 2 * (size_t)B * sizeof(float);
+  cudaError_t err = decode::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSwThreads,
+                                                           smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int most = per_sm * sms;
+  auto slices = [](int K) { return (K / 4 + kSliceQ - 1) / kSliceQ; };
+  const int S0 = A > 0 ? slices(A) : 0, SA = slices(H), SB = slices(I);
+  if (S0 > most || SA > most || SB > most) return cudaErrorInvalidValue;
+  const int C0 = S0 > 0 ? min(most / S0, (H + 1) / 2) : 0;
+  const int CA = min(most / SA, I), CB = min(most / SB, (H + 1) / 2);
+  const int grid = max(C0 * S0, max(CA * SA, CB * SB));
+  const int vals[10] = {grid, S0, SA, SB, C0, CA, CB, rows, (int)smem, most};
+  for (int i = 0; i < 10; ++i) plan[i] = vals[i];
+  return cudaSuccess;
+}
+
+template <bool FULL>
+const void* swiglu_kernel_for(int B) {
+  switch (swiglu_row_tile(B)) {
+    case 1: return (const void*)swiglu_kernel<1, FULL>;
+    case 2: return (const void*)swiglu_kernel<2, FULL>;
+    default: return (const void*)swiglu_kernel<4, FULL>;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Cooperative launch of the SwiGLU egress on `stream`; returns a
-// cudaError_t as int. `rms`: RMSNorm, else LayerNorm.
+// The plan of one SwiGLU launch at these widths on the current card (A =
+// 0: the partial mode, no out projection), into plan[10]: grid; S0, SA,
+// SB (K-slices of the out-projection, gate/up and down products); C0,
+// CA, CB (their column blocks); rows (B rounded up to the row tile);
+// shared memory bytes; the CTAs that can be resident
+// (fused_decode_mlp.swiglu_plan_for is the same rule). Its scratch, in
+// floats: part0 S0 B H, part_a SA 2 B I, part_b SB B H, ss CA SA B, f B
+// I, and y1 B H (row 5); counts: C0 + CA + CB ints, zero at first.
+// Returns a cudaError_t as int.
+int pdt_fused_decode_swiglu_plan(int B, int H, int A, int I, int* plan) {
+  if (B <= 0 || H % 4 || A % 4 || I % 4) return (int)cudaErrorInvalidValue;
+  switch (swiglu_row_tile(B)) {
+    case 1: return (int)swiglu_plan_rt<1>(B, H, A, I, plan);
+    case 2: return (int)swiglu_plan_rt<2>(B, H, A, I, plan);
+    default: return (int)swiglu_plan_rt<4>(B, H, A, I, plan);
+  }
+}
+
+// The SwiGLU egress (row 5: x, att, wo, bo, b2 given, y1 written) or its
+// partial mode (row 6, fused_decode_mlp_partial: A = 0, y1 given, x, att,
+// wo, bo and b2 null): wg and wu [I, H], wd [H, I], by the plan[10] of
+// pdt_fused_decode_swiglu_plan for these widths on this card, over the
+// scratch it sizes. Cooperative launch on `stream`; returns a cudaError_t
+// as int. `rms`: RMSNorm, else LayerNorm.
 int pdt_fused_decode_swiglu_f32(const float* x, const float* att, const float* wo,
                                 const float* bo, const float* nw, const float* nb,
                                 const float* wg, const float* wu, const float* wd,
-                                const float* b2, float* y1, float* g, float* u,
-                                float* out, int B, int H, int A, int I, int rms,
-                                float eps, void* stream) {
+                                const float* b2, float* y1, float* scratch,
+                                unsigned* tickets, float* out, int B, int H, int A, int I,
+                                int rms, float eps, const int* plan, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  const int kc = swiglu_chunk(B, H, A, I);
-  if (kc == 0) return (int)cudaErrorInvalidValue;
-  return launch_swiglu({x, att, wo, bo, nw, nb, wg, wu, wd, b2, y1, g, u, out,
-                        B, H, A, I, kc, rms, eps, 0}, stream);
-}
-
-// The partial mode (fused_decode_mlp_partial, arch="llama"): y1 [B, H]
-// given, wg and wu [I, H] and wd [H, I] a rank's slices; out =
-// (silu(norm(y1) @ wg^T) * (norm(y1) @ wu^T)) @ wd^T. Cooperative launch
-// on `stream`; returns a cudaError_t as int.
-int pdt_fused_decode_swiglu_partial_f32(const float* y1, const float* nw,
-                                        const float* nb, const float* wg,
-                                        const float* wu, const float* wd, float* g,
-                                        float* u, float* out, int B, int H, int I,
-                                        int rms, float eps, void* stream) {
-  if (B <= 0) return (int)cudaSuccess;
-  const int kc = swiglu_chunk(B, H, 0, I);
-  if (kc == 0) return (int)cudaErrorInvalidValue;
-  return launch_swiglu({nullptr, nullptr, nullptr, nullptr, nw, nb, wg, wu, wd,
-                        nullptr, const_cast<float*>(y1), g, u, out, B, H, 0, I, kc,
-                        rms, eps, 1},
-                       stream);
+  const int S0 = plan[1], SA = plan[2], SB = plan[3], CA = plan[5];
+  float* part0 = scratch;
+  float* part_a = part0 + (size_t)S0 * B * H;
+  float* part_b = part_a + (size_t)SA * 2 * B * I;
+  float* ss = part_b + (size_t)SB * B * H;
+  float* f = ss + (size_t)CA * SA * B;
+  SwigluParams p{x,      att,    wo,     bo,      nw,     nb,      wg,      wu,      wd,
+                 b2,     y1,     part0,  part_a,  part_b, ss,      f,       out,     tickets,
+                 B,      H,      A,      I,       S0,     SA,      SB,      plan[4], CA,
+                 plan[6], plan[7], rms,  rms != 0 && nb == nullptr,       eps};
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchCooperativeKernel(A > 0 ? swiglu_kernel_for<true>(B)
+                                                      : swiglu_kernel_for<false>(B),
+                                                dim3(plan[0]),
+                                                dim3(kSwThreads), args, (size_t)plan[8],
+                                                (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 const char* pdt_cuda_error_string(int err) {

@@ -1,59 +1,103 @@
 // Weight-only int8 matmul for Hopper (sm_90a), decode rows: y = (x @ q)
-// * s [+ b] for an fp32 x of at most 16 rows.
+// * s [+ b] for an fp32 x of at most 16 rows, on the tensor cores.
 //
-// Replaces, with quant_matmul_sm90.cu (every other call: the tensor
-// cores), the Pallas TPU kernel `_pallas_matmul` / `_kernel`
-// (paddle_tpu/ops/pallas/quant_matmul.py): x [M, K] fp32 times an int8
-// weight with one fp32 scale per output channel, accumulated in fp32, the
-// scale applied once per output element after the K reduction (per-channel
-// scales commute with the sum), then the bias. The weight arrives in the
-// layout nn.Linear keeps, [N, K] (each output channel's K bytes
-// contiguous); no float copy of it is ever written.
+// Replaces, with quant_matmul_sm90.cu (every other call), the Pallas TPU
+// kernel `_pallas_matmul` / `_kernel` (paddle_tpu/ops/pallas/
+// quant_matmul.py): x [M, K] fp32 times an int8 weight with one fp32
+// scale per output channel, accumulated in fp32, the scale applied once
+// per output element after the K reduction, then the bias. The weight
+// arrives in the layout nn.Linear keeps, [N, K] (each output channel's K
+// bytes contiguous); no float copy of it is ever written.
 //
-// What bounds it on an H100 at decode (M <= 16): the weight bytes. A
-// step reads K * N int8 bytes once and does 2 M K N flops, far below the
-// card's ratio of flops to bytes, so the kernel is a weight-streaming
-// GEMV: a warp owns 4 output columns and reads their rows with 16-byte
-// loads (16 int8 a lane), 8 of them in flight a lane; the activation
-// rows sit in shared memory (staged in chunks of K, float4 slots
-// XOR-swizzled so the 16 floats a lane reads for its 16 bytes hit
-// distinct banks) and each float4 read feeds the 4 columns. Bytes become
-// floats by a byte permute into the mantissa of 2^23 and one subtraction
-// (exact), not by an integer-to-float conversion, whose rate on an SM is
-// lower than the bytes arrive. It sums over k in order with fmaf and
-// applies the scale after the sum, so a result is within fp32 rounding
-// of the plain version. Shapes need not be multiples of anything: rows
-// whose K is not a multiple of 16 take a path with byte loads.
+// What bounds it on an H100 at decode (M <= 16): the weight bytes, K N
+// int8 read once (LLaMA-7B: 16.8 to 131 MB a call, 5 to 39 us at 3.35
+// TB/s). An SM must then take in ~14.5 bytes a clock. On the CUDA cores
+// every weight byte costs M fp32 FMAs, its conversion and reads of x from
+// shared memory, ~10 lane-ops a byte at M = 8: more than the SM can
+// issue. So the products run on the tensor cores, which leave the SM
+// about three lane-ops a byte (the conversion), and the weight stream
+// sets the pace.
+//
+// The product is computed transposed, Y^T [N, M] = W [N, K] X^T [K, M],
+// with mma.sync m16n8k16 (bf16 in, fp32 out): 16 output channels are the
+// A operand's rows, x^T the B operand (M <= 8 one n8 tile, 9..16 two).
+// int8 -> bf16 is exact (a byte permute puts the byte under the exponent
+// of 2^23, a subtraction leaves the integer, whose upper 16 bits are its
+// bf16). An fp32 x enters as three bf16 planes, hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid), which keep its 24 bits.
+//
+// The weight goes from device memory straight into registers, 16-byte
+// loads that skip L1 (the bytes are used once), in a ring of two 128-k
+// chunks a warp: 16 rows x 128 bytes a chunk, the next chunk's loads in
+// flight while one is converted and multiplied (three chunks, or 256-k
+// chunks, measured no faster on the card). x's first loads go out before
+// the weight's: queued behind the ring's loads they came back late, and
+// every product waits for x (an L2 prefetch of the weight further ahead,
+// rolling, only while x is staged, line by line or in bulk, measured
+// slower on the card). No shared-memory ring: a lane's bytes are its A
+// fragments. Within a 64-k block the order of the K sum is free, so the
+// block's k are permuted: lane (g, t) of a warp (g = lane / 4, t = lane %
+// 4) loads the 16 contiguous bytes 16 t .. 16 t + 15 of the block from
+// rows g and g + 8 of its 16 (a warp's load: 64 contiguous bytes of 8
+// rows, whole 32-byte sectors), and the word i of those (k16 step i) holds the
+// fragment's logical k 2t, 2t+1, 2t+8, 2t+9. x's B fragments follow the
+// same order: lane (g, t) needs x row g at the same 16 k of each block,
+// so the CTA converts its K-slice of x once into planes laid out
+// fragment by fragment in shared memory (16 bytes a lane, 512 a warp
+// read, no bank conflicts) and every warp reads them there.
+//
+// Numbers as quant_matmul_sm90.cu found them on the card: the tensor
+// cores' fp32 accumulator does not round each addition to nearest, so
+// every 64-k block's products start a fresh accumulator, the smallest
+// plane first (lo, mid, hi), and the blocks are added in fp32 registers
+// in k order; the scale comes after the whole sum, then the bias.
+//
+// Work: a CTA (16 warps, a warp 16 channels) owns 256 output channels
+// and a K-slice. Where N / 256 row blocks do not fill the SMs, K is cut
+// into `splits` slices of whole 64-k blocks (the wrapper's plan,
+// quant_matmul.gemv_plan), one CTA each; every CTA writes its partial
+// sums, and the last CTA of a row block to finish (a __threadfence, then
+// an atomic ticket that it resets) adds the slices in slice order,
+// scales, adds the bias and writes y. No atomics on y: two calls on the
+// same inputs give the same bits. x is converted only for the CTA's own
+// K-slice and rows (M / 256 of its weight work in conversions), in
+// phases of at most kSmemBudget of shared memory, the next chunk's weight
+// loads already in flight across each phase's barriers. K not a multiple of 16
+// (rows not 16-byte aligned) takes byte loads; K and N need not be
+// multiples of anything.
 //
 // Plain C interface (bound with ctypes); the wrapper in quant_matmul.py
-// checks shapes, types and contiguity and allocates the output. The
-// launchers return cudaGetLastError() after the launch.
+// checks shapes, types and contiguity, plans the splits and allocates
+// the output and the split scratch. The launcher returns
+// cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
-// ------------------------------------------------------------ shared ----
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kWarps * 16;   // output channels a CTA
+constexpr int kBlock = 64;           // k of a fresh accumulator; split unit
+constexpr int kPB = 2;               // 64-k blocks of a chunk
+constexpr int kChunk = kPB * kBlock; // k of a warp's 16-row load step
+constexpr int kPlanes = 3;           // bf16 planes of an fp32 x
+constexpr int kSmemBudget = 192 * 1024;
+constexpr int kReduceBatch = 8;      // split partials a thread loads at once
 
-// Four signed bytes of `w` (byte i in the low bits first) as floats:
-// flipping the sign bit makes byte b the unsigned b + 128, which a byte
-// permute puts under the exponent of 2^23; subtracting 2^23 + 128 leaves
-// exactly b.
-__device__ __forceinline__ void bytes4_to_float(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+struct Args {
+  const float* x;     // [M, K]
+  const int8_t* q;    // [N, K]
+  const float* s;     // [N]
+  const float* b;     // [N] or null
+  float* y;           // [M, N]
+  float* part;        // [splits, M, N] when splits > 1
+  int* tickets;       // [row blocks], zero between launches
+  int M, K, N, splits, kblocks, phase;   // phase: k staged at once
+};
 
 // A weight load that is used once: stream it past L1.
 __device__ __forceinline__ int4 ld_stream16(const int8_t* p) {
@@ -64,249 +108,323 @@ __device__ __forceinline__ int4 ld_stream16(const int8_t* p) {
   return v;
 }
 
-// ------------------------------------------------------ decode: GEMV ----
-
-constexpr int kGemvThreads = 256;
-constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kCols = 4;     // output columns a warp owns
-constexpr int kUnroll = 2;   // 16-byte chunks a column has in flight a lane
-
-// float4 slot q of an activation row lives at slot swz(q): the slots
-// 4c .. 4c+3 of the 16-byte chunk c that lane l reads (c = base + l) land
-// in distinct banks across each group of 8 lanes.
-__device__ __forceinline__ int swz(int q) { return q ^ ((q >> 3) & 3); }
-
-// Rows [0, M) of x [M, K], columns [k0, k0 + kc), into xs [MT][KC]
-// (float4 slots swizzled), zero past kc up to the next multiple of 16
-// and in rows M .. MT-1. Every CTA reads the same rows at once, so the
-// loads are float4s (K % 4 == 0; x is 16-byte aligned), kStageLoads of
-// them in flight a thread; a K that is not a multiple of 4 leaves rows
-// unaligned and takes scalar loads.
-constexpr int kStageLoads = 8;
-
-template <int MT>
-__device__ __forceinline__ void stage_x(float* xs, const float* __restrict__ x, int M,
-                                        int K, int k0, int kc, int KC) {
-  const int q4n = ((kc + 15) & ~15) / 4;
-  float4* xs4 = reinterpret_cast<float4*>(xs);
-  if (K % 4 == 0) {
-    const int total = MT * q4n, live = kc / 4;
-    for (int base = threadIdx.x; base < total; base += kGemvThreads * kStageLoads) {
-      float4 v[kStageLoads];
+// 16 weight bytes of `row` from k on (zeros past k1 or for a row past N).
+// VEC: K % 16 == 0, so a piece lies wholly before k1 or past it.
+template <bool VEC>
+__device__ __forceinline__ int4 load_piece(const int8_t* row, int k, int k1, bool ok) {
+  if (VEC) return ok && k < k1 ? ld_stream16(row + k) : make_int4(0, 0, 0, 0);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (ok) {
 #pragma unroll
-      for (int u = 0; u < kStageLoads; ++u) {
-        const int e = base + u * kGemvThreads;
-        const int r = e / q4n, q4 = e - r * q4n;
-        v[u] = (e < total && r < M && q4 < live)
-                   ? __ldg(reinterpret_cast<const float4*>(x + (size_t)r * K + k0) + q4)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < kStageLoads; ++u) {
-        const int e = base + u * kGemvThreads;
-        const int r = e / q4n, q4 = e - r * q4n;
-        if (e < total) xs4[(size_t)r * (KC / 4) + swz(q4)] = v[u];
-      }
-    }
-    return;
+    for (int i = 0; i < 16; ++i)
+      if (k + i < k1) w[i / 4] |= (uint32_t)(uint8_t)__ldg(row + k + i) << (8 * (i % 4));
   }
-  for (int e = threadIdx.x; e < MT * q4n; e += kGemvThreads) {
-    const int r = e / q4n, q4 = e - r * q4n;
-    const int k = k0 + 4 * q4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < M) {
-      const float* xr = x + (size_t)r * K;
-      if (k < k0 + kc) v.x = __ldg(xr + k);
-      if (k + 1 < k0 + kc) v.y = __ldg(xr + k + 1);
-      if (k + 2 < k0 + kc) v.z = __ldg(xr + k + 2);
-      if (k + 3 < k0 + kc) v.w = __ldg(xr + k + 3);
-    }
-    xs4[(size_t)r * (KC / 4) + swz(q4)] = v;
+  return make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+}
+
+// Bytes sel - 0x7440 and the next of u (= w ^ 0x80808080) as a bf16 pair,
+// the lower byte in the low half: exact (see the header).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t u, uint32_t sel) {
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, sel)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, sel + 1)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a b: a the 16x16 bf16 A fragment, (b0, b1) the 16x8 B fragment.
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 16-byte slot of x's planes that lane `lane` reads for chunk c (of
+// the phase), its block h, plane p, n8 tile nt, step pair q (the block's
+// steps 2q and 2q + 1): slots of one (c, h, p, nt, q) are a warp's 512
+// bytes.
+template <int NT>
+__device__ __forceinline__ int slot(int c, int h, int p, int nt, int q, int lane) {
+  return ((((c * kPB + h) * kPlanes + p) * NT + nt) * 2 + q) * 32 + lane;
+}
+
+// 8 consecutive k of x row m from k on (zeros from M or k1 on).
+__device__ __forceinline__ void load8(float (&v)[8], const Args& a, int m, int k, int k1) {
+  const float* xr = a.x + (size_t)m * a.K + k;
+  if (m < a.M && a.K % 4 == 0 && k + 8 <= k1) {
+    const float4 u0 = __ldg(reinterpret_cast<const float4*>(xr));
+    const float4 u1 = __ldg(reinterpret_cast<const float4*>(xr) + 1);
+    v[0] = u0.x, v[1] = u0.y, v[2] = u0.z, v[3] = u0.w;
+    v[4] = u1.x, v[5] = u1.y, v[6] = u1.z, v[7] = u1.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = m < a.M && k + i < k1 ? __ldg(xr + i) : 0.f;
   }
 }
 
-// MT: rows computed (M <= MT); VEC: K % 16 == 0 (16-byte weight loads),
-// else byte loads. Columns [g * 32, g * 32 + 32) for column groups g of
-// this block; with one K chunk (KC >= K) the activations are staged once
-// for all of them.
-template <int MT, bool VEC>
-__global__ void __launch_bounds__(kGemvThreads)
-gemv_i8_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-               const float* __restrict__ s, const float* __restrict__ bias,
-               float* __restrict__ y, int M, int K, int N, int KC) {
-  extern __shared__ __align__(16) float xs[];  // [MT][KC]
-  const float4* xs4 = reinterpret_cast<const float4*>(xs);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int groups = (N + kGemvWarps * kCols - 1) / (kGemvWarps * kCols);
-  const bool one_chunk = KC >= K;
-  {
-    // the first column group's weight rows (its first K chunk) start
-    // moving into L2 while the activations are staged
-    const int r0 = blockIdx.x * kGemvWarps * kCols;
-    const int nr = min(kGemvWarps * kCols, N - r0);
-    const size_t lines = ((size_t)min(KC, K) + 127) / 128;
-    for (size_t i = threadIdx.x; nr > 0 && i < (size_t)nr * lines; i += kGemvThreads) {
-      const size_t row = i / lines, line = i - row * lines;
-      const char* a = reinterpret_cast<const char*>(q + (size_t)(r0 + row) * K) + line * 128;
-      asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+// x rows [0, M), k [kb, kb + len) (zero from k1 on), into the
+// fragment-ordered planes (rows M .. 8 NT - 1 are never read: their B
+// fragments are zeros in registers): a thread takes 8 consecutive k of a
+// row, one slot of each plane, kStageBatch such groups' loads in flight
+// at once; with `have_first`, `first` holds the thread's first group,
+// loaded already (stage_first).
+constexpr int kStageBatch = 1;
+
+__device__ __forceinline__ int stage_groups(int len) {
+  return (len + kChunk - 1) / kChunk * (kChunk / 8);
+}
+
+__device__ __forceinline__ void stage_first(float (&v)[8], const Args& a, int kb, int len,
+                                            int k1) {
+  const int groups = stage_groups(len), e = threadIdx.x, m = e / groups;
+  if (e < a.M * groups) load8(v, a, m, kb + 8 * (e - m * groups), k1);
+}
+
+template <int NT>
+__device__ __forceinline__ void stage_x(uint4* xs, const Args& a, int kb, int len, int k1,
+                                        const float (&first)[8], bool have_first) {
+  const int groups = stage_groups(len);
+  const int total = a.M * groups;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kStageBatch) {
+    float v[kStageBatch][8];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kThreads, m = e / groups;
+      if (e >= total) break;
+      if (u == 0 && have_first && e0 == threadIdx.x) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[u][i] = first[i];
+      } else {
+        load8(v[u], a, m, kb + 8 * (e - m * groups), k1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * kThreads, m = e / groups, kk = 8 * (e - m * groups);
+      if (e >= total) break;
+      const int c = kk / kChunk, r = kk % kChunk;
+      const int h = r / kBlock, t = (r % kBlock) / 16, q = (r / 8) & 1;
+      const int lane = (m % 8) * 4 + t;
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          w[i] = pack_bf16(v[u][2 * i], v[u][2 * i + 1]);
+          v[u][2 * i] -= __uint_as_float(w[i] << 16);
+          v[u][2 * i + 1] -= __uint_as_float(w[i] & 0xFFFF0000u);
+        }
+        xs[slot<NT>(c, h, p, m / 8, q, lane)] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
     }
   }
-  if (one_chunk) {
-    stage_x<MT>(xs, x, M, K, 0, K, KC);
-    __syncthreads();
-  }
-  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
-    const int n0 = (g * kGemvWarps + warp) * kCols;
-    const int8_t* rows[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) rows[j] = q + (size_t)min(n0 + j, N - 1) * K;
-    float acc[MT][kCols];
-#pragma unroll
-    for (int r = 0; r < MT; ++r)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
+}
 
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      const int kc = min(KC, K - k0);
-      if (!one_chunk) {
-        __syncthreads();  // the previous chunk's readers are done
-        stage_x<MT>(xs, x, M, K, k0, kc, KC);
+// NT: n8 tiles of x rows (M <= 8 NT); VEC: K % 16 == 0; STAGES: 128-k
+// chunks of the ring a warp keeps in registers.
+template <int NT, bool VEC, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1) gemv_tc_kernel(const Args a) {
+  extern __shared__ __align__(16) uint4 xs[];
+  __shared__ int is_last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rb = blockIdx.x / a.splits, split = blockIdx.x % a.splits;
+  const int kb0 = (int)((long long)split * a.kblocks / a.splits);
+  const int kb1 = (int)((long long)(split + 1) * a.kblocks / a.splits);
+  const int k0 = kb0 * kBlock, k1 = min(kb1 * kBlock, a.K);
+  const int nchunks = (k1 - k0 + kChunk - 1) / kChunk;
+  const int rA = rb * kRows + warp * 16 + g, rB = rA + 8;
+  const bool okA = rA < a.N, okB = rB < a.N;
+  const int8_t* wA = a.q + (size_t)(okA ? rA : 0) * a.K + 16 * t;
+  const int8_t* wB = a.q + (size_t)(okB ? rB : 0) * a.K + 16 * t;
+  const int pc = a.phase / kChunk;   // chunks a phase
+
+  // ring[s]: the lane's 16 bytes of each 64-k block of a chunk, row A's
+  // blocks then row B's
+  int4 ring[STAGES][2 * kPB];
+  float x0[8];   // x's first group of this thread, asked for first
+  stage_first(x0, a, k0, min(a.phase, k1 - k0), k1);
+  auto load = [&](int4 (&r)[2 * kPB], int c) {
+    const int k = k0 + c * kChunk;
+    const bool live = c < nchunks;
+#pragma unroll
+    for (int h = 0; h < kPB; ++h) {
+      r[h] = load_piece<VEC>(wA, k + h * kBlock, k1 - 16 * t, live && okA);
+      r[kPB + h] = load_piece<VEC>(wB, k + h * kBlock, k1 - 16 * t, live && okB);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) load(ring[s], s);
+
+  float sum[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[nt][e] = 0.f;
+
+  for (int c0 = 0; c0 < nchunks; c0 += STAGES) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      const int c = c0 + s;
+      if (c >= nchunks) break;
+      if (c % pc == 0) {   // a new phase of x: every warp reaches it
+        if (c > 0) __syncthreads();
+        stage_x<NT>(xs, a, k0 + c * kChunk, min(a.phase, k1 - k0 - c * kChunk), k1, x0,
+                    c == 0);
         __syncthreads();
       }
-      if (VEC) {
-        const int nch = kc / 16;  // K % 16 == 0, so every chunk is whole
-        for (int c = lane; c < nch; c += 32 * kUnroll) {
-          int4 w[kUnroll][kCols];
+      load(ring[(s + STAGES - 1) % STAGES], c + STAGES - 1);
+      const int cl = c % pc;
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u)
+      for (int h = 0; h < kPB; ++h) {
+        // the A fragments of block h's steps: word i of its pieces
+        const int4 pa = ring[s][h], pb = ring[s][kPB + h];
+        const uint32_t ua[4] = {(uint32_t)pa.x ^ 0x80808080u, (uint32_t)pa.y ^ 0x80808080u,
+                                (uint32_t)pa.z ^ 0x80808080u, (uint32_t)pa.w ^ 0x80808080u};
+        const uint32_t ub[4] = {(uint32_t)pb.x ^ 0x80808080u, (uint32_t)pb.y ^ 0x80808080u,
+                                (uint32_t)pb.z ^ 0x80808080u, (uint32_t)pb.w ^ 0x80808080u};
+        uint32_t af[4][4];
 #pragma unroll
-            for (int j = 0; j < kCols; ++j)
-              w[u][j] = c + 32 * u < nch ? ld_stream16(rows[j] + k0 + 16 * (c + 32 * u))
-                                         : make_int4(0, 0, 0, 0);
+        for (int i = 0; i < 4; ++i) {
+          af[i][0] = i8x2_to_bf16x2(ua[i], 0x7440u);
+          af[i][1] = i8x2_to_bf16x2(ub[i], 0x7440u);
+          af[i][2] = i8x2_to_bf16x2(ua[i], 0x7442u);
+          af[i][3] = i8x2_to_bf16x2(ub[i], 0x7442u);
+        }
+        float acc[NT][4];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const int cc = c + 32 * u;
-            if (cc >= nch) break;
-            float wf[kCols][16];
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int j = 0; j < kCols; ++j) {
-              bytes4_to_float((uint32_t)w[u][j].x, wf[j]);
-              bytes4_to_float((uint32_t)w[u][j].y, wf[j] + 4);
-              bytes4_to_float((uint32_t)w[u][j].z, wf[j] + 8);
-              bytes4_to_float((uint32_t)w[u][j].w, wf[j] + 12);
-            }
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll
-            for (int r = 0; r < MT; ++r) {
-              if (r >= M) break;
-              const float4* xr = xs4 + (size_t)r * (KC / 4);
-              const float4 a[4] = {xr[swz(4 * cc)], xr[swz(4 * cc + 1)],
-                                   xr[swz(4 * cc + 2)], xr[swz(4 * cc + 3)]};
+        for (int p = kPlanes - 1; p >= 0; --p)   // lo, mid, hi
 #pragma unroll
-              for (int j = 0; j < kCols; ++j) {
-                float t = acc[r][j];
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {
-                  t = fmaf(a[i].x, wf[j][4 * i], t);
-                  t = fmaf(a[i].y, wf[j][4 * i + 1], t);
-                  t = fmaf(a[i].z, wf[j][4 * i + 2], t);
-                  t = fmaf(a[i].w, wf[j][4 * i + 3], t);
-                }
-                acc[r][j] = t;
-              }
-            }
+          for (int nt = 0; nt < NT; ++nt) {
+            const bool live = 8 * nt + g < a.M;   // x rows past M: zeros
+            const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+            const uint4 u0 = live ? xs[slot<NT>(cl, h, p, nt, 0, lane)] : zero;
+            const uint4 u1 = live ? xs[slot<NT>(cl, h, p, nt, 1, lane)] : zero;
+            mma(acc[nt], af[0], u0.x, u0.y);
+            mma(acc[nt], af[1], u0.z, u0.w);
+            mma(acc[nt], af[2], u1.x, u1.y);
+            mma(acc[nt], af[3], u1.z, u1.w);
           }
-        }
-      } else {
-        // byte loads: lane takes k = lane, lane + 32, ... of the chunk
-        for (int k = lane; k < kc; k += 32) {
-          const int q4 = k >> 2, sub = k & 3;
-          float wv[kCols];
 #pragma unroll
-          for (int j = 0; j < kCols; ++j) wv[j] = (float)__ldg(rows[j] + k0 + k);
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int r = 0; r < MT; ++r) {
-            if (r >= M) break;
-            const float xv = xs[(size_t)r * KC + 4 * swz(q4) + sub];
-#pragma unroll
-            for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      if (r >= M) break;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float t = warp_sum(acc[r][j]);
-        const int n = n0 + j;
-        if (lane == 0 && n < N) {
-          float v = t * __ldg(s + n);
-          if (bias != nullptr) v += __ldg(bias + n);
-          y[(size_t)r * N + n] = v;
-        }
+          for (int e = 0; e < 4; ++e) sum[nt][e] += acc[nt][e];
       }
     }
   }
+
+  // sum[nt][e]: channel rA (e < 2) or rB, x row 8 nt + 2 t + e % 2
+  const bool one = a.splits == 1;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 8 * nt + 2 * t + (e & 1), n = e < 2 ? rA : rB;
+      if (m >= a.M || n >= a.N) continue;
+      if (one) {
+        float v = sum[nt][e] * __ldg(a.s + n);
+        if (a.b != nullptr) v += __ldg(a.b + n);
+        a.y[(size_t)m * a.N + n] = v;
+      } else {
+        a.part[((size_t)split * a.M + m) * a.N + n] = sum[nt][e];
+      }
+    }
+  if (one) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(a.tickets + rb, 1) == a.splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  // the last CTA of the row block: the slices in order, the scale, the bias
+  __threadfence();
+  // (a float4 of channels a thread where N % 4 == 0; each batch's loads
+  // in flight together, the adds in slice order)
+  const int vw = a.N % 4 == 0 ? 4 : 1;
+  const size_t step = (size_t)a.M * a.N;
+  for (int e = threadIdx.x; e < a.M * kRows / vw; e += kThreads) {
+    const int m = e / (kRows / vw), n = rb * kRows + vw * (e % (kRows / vw));
+    if (n >= a.N) continue;
+    const float* p = a.part + (size_t)m * a.N + n;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < a.splits; s0 += kReduceBatch) {
+      float4 t[kReduceBatch];
+#pragma unroll
+      for (int j = 0; j < kReduceBatch; ++j) {
+        const float* q = p + (s0 + j) * step;
+        if (s0 + j >= a.splits) break;
+        t[j] = vw == 4 ? __ldcg(reinterpret_cast<const float4*>(q))
+                       : make_float4(__ldcg(q), 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kReduceBatch; ++j) {
+        if (s0 + j >= a.splits) break;
+        v[0] += t[j].x, v[1] += t[j].y, v[2] += t[j].z, v[3] += t[j].w;
+      }
+    }
+    for (int i = 0; i < vw; ++i) {
+      float o = v[i] * __ldg(a.s + n + i);
+      if (a.b != nullptr) o += __ldg(a.b + n + i);
+      a.y[(size_t)m * a.N + n + i] = o;
+    }
+  }
+  if (threadIdx.x == 0) a.tickets[rb] = 0;
 }
 
-// Shared memory of the GEMV: MT rows of a K chunk. One chunk covers K
-// when it fits in kGemvSmemMax; else chunks of the largest multiple of
-// 512 floats that fits.
-constexpr size_t kGemvSmemMax = 160 * 1024;
-
-int gemv_rows(int M) { return M <= 4 ? 4 : (M <= 8 ? 8 : 16); }
-
-int gemv_chunk(int MT, int K) {
-  const int k16 = (K + 15) & ~15;
-  if ((size_t)MT * k16 * sizeof(float) <= kGemvSmemMax) return k16;
-  return (int)(kGemvSmemMax / (sizeof(float) * MT)) / 512 * 512;
-}
-
-template <int MT, bool VEC>
-cudaError_t launch_gemv(const float* x, const int8_t* q, const float* s, const float* b,
-                        float* y, int M, int K, int N, int num_sms, cudaStream_t st) {
-  const int KC = gemv_chunk(MT, K);
-  const size_t smem = (size_t)MT * KC * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gemv_i8_kernel<MT, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <int NT, bool VEC>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  constexpr int kStages = 2;
+  auto kernel = gemv_tc_kernel<NT, VEC, kStages>;
+  // the longest slice, in whole chunks, staged in phases of a.phase
+  const int longest = (a.kblocks + a.splits - 1) / a.splits * kBlock;
+  const int staged = min(a.phase, (longest + kChunk - 1) / kChunk * kChunk);
+  const size_t smem = (size_t)staged * 8 * NT * kPlanes * 2;   // bf16 planes
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const int groups = (N + kGemvWarps * kCols - 1) / (kGemvWarps * kCols);
-  // one chunk: a block per SM (or as many as fit) walks column groups
-  // with the activations staged once; several chunks: a block a group
-  const int per_sm = smem <= 72 * 1024 ? 2 : 1;
-  const int grid = KC >= K ? (groups < num_sms * per_sm ? groups : num_sms * per_sm)
-                           : groups;
-  gemv_i8_kernel<MT, VEC><<<grid, kGemvThreads, smem, st>>>(x, q, s, b, y, M, K, N, KC);
+  const int blocks = (a.N + kRows - 1) / kRows;
+  kernel<<<blocks * a.splits, kThreads, smem, st>>>(a);
   return cudaGetLastError();
-}
-
-template <int MT>
-cudaError_t dispatch_gemv(const float* x, const int8_t* q, const float* s, const float* b,
-                          float* y, int M, int K, int N, int num_sms, cudaStream_t st) {
-  if (K % 16 == 0) return launch_gemv<MT, true>(x, q, s, b, y, M, K, N, num_sms, st);
-  return launch_gemv<MT, false>(x, q, s, b, y, M, K, N, num_sms, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Channels of one CTA and k of one split unit (quant_matmul.gemv_plan).
+int pdt_quant_matmul_gemv_rows() { return kRows; }
+int pdt_quant_matmul_gemv_block() { return kBlock; }
+
 // y [M, N] = (x [M, K] @ q^T) * s [+ b] for 1 <= M <= 16, q [N, K] int8
-// rows, s [N] fp32, b [N] fp32 or null. x, q 16-byte aligned when K
-// allows vector loads. Launch on `stream` (a cudaStream_t); returns a
-// cudaError_t as int (cudaErrorInvalidValue for M > 16).
+// rows, s [N] fp32, b [N] fp32 or null, K cut into `splits` slices of
+// whole 64-k blocks; part [splits, M, N] floats and tickets [ceil(N /
+// 256)] ints (zero, and left zero) when splits > 1. x 16-byte aligned; q
+// too when K % 16 == 0. Launch on `stream` (a cudaStream_t); returns a
+// cudaError_t as int (cudaErrorInvalidValue for M > 16 or a bad split).
 int pdt_quant_matmul_f32(const float* x, const int8_t* q, const float* s, const float* b,
-                         float* y, int M, int K, int N, int num_sms, void* stream) {
+                         float* y, float* part, int* tickets, int M, int K, int N,
+                         int splits, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  if (M > 16) return (int)cudaErrorInvalidValue;
+  const int kblocks = (K + kBlock - 1) / kBlock;
+  if (M > 16 || K <= 0 || splits < 1 || splits > kblocks) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (part == nullptr || tickets == nullptr)) return (int)cudaErrorInvalidValue;
+  const int nt = M <= 8 ? 1 : 2;
+  // the k a phase stages: the most that fits kSmemBudget, whole chunks
+  const int phase = kSmemBudget / (8 * nt * kPlanes * 2) / kChunk * kChunk;
+  const Args a{x, q, s, b, y, part, tickets, M, K, N, splits, kblocks, phase};
   cudaStream_t st = (cudaStream_t)stream;
-  switch (gemv_rows(M)) {
-    case 4: return (int)dispatch_gemv<4>(x, q, s, b, y, M, K, N, num_sms, st);
-    case 8: return (int)dispatch_gemv<8>(x, q, s, b, y, M, K, N, num_sms, st);
-    default: return (int)dispatch_gemv<16>(x, q, s, b, y, M, K, N, num_sms, st);
-  }
+  const bool vec = K % 16 == 0;
+  if (nt == 1) return (int)(vec ? launch<1, true>(a, st) : launch<1, false>(a, st));
+  return (int)(vec ? launch<2, true>(a, st) : launch<2, false>(a, st));
 }
 
 const char* pdt_cuda_error_string(int err) {

@@ -12,8 +12,14 @@
   (``fused_decode_mlp_partial``), the tensor-parallel shard-local MLP:
   ``mlp(norm(y1))`` with a rank's slices of the MLP weights (fc1 or
   gate/up cut by columns, fc2 or down by rows) and no fc2 bias and no
-  residual, the partial sum that the layer's all-reduce adds up. It is a
-  mode of the two kernels above, which skip their first product.
+  residual, the partial sum that the layer's all-reduce adds up. It is
+  a mode of the kernel that serves the arch without TP.
+
+``arch="llama"`` runs ``swiglu_kernel`` in both: each product's K cut
+into slices of at most 512 floats, every CTA one slice of one column
+block, the slices' sums added in slice order by the block's CTAs, each
+for its share of the outputs (:func:`swiglu_plan`; its plain version
+:func:`swiglu_plan_for` and :func:`swiglu_work`).
 * :func:`fused_decode_epilogue` replaces ``_epilogue_block``: the final
   norm, the LM head and the guarded greedy pick. It returns ``(logits
   [B, V] pre-poison, nxt [B], bad [B] bool)``, with ``nxt`` and ``bad``
@@ -50,6 +56,8 @@ __all__ = ["fused_decode_mlp", "fused_decode_mlp_plain",
 
 _lib = None
 _tickets: dict = {}   # device -> the epilogue's int32 ticket (kept at 0)
+_swiglu_counts: dict = {}  # (device, stream, C0, CA, CB) -> arrival counts
+_swiglu_plans: dict = {}   # (device, B, H, A, I) -> a SwiGLU launch's plan
 
 
 def _kernels():
@@ -70,15 +78,11 @@ def _kernels():
         lib.pdt_fused_decode_epilogue_grid.restype = I
         lib.pdt_fused_decode_mlp_smem_bytes.argtypes = [I] * 4
         lib.pdt_fused_decode_mlp_smem_bytes.restype = ctypes.c_size_t
-        lib.pdt_fused_decode_swiglu_f32.argtypes = [P] * 14 + [I] * 5 + [F, P]
+        lib.pdt_fused_decode_swiglu_f32.argtypes = ([P] * 14 + [I] * 5
+                                                    + [F, P, P])
         lib.pdt_fused_decode_swiglu_f32.restype = I
-        lib.pdt_fused_decode_swiglu_partial_f32.argtypes = ([P] * 9 + [I] * 4
-                                                            + [F, P])
-        lib.pdt_fused_decode_swiglu_partial_f32.restype = I
-        lib.pdt_fused_decode_swiglu_smem_bytes.argtypes = [I] * 4
-        lib.pdt_fused_decode_swiglu_smem_bytes.restype = ctypes.c_size_t
-        lib.pdt_fused_decode_swiglu_grid.argtypes = [I] * 4 + [P]
-        lib.pdt_fused_decode_swiglu_grid.restype = I
+        lib.pdt_fused_decode_swiglu_plan.argtypes = [I] * 4 + [P]
+        lib.pdt_fused_decode_swiglu_plan.restype = I
         lib.pdt_fused_decode_epilogue_smem_bytes.argtypes = [I] * 2
         lib.pdt_fused_decode_epilogue_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_cuda_error_string.argtypes = [I]
@@ -231,32 +235,28 @@ def fused_decode_mlp(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
                        ("b1", b1), ("w2", w2), ("b2", b2), ("w_up", w_up)))
     if llama and norm_w.data_ptr() % 16:
         raise ValueError(f"{name}: norm_w must be 16-byte aligned")
+    y1 = torch.empty_like(x)
+    if llama:
+        out = _swiglu_launch(name, dev, y1, norm_w, norm_b, w1, w_up, w2,
+                             norm=norm, eps=eps, x=x, att=att, wo=wo, bo=bo,
+                             b2=b2)
+        fused_decode_mlp.launches += 1
+        return out
     lib = _kernels()
-    smem = (lib.pdt_fused_decode_swiglu_smem_bytes if llama
-            else lib.pdt_fused_decode_mlp_smem_bytes)(bsz, hid, a_w, inter)
+    smem = lib.pdt_fused_decode_mlp_smem_bytes(bsz, hid, a_w, inter)
     if not 0 < smem <= SMEM_LIMIT:
         raise ValueError(f"{name}: {bsz} rows of width "
                          f"{max(hid, a_w, inter)} do not fit the "
                          f"{SMEM_LIMIT} B of shared memory of a CTA")
-    y1 = torch.empty_like(x)
     f = torch.empty(bsz, inter, dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if llama:
-            u = torch.empty_like(f)
-            rc = lib.pdt_fused_decode_swiglu_f32(
-                x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
-                norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(),
-                w_up.data_ptr(), w2.data_ptr(), _ptr(b2), y1.data_ptr(),
-                f.data_ptr(), u.data_ptr(), out.data_ptr(), bsz, hid, a_w,
-                inter, int(norm == "rms"), float(eps), stream)
-        else:
-            rc = lib.pdt_fused_decode_mlp_f32(
-                x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
-                norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(), _ptr(b1),
-                w2.data_ptr(), _ptr(b2), y1.data_ptr(), f.data_ptr(),
-                out.data_ptr(), bsz, hid, a_w, inter, float(eps), stream)
+        rc = lib.pdt_fused_decode_mlp_f32(
+            x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
+            norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(), _ptr(b1),
+            w2.data_ptr(), _ptr(b2), y1.data_ptr(), f.data_ptr(),
+            out.data_ptr(), bsz, hid, a_w, inter, float(eps), stream)
     if rc != 0:
         _raise(name, rc)
     fused_decode_mlp.launches += 1
@@ -307,9 +307,13 @@ def fused_decode_mlp_partial(y1, norm_w, norm_b, w1, b1, w2, w_up=None, *,
                        ("w1", w1), ("b1", b1), ("w2", w2), ("w_up", w_up)))
     if llama and norm_w.data_ptr() % 16:
         raise ValueError(f"{name}: norm_w must be 16-byte aligned")
+    if llama:
+        out = _swiglu_launch(name, dev, y1, norm_w, norm_b, w1, w_up, w2,
+                             norm=norm, eps=eps)
+        fused_decode_mlp_partial.launches += 1
+        return out
     lib = _kernels()
-    smem = (lib.pdt_fused_decode_swiglu_smem_bytes if llama
-            else lib.pdt_fused_decode_mlp_smem_bytes)(bsz, hid, 0, inter)
+    smem = lib.pdt_fused_decode_mlp_smem_bytes(bsz, hid, 0, inter)
     if not 0 < smem <= SMEM_LIMIT:
         raise ValueError(f"{name}: {bsz} rows of width {max(hid, inter)} do "
                          f"not fit the {SMEM_LIMIT} B of shared memory of a "
@@ -318,18 +322,10 @@ def fused_decode_mlp_partial(y1, norm_w, norm_b, w1, b1, w2, w_up=None, *,
     out = torch.empty_like(y1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if llama:
-            u = torch.empty_like(f)
-            rc = lib.pdt_fused_decode_swiglu_partial_f32(
-                y1.data_ptr(), norm_w.data_ptr(), _ptr(norm_b),
-                w1.data_ptr(), w_up.data_ptr(), w2.data_ptr(), f.data_ptr(),
-                u.data_ptr(), out.data_ptr(), bsz, hid, inter,
-                int(norm == "rms"), float(eps), stream)
-        else:
-            rc = lib.pdt_fused_decode_mlp_partial_f32(
-                y1.data_ptr(), norm_w.data_ptr(), _ptr(norm_b),
-                w1.data_ptr(), _ptr(b1), w2.data_ptr(), f.data_ptr(),
-                out.data_ptr(), bsz, hid, inter, float(eps), stream)
+        rc = lib.pdt_fused_decode_mlp_partial_f32(
+            y1.data_ptr(), norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(),
+            _ptr(b1), w2.data_ptr(), f.data_ptr(), out.data_ptr(), bsz, hid,
+            inter, float(eps), stream)
     if rc != 0:
         _raise(name, rc)
     fused_decode_mlp_partial.launches += 1
@@ -339,18 +335,126 @@ def fused_decode_mlp_partial(y1, norm_w, norm_b, w1, b1, w2, w_up=None, *,
 fused_decode_mlp_partial.launches = 0
 
 
-def swiglu_grid(bsz, hid, a_w, inter, device=None):
-    """CTAs of one SwiGLU egress launch on the current card at these
-    widths (every CTA that can be resident, capped at one warp per
-    column of the widest product)."""
-    lib = _kernels()
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = lib.pdt_fused_decode_swiglu_grid(bsz, hid, a_w, inter,
-                                              ctypes.byref(grid))
+PLAN_KEYS = ("grid", "S0", "SA", "SB", "C0", "CA", "CB", "rows", "smem",
+             "most")
+SLICE_Q = 128   # float4s of one of the SwiGLU kernel's K-slices (512 floats)
+
+
+def swiglu_plan_for(bsz, hid, a_w, inter, most):
+    """Plain version of the library's SwiGLU plan (:func:`swiglu_plan`)
+    when ``most`` CTAs can be resident (``a_w`` 0: the partial mode, no
+    out projection): each product's K cut into the fewest slices of at
+    most ``SLICE_Q`` float4s (``S0``, ``SA``, ``SB``), the CTAs into as
+    many column blocks a slice as fill ``most`` (``C0``, ``CA``, ``CB``:
+    at least one column a block of the gate/up product, two of the out
+    projection and the down product); ``rows`` is B rounded up to the
+    rows a warp's registers hold at once (B up to 2, else 4)."""
+    rt = bsz if bsz <= 2 else 4
+
+    def slices(k):
+        return -(-(k // 4) // SLICE_Q)
+
+    s0, sa, sb = slices(a_w), slices(hid), slices(inter)
+    c0 = min(most // s0, (hid + 1) // 2) if s0 else 0
+    ca, cb = min(most // sa, inter), min(most // sb, (hid + 1) // 2)
+    rows = -(-bsz // rt) * rt
+    return dict(grid=max(c0 * s0, ca * sa, cb * sb), S0=s0, SA=sa, SB=sb,
+                C0=c0, CA=ca, CB=cb, rows=rows,
+                smem=rows * SLICE_Q * 16 + 8 * bsz, most=most)
+
+
+def swiglu_work(plan, hid, a_w, inter):
+    """Every CTA's share of the SwiGLU kernel's products under ``plan``,
+    the kernel's rule: ``{"out_proj": [...], "gate_up": [...], "down":
+    [...]}`` of ``(cta, k0, k1, n0, n1)``, CTA c taking K-slice ``c % S``
+    of column block ``c // S``; once all S are in, each adds the slices,
+    in slice order, for its 1/S of the block's outputs."""
+    def cut(i, n, parts):
+        return i * n // parts
+
+    work = {"out_proj": [], "gate_up": [], "down": []}
+    for name, k, n, s, c in (("out_proj", a_w, hid, plan["S0"], plan["C0"]),
+                             ("gate_up", hid, inter, plan["SA"], plan["CA"]),
+                             ("down", inter, hid, plan["SB"], plan["CB"])):
+        for cta in range(min(plan["grid"], s * c)):
+            sl, blk = cta % s, cta // s
+            work[name].append((cta, 4 * cut(sl, k // 4, s),
+                               4 * cut(sl + 1, k // 4, s), cut(blk, n, c),
+                               cut(blk + 1, n, c)))
+    return work
+
+
+def _swiglu_plan(bsz, hid, a_w, inter, device):
+    """The library's plan of one SwiGLU launch (a ctypes int array in
+    ``PLAN_KEYS`` order), made once per card and widths."""
+    dev = torch.device(device)
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(), bsz, hid, a_w, inter)
+    plan = _swiglu_plans.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * len(PLAN_KEYS))()
+        with torch.cuda.device(key[0]):
+            rc = _kernels().pdt_fused_decode_swiglu_plan(bsz, hid, a_w,
+                                                         inter, plan)
+        if rc != 0:
+            _raise("fused_decode_mlp", rc)
+        _swiglu_plans[key] = plan
+    return plan
+
+
+def swiglu_plan(bsz, hid, a_w, inter, device=None):
+    """The plan of one LLaMA egress launch (row 5; ``a_w`` 0: its partial
+    mode, row 6) on the card at these widths: ``grid`` CTAs; ``S0``,
+    ``SA``, ``SB`` K-slices of the out-projection, gate/up and down
+    products (at most 512 wide); ``C0``, ``CA``, ``CB`` column blocks of
+    each; ``rows`` (B rounded up to the rows a warp's registers hold at
+    once); ``smem`` bytes a CTA; ``most`` CTAs that can be resident."""
+    return dict(zip(PLAN_KEYS, _swiglu_plan(
+        bsz, hid, a_w, inter, "cuda" if device is None else device)))
+
+
+def _swiglu_counts_buf(dev, stream, c0, ca, cb):
+    """The arrival counts of the column blocks of one plan on one stream
+    (``C0`` out-projection, ``CA`` gate/up, then ``CB`` down blocks):
+    int32 zeros at first; a launch puts each product's counts back to 0
+    before the next launch counts them."""
+    key = (dev, stream, c0, ca, cb)
+    t = _swiglu_counts.get(key)
+    if t is None:
+        t = torch.zeros(c0 + ca + cb, dtype=torch.int32, device=dev)
+        _swiglu_counts[key] = t
+    return t
+
+
+def _swiglu_launch(name, dev, y1, norm_w, norm_b, wg, wu, wd, *, norm, eps,
+                   x=None, att=None, wo=None, bo=None, b2=None):
+    """One launch of the SwiGLU kernel: row 5 with ``x``, ``att``, ``wo``
+    (``y1`` the scratch it writes), else row 6 (``y1`` given). Returns the
+    output [B, H]."""
+    bsz, hid = y1.shape
+    a_w, inter = (0 if att is None else att.shape[1]), wg.shape[0]
+    plan = _swiglu_plan(bsz, hid, a_w, inter, dev)
+    got = dict(zip(PLAN_KEYS, plan))
+    if not 0 < got["smem"] <= SMEM_LIMIT:
+        raise ValueError(f"{name}: {bsz} rows do not fit the {SMEM_LIMIT} "
+                         f"B of shared memory of a CTA")
+    s0, sa, sb, ca = got["S0"], got["SA"], got["SB"], got["CA"]
+    scratch = torch.empty(s0 * bsz * hid + sa * 2 * bsz * inter
+                          + sb * bsz * hid + ca * sa * bsz + bsz * inter,
+                          dtype=torch.float32, device=dev)
+    out = torch.empty_like(y1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        counts = _swiglu_counts_buf(dev, stream, got["C0"], ca, got["CB"])
+        rc = _kernels().pdt_fused_decode_swiglu_f32(
+            _ptr(x), _ptr(att), _ptr(wo), _ptr(bo), norm_w.data_ptr(),
+            _ptr(norm_b), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            _ptr(b2), y1.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
+            out.data_ptr(), bsz, hid, a_w, inter, int(norm == "rms"),
+            float(eps), plan, stream)
     if rc != 0:
-        _raise("fused_decode_mlp", rc)
-    return grid.value
+        _raise(name, rc)
+    return out
 
 
 def _ticket(dev):

@@ -23,7 +23,13 @@ Two routes on a card, decided by :func:`route` from the number of rows
 and x's dtype alone:
 
 * ``"gemv"``: fp32 with at most 16 rows (a decode step): the
-  weight-streaming GEMV of ``csrc/quant_matmul.cu``;
+  weight-streaming GEMV of ``csrc/quant_matmul.cu`` on the tensor cores
+  (``mma.sync``, the int8 weight converted to bf16 in registers, x as
+  three bf16 planes, each 64-k block's products into a fresh
+  accumulator), 256 output channels a CTA; where the channels do not
+  fill the card's SMs, K is cut into slices (:func:`gemv_plan`,
+  :func:`gemv_slices`) whose partial sums the last CTA of each channel
+  block adds in slice order;
 * ``"tc"``: every other call (every bf16 call; fp32 with more than 16
   rows, the serving engine's mixed step): the tensor-core kernel of
   ``csrc/quant_matmul_sm90.cu`` (``wgmma`` with the int8 weight
@@ -32,8 +38,9 @@ and x's dtype alone:
   K is not a multiple of 16 goes in with x and the int8 weight
   zero-padded to the next multiple: zeros add nothing to the sums.
 
-Each launch counts in ``weight_only_matmul.launches``, a tensor-core one
-also in ``weight_only_matmul.tc_launches``; a fault raises, and no route
+Each launch counts in ``weight_only_matmul.launches``, a launch of the
+``"tc"`` route also in ``weight_only_matmul.tc_launches``; a fault
+raises, and no route
 falls back to another. Other dtypes of x raise on a card. Under autograd
 the launch sits in a ``torch.autograd.Function`` whose backward is the
 reference's (plain PyTorch, as the reference's is plain jnp).
@@ -49,14 +56,17 @@ import ctypes
 import torch
 
 __all__ = ["weight_only_matmul", "quant_matmul_plain", "route",
-           "tolerance", "grad_tolerance"]
+           "tolerance", "grad_tolerance", "gemv_plan", "gemv_slices"]
 
 GEMV_MAX_ROWS = 16    # fp32 calls with at most this many rows: the GEMV
+GEMV_CHANNELS = 256   # output channels of one GEMV CTA
+GEMV_BLOCK = 64       # k of one GEMV accumulator block, the split unit
 TC_K_MULTIPLE = 16    # the tensor-core kernel's K multiple (TMA row pitch)
 
 _fn = None
 _tc_fn = None
 _sms: dict = {}   # device index -> SM count
+_gemv_scratch: dict = {}   # (device, stream) -> split partials, tickets
 
 
 def _kernel():
@@ -65,13 +75,57 @@ def _kernel():
         from ._build import load
         lib = load("quant_matmul")
         f = lib.pdt_quant_matmul_f32
-        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         f.restype = ctypes.c_int
         lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
+        built = (lib.pdt_quant_matmul_gemv_rows(),
+                 lib.pdt_quant_matmul_gemv_block())
+        if built != (GEMV_CHANNELS, GEMV_BLOCK):
+            raise RuntimeError(f"weight_only_matmul: the GEMV library plans "
+                               f"(channels, k block) {built}, this module "
+                               f"{(GEMV_CHANNELS, GEMV_BLOCK)}")
         _fn = (f, lib.pdt_cuda_error_string)
     return _fn
+
+
+def gemv_plan(k, n, sms):
+    """``(channel blocks, splits)`` of the GEMV for a ``[N, K]`` weight on
+    a card with ``sms`` SMs: one CTA per block of ``GEMV_CHANNELS`` output
+    channels and K-slice. Where the blocks leave SMs idle, K is cut into
+    as many slices as fill them (at most one per ``GEMV_BLOCK`` of K), so
+    every SM streams about the same bytes; else one slice."""
+    blocks = -(-n // GEMV_CHANNELS)
+    if blocks >= sms:
+        return blocks, 1
+    return blocks, max(1, min(sms // blocks, -(-k // GEMV_BLOCK)))
+
+
+def gemv_slices(k, splits):
+    """The ``(k0, k1)`` of each of the GEMV's K-slices, in the order the
+    kernel adds their partial sums: whole ``GEMV_BLOCK``s, as even as
+    they divide (the kernel's own rule)."""
+    kb = -(-k // GEMV_BLOCK)
+    return [(s * kb // splits * GEMV_BLOCK,
+             min((s + 1) * kb // splits * GEMV_BLOCK, k))
+            for s in range(splits)]
+
+
+def _gemv_buffers(dev, stream, sms):
+    """The GEMV's split partials and its channel blocks' tickets (int32
+    zeros, put back to 0 by every launch) for one stream: splits > 1
+    only when the blocks number fewer than the SMs, so ``sms *
+    GEMV_CHANNELS * GEMV_MAX_ROWS`` floats and ``sms`` tickets hold any
+    call's."""
+    key = (dev, stream)
+    buf = _gemv_scratch.get(key)
+    if buf is None:
+        buf = (torch.empty(sms * GEMV_CHANNELS * GEMV_MAX_ROWS,
+                           dtype=torch.float32, device=dev),
+               torch.zeros(sms, dtype=torch.int32, device=dev))
+        _gemv_scratch[key] = buf
+    return buf
 
 
 def _tc_kernel():
@@ -178,9 +232,12 @@ def _launch(x2, qw, scale, bias):
                     stream)
         else:
             fn, err_str = _kernel()
+            _, splits = gemv_plan(k, n, sms)
+            part, tickets = _gemv_buffers(dev, stream, sms)
             rc = fn(x2.data_ptr(), w.data_ptr(), s.data_ptr(),
-                    None if b is None else b.data_ptr(), out.data_ptr(), m,
-                    k, n, sms, stream)
+                    None if b is None else b.data_ptr(), out.data_ptr(),
+                    part.data_ptr(), tickets.data_ptr(), m, k, n, splits,
+                    stream)
     if rc != 0:
         raise RuntimeError(f"weight_only_matmul kernel launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")

@@ -320,6 +320,110 @@ def test_mlp_llama_plain_matches_twin(jx, rows):
                                **TOL)
 
 
+# ------------------------------------- rows 5-6 (the LLaMA egress kernel) --
+@pytest.mark.parametrize("B,H,A,I,most", [
+    (8, 4096, 0, 5504, 264), (5, 4096, 0, 5504, 264), (1, 4096, 0, 5504, 264),
+    (8, 4096, 0, 5504, 132), (3, 1024, 0, 1536, 7), (9, 32, 0, 64, 264),
+    (8, 4096, 4096, 11008, 264), (1, 4096, 4096, 11008, 264),
+    (5, 32, 32, 128, 264)])
+def test_swiglu_plan_covers_every_column_and_k_once(B, H, A, I, most):
+    """The LLaMA egress kernel's plan (the plain version of the library's
+    rule; A 0: row 6, the partial mode), each product's K cut into slices
+    of at most 512, each (column, k) of the out-projection (row 5),
+    gate/up and down products taken by exactly one CTA, a column block's
+    slices in CTA order ascending and contiguous, every CTA the same
+    bytes within one column, no more CTAs than can be resident."""
+    plan = tm_.swiglu_plan_for(B, H, A, I, most)
+    assert plan["grid"] <= most and B <= plan["rows"] < B + 8
+    work = tm_.swiglu_work(plan, H, A, I)
+    assert (plan["S0"] > 0) == (A > 0) and bool(work["out_proj"]) == (A > 0)
+    for name, k, n in (("out_proj", A, H), ("gate_up", H, I), ("down", I, H)):
+        if not k:
+            continue
+        seen = np.zeros((n, k), dtype=int)
+        blocks = {}
+        for cta, k0, k1, n0, n1 in work[name]:
+            assert 0 < k1 - k0 <= 4 * tm_.SLICE_Q
+            seen[n0:n1, k0:k1] += 1
+            blocks.setdefault((n0, n1), []).append((cta, k0, k1))
+        assert (seen == 1).all(), name
+        for slices in blocks.values():
+            assert [c for c, _, _ in slices] == sorted(c for c, _, _ in slices)
+            assert slices[0][1] == 0 and slices[-1][2] == k
+            assert all(a[2] == b[1] for a, b in zip(slices, slices[1:]))
+        widths = {n1 - n0 for n0, n1 in blocks}
+        assert max(widths) - min(widths) <= 1
+
+
+def _partial_emulate(d, fault=None):
+    """Row 6's arithmetic on the CPU (RMSNorm without bias): each gate/up
+    K-slice's sums of (y1 * w) against the weights and of y1^2, the
+    slices added in slice order, 1 / rms times the gate and up sums,
+    silu(g) * u, then the down product's slices added in slice order.
+    ``fault``: "no_rms" (the 1 / rms never applied) or "lost_split" (a
+    down slice never added)."""
+    y1, nw = torch.tensor(d["y1"]), torch.tensor(d["nw"])
+    wg, wu, wd = (torch.tensor(np.ascontiguousarray(d[k].T))
+                  for k in ("w1", "wu", "w2"))
+    B, H = y1.shape
+    I = wg.shape[0]
+    plan = tm_.swiglu_plan_for(B, H, 0, I, 264)
+    work = tm_.swiglu_work(plan, H, 0, I)
+    first = {name: [(k0, k1) for _, k0, k1, n0, _ in w if n0 == 0]
+             for name, w in work.items() if w}
+    xs = y1 * nw
+    g, u, ss = torch.zeros(B, I), torch.zeros(B, I), torch.zeros(B)
+    for k0, k1 in first["gate_up"]:
+        g = g + xs[:, k0:k1] @ wg[:, k0:k1].t()
+        u = u + xs[:, k0:k1] @ wu[:, k0:k1].t()
+        ss = ss + (y1[:, k0:k1] ** 2).sum(1)
+    if fault != "no_rms":
+        rstd = torch.rsqrt(ss / H + 1e-6).reshape(-1, 1)
+        g, u = g * rstd, u * rstd
+    f = torch.nn.functional.silu(g) * u
+    out = torch.zeros(B, H)
+    for i, (k0, k1) in enumerate(first["down"]):
+        if not (fault == "lost_split" and i == 1):
+            out = out + f[:, k0:k1] @ wd[:, k0:k1].t()
+    return out
+
+
+@pytest.fixture(scope="module")
+def partial_refs(jx):
+    """Row 6's inputs at H 1024, I 1536 (two gate/up and three down
+    K-slices) for B 8, 5 and 1, and the JAX ``fused_decode_mlp_partial``
+    (interpret mode) on each, built once."""
+    import jax.numpy as jnp
+    _, FM = jx
+    refs = {}
+    for B in (8, 5, 1):
+        rng = np.random.default_rng(40 + B)
+        H, I = 1024, 1536
+        d = dict(y1=_n(rng, B, H), nw=1.0 + 0.1 * _n(rng, H),
+                 w1=_n(rng, H, I) * 0.02, wu=_n(rng, H, I) * 0.02,
+                 w2=_n(rng, I, H) * 0.02)
+        ref = FM.fused_decode_mlp_partial(
+            jnp.asarray(d["y1"]), jnp.asarray(d["nw"]), None,
+            jnp.asarray(d["w1"]), None, jnp.asarray(d["w2"]),
+            jnp.asarray(d["wu"]), arch="llama", norm="rms", eps=1e-6,
+            interpret=True)
+        refs[B] = (d, np.asarray(ref))
+    return refs
+
+
+@pytest.mark.parametrize("B", [8, 5, 1])
+@pytest.mark.parametrize("fault", [None, "no_rms", "lost_split"])
+def test_partial_emulation_matches_jax(partial_refs, B, fault):
+    """Row 6's arithmetic, emulated, against the JAX Pallas kernel in
+    interpret mode: within TOL (2e-5 of the reference's largest value,
+    the card's limit); a forgotten 1 / rms and a lost down slice are
+    refused."""
+    d, ref = partial_refs[B]
+    err = float(np.abs(_partial_emulate(d, fault).numpy() - ref).max())
+    lim = 2e-5 * float(np.abs(ref).max())
+    assert (err <= lim) == (fault is None), (err, lim)
+
+
 POISON = np.asarray([0.0, 0.0, np.nan, 0.0, 0.0], np.float32)
 
 
@@ -568,3 +672,62 @@ def test_epilogue_rms_kernel_matches_plain_on_card(cuda):
     torch.testing.assert_close(lg, rl, **TOL)
     assert torch.equal(nxt, rn) and torch.equal(bad, rb)
     assert bad.tolist() == [False, False, True, False, False]
+
+
+# LLaMA-7B TP=2 (one rank's MLP slices) and the unsharded egress: fp32,
+# another summation order, held to 2e-5 of the plain version's largest
+# value (chip_smoke's TOL)
+def _llama7b_partial(dev, B, inter=5504, H=4096, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + B)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    return (rn(B, H), 1.0 + rn(H, std=0.1), None, rn(inter, H, std=0.02),
+            None, rn(H, inter, std=0.02 / 8), rn(inter, H, std=0.02))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 5, 1])
+def test_partial_llama7b_matches_plain_on_card(cuda, B):
+    """Row 6 at LLaMA-7B TP=2's shapes (y1 [B, 4096], gate/up [5504,
+    4096], down [4096, 5504], RMSNorm): one launch by the library's plan
+    (the plain rule's at its resident CTAs), within 2e-5 of the plain
+    version's largest value, the same bits on a second call."""
+    args = _llama7b_partial(cuda, B)
+    kw = dict(arch="llama", norm="rms", eps=1e-6)
+    plan = tm_.swiglu_plan(B, 4096, 0, 5504, cuda)
+    assert plan == tm_.swiglu_plan_for(B, 4096, 0, 5504, plan["most"])
+    before = tm_.fused_decode_mlp_partial.launches
+    out = tm_.fused_decode_mlp_partial(*args, **kw)
+    ref = tm_.fused_decode_mlp_partial_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tm_.fused_decode_mlp_partial.launches == before + 1
+    assert float((out - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(out, tm_.fused_decode_mlp_partial(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 5, 1])
+def test_mlp_llama7b_matches_plain_on_card(cuda, B):
+    """Row 5 (the unsharded SwiGLU egress) at LLaMA-7B's shapes: one
+    launch by the library's plan (the plain rule's at its resident CTAs),
+    within 2e-5 of the plain version's largest value, the same bits on a
+    second call."""
+    g = torch.Generator(device=cuda).manual_seed(8 + B)
+    H, I = 4096, 11008
+    plan = tm_.swiglu_plan(B, H, H, I, cuda)
+    assert plan == tm_.swiglu_plan_for(B, H, H, I, plan["most"])
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * std
+
+    args = (rn(B, H), rn(B, H), rn(H, H, std=0.02), None,
+            1.0 + rn(H, std=0.1), None, rn(I, H, std=0.02), None,
+            rn(H, I, std=0.02 / 8), None, rn(I, H, std=0.02))
+    kw = dict(arch="llama", norm="rms", eps=1e-6)
+    out = tm_.fused_decode_mlp(*args, **kw)
+    ref = tm_.fused_decode_mlp_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-5 * float(ref.abs().max())
+    assert torch.equal(out, tm_.fused_decode_mlp(*args, **kw))

@@ -276,6 +276,115 @@ def test_tc_tolerance_holds_split_and_catches_faults(tc_case, fault, caught):
         assert ratio < 0.5, ratio
 
 
+# ------------------------------------------- GEMV: fp32 x, M <= 16 rows --
+GEMV_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+               (4099, 1001), (999, 301), (77, 33), (96, 130)]   # (K, N)
+
+
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 7])
+def test_gemv_plan_covers_every_channel_and_k_once(k, n, sms):
+    """The GEMV's plan: channel blocks that cover N once, and K-slices of
+    whole 64-k blocks, in order, without gap or overlap, as even as they
+    divide, as many as fill the SMs (one wave) where K allows."""
+    blocks, splits = tqm.gemv_plan(k, n, sms)
+    ch = tqm.GEMV_CHANNELS
+    assert (blocks - 1) * ch < n <= blocks * ch
+    sl = tqm.gemv_slices(k, splits)
+    assert len(sl) == splits and sl[0][0] == 0 and sl[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    assert all(k0 < k1 and k0 % tqm.GEMV_BLOCK == 0 for k0, k1 in sl)
+    whole = [-(-(k1 - k0) // tqm.GEMV_BLOCK) for k0, k1 in sl]
+    assert max(whole) - min(whole) <= 1
+    covered = np.zeros(k, dtype=int)
+    for k0, k1 in sl:
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
+    if blocks >= sms:
+        assert splits == 1
+    else:
+        assert blocks * splits <= sms
+        assert splits == -(-k // tqm.GEMV_BLOCK) or \
+            blocks * (splits + 1) > sms
+
+
+def _gemv_emulate(x, qw, s, b=None, sms=132, fault=None):
+    """The GEMV's arithmetic on the CPU: x split into three bf16 planes
+    (hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)), the
+    int8 weight exact; each 64-k block's products summed into a fresh
+    fp32 accumulator, lo first, then mid, then hi; the blocks added in k
+    order into their slice's sum; the slices (``gemv_plan`` /
+    ``gemv_slices`` on a card of ``sms`` SMs) added in slice order; then
+    the scale and the bias. ``fault``: "drop_mid" (the mid plane's
+    products never added) or "lost_split" (a middle slice's sum never
+    added)."""
+    k, n = qw.shape
+    _, splits = tqm.gemv_plan(k, n, sms)
+    planes, r = [], x.clone()
+    for _ in range(3):
+        planes.append(r.to(torch.bfloat16).float())
+        r = r - planes[-1]
+    hi, mid, lo = planes
+    q = qw.float()
+    y = torch.zeros(x.shape[0], n)
+    for i, (k0, k1) in enumerate(tqm.gemv_slices(k, splits)):
+        part = torch.zeros(x.shape[0], n)
+        for kb in range(k0, k1, tqm.GEMV_BLOCK):
+            ks = slice(kb, min(kb + tqm.GEMV_BLOCK, k1))
+            acc = lo[:, ks] @ q[ks]
+            if fault != "drop_mid":
+                acc = acc + mid[:, ks] @ q[ks]
+            part = part + (acc + hi[:, ks] @ q[ks])
+        if not (fault == "lost_split" and i == splits // 2):
+            y = y + part
+    y = y * s
+    return y if b is None else y + b
+
+
+GEMV_EMU = {   # name: (M, K, N, bias); odd K and N, several K-slices
+    "m1": (1, 999, 301, False), "m3_bias": (3, 4099, 1001, True),
+    "m8": (8, 999, 301, True), "m16": (16, 999, 301, False)}
+
+
+@pytest.fixture(scope="module")
+def gemv_refs(jqm):
+    """Each GEMV_EMU case's inputs and the JAX Pallas kernel's output
+    (interpret mode), built once."""
+    import jax.numpy as jnp
+    refs = {}
+    for name, (m, k, n, has_b) in GEMV_EMU.items():
+        rng = np.random.default_rng(m * 1000 + k)
+        x = rng.normal(size=(m, k)).astype(np.float32)
+        qw = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+        s = rng.uniform(1e-4, 2.1e-3, size=(n,)).astype(np.float32)
+        b = rng.normal(size=(n,)).astype(np.float32) if has_b else None
+        ref = np.asarray(jqm.weight_only_matmul(
+            x, qw, s, bias=None if b is None else jnp.asarray(b),
+            impl="pallas_interpret"))
+        refs[name] = [None if a is None else torch.tensor(a)
+                      for a in (x, qw, s, b, ref)]
+    return refs
+
+
+@pytest.mark.parametrize("name", sorted(GEMV_EMU))
+@pytest.mark.parametrize("fault", [None, "drop_mid", "lost_split"])
+def test_gemv_emulation_matches_jax(gemv_refs, name, fault):
+    """The GEMV's arithmetic, emulated, against the JAX Pallas kernel in
+    interpret mode at M 1, 3, 8 and 16 with odd K and N: within
+    ``tolerance`` (below half of it); a dropped mid plane and a lost
+    K-slice are refused."""
+    x, qw, s, b, ref = gemv_refs[name]
+    m, k, n = x.shape[0], qw.shape[0], qw.shape[1]
+    assert tqm.route(m, torch.float32) == "gemv"
+    assert tqm.gemv_plan(k, n, 132)[1] > 1        # several K-slices
+    ratio = float(((_gemv_emulate(x, qw, s, b, fault=fault) - ref).abs()
+                   / tqm.tolerance(x, qw, s, b)).max())
+    if fault is None:
+        assert ratio < 0.5, ratio
+    else:
+        assert ratio > 1, ratio
+
+
 def test_weight_only_linear_layer_matches_jax(jq):
     import jax.numpy as jnp
 
@@ -509,6 +618,32 @@ def test_weight_only_matmul_tc_route_matches_plain(cuda, m, k, n, dtype):
     assert out.dtype == dtype and out.shape == (m, n)
     lim = tqm.tolerance(x, qw, s, b)
     assert ((out.float() - ref.float()).abs() <= lim).all()
+    assert torch.equal(out, weight_only_matmul(x, qw, s, bias=b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 8, 16])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096),
+                                 (4096, 32000), (4099, 1001)])
+def test_gemv_matches_plain_on_card(cuda, m, k, n):
+    """The GEMV (fp32, M <= 16: the tensor cores' decode route) at the
+    LLaMA-7B projections' shapes and an odd K and N against the plain
+    version within ``tolerance``, element by element, one launch, none
+    on the ``"tc"`` route, and the same bits on a second call."""
+    g = torch.Generator(device=cuda).manual_seed(m * 31 + n)
+    x = torch.randn(m, k, generator=g, device=cuda)
+    qw = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                       dtype=torch.int8).t()
+    s = torch.rand(n, generator=g, device=cuda) * 0.002 + 1e-4
+    b = torch.randn(n, generator=g, device=cuda)
+    assert tqm.route(m, F32) == "gemv"
+    before = (weight_only_matmul.launches, weight_only_matmul.tc_launches)
+    out = weight_only_matmul(x, qw, s, bias=b)
+    ref = quant_matmul_plain(x, qw, s, bias=b)
+    torch.cuda.synchronize()
+    assert (weight_only_matmul.launches,
+            weight_only_matmul.tc_launches) == (before[0] + 1, before[1])
+    assert ((out - ref).abs() <= tqm.tolerance(x, qw, s, b)).all()
     assert torch.equal(out, weight_only_matmul(x, qw, s, bias=b))
 
 
