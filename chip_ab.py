@@ -1,14 +1,16 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
+    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve,gserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
     python3 chip_ab.py groups ROOT [NAME ...]
     python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
     python3 chip_ab.py stamps ROOT
+    python3 chip_ab.py gpt_plans ROOT
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
-ms per case, forward and backward), its GPT-124M fused decode kernel
-cases (``decode``: kernel ms of each, and a sha256 of the three fp32
-kernels' outputs on fixed inputs) or its train phase (``train``: step
+ms per case, forward and backward), THIS checkout's GPT-124M fused
+decode kernel cases on ROOT's kernels (``decode``: kernel ms of each, at
+B 8, 5 and 1, and a sha256 of the three fp32 kernels' outputs on fixed
+inputs) or its train phase (``train``: step
 ms, and the device busy ms and launches of the profiled step; ``glue``
 the same with ``train_glue_fusion`` on), or the fused residual
 + RMSNorm kernels on fixed inputs (``rms``: a sha256 of every output's
@@ -33,20 +35,30 @@ drift of the card or its host shows. Needs a card; the kernels build
 in each ROOT.
 
 ``groups`` builds copies of ROOT's port under ``ROOT/_chipcopy/groups/``
-that differ only in one constant (``GROUPS``, or the NAMEs given): how
-many weight rows a warp dots at once in the per-head ingress, the SwiGLU
-egress and the epilogue, for which it prints that kernel's ms at the
+that differ only in one line (``GROUPS``, or the NAMEs given): how
+many weight rows a warp dots at once in the per-head ingress and the
+epilogue, for which it prints that kernel's ms at the
 LLaMA-7B decode shapes (B = 8 and 1; the epilogue also at GPT-124M's)
-and a sha256 of its outputs; and how many resident CTAs the paged
+and a sha256 of its outputs; how many resident CTAs the paged
 attention's mixed route plans a unit for (``attn_units``), for which it
-prints the mixed cases' ms and max abs error.
+prints the mixed cases' ms and max abs error; and the most CTAs the
+egress plan may use (``egress_cap``), for which it prints GPT-124M's
+egress ms (row 5 at B 8, 5 and 1, row 6 at a TP=2 rank's B 8 and 5).
 
 ``stamps`` builds a copy of ROOT's port under ``ROOT/_chipcopy/stamps/``
-whose GEMV (row 17) and LLaMA egress kernel (rows 5-6) write
-``%globaltimer`` stamps at their phases (x staged, slice done, sums
-done, grid barrier, exit), and prints for one call of each at the
-LLaMA-7B decode shapes the (min, median, max) over CTAs of each stamp,
-in us from the first CTA's start.
+whose GEMV (row 17), egress kernel (rows 5-6) and split-K ingress (row
+4) write ``%globaltimer`` stamps at their phases (x staged, slice done,
+sums done, grid barrier, exit), and prints for one call of each (the
+GEMV and the LLaMA egress at the LLaMA-7B decode shapes, the GELU egress
+and the ingress at GPT-124M's) the (min, median, max, count) over CTAs
+of each stamp, in us from the first CTA's start.
+
+``gpt_plans`` times GPT-124M's split-K ingress at several K-slices a
+head, and an empty launch, in one process on ROOT's kernels.
+
+``gserve`` runs ROOT's GPT-124M megakernel serve phases (fp32 and int8
+pools, ``chip_smoke.serve_phase``) and prints tokens/s, host ms a decode
+dispatch and the profiled decode window's device and wall ms a step.
 
 ``ptxas`` compiles each ``csrc/SOURCE.cu`` of ROOT with the port's
 ``nvcc`` flags and ``--resource-usage`` into a scratch file under
@@ -63,12 +75,22 @@ import subprocess
 import sys
 from pathlib import Path
 
-# kernel: (source, the constant that sets the group, the sizes tried)
-GROUPS = {"qkv": ("fused_decode_qkv.cu", "kHeadCols", (1, 2, 4)),
-          "swiglu": ("fused_decode_mlp.cu", "kGroup", (2, 4)),
-          "epilogue": ("fused_decode_mlp.cu", "kEpiGroup", (1, 2, 4)),
+# kernel: (source, the line that sets the group (a regex), that line with
+# the size in its place, the sizes tried)
+GROUPS = {"qkv": ("fused_decode_qkv.cu", r"constexpr int kHeadCols = \d+;",
+                  "constexpr int kHeadCols = {};", (1, 2, 4)),
+          "epilogue": ("fused_decode_mlp.cu", r"constexpr int kEpiGroup = \d+;",
+                       "constexpr int kEpiGroup = {};", (1, 2, 4)),
           # the paged attention's mixed route: resident CTAs a unit
-          "attn_units": ("paged_attention.cu", "kCtasPerUnit", (1, 2, 4, 8))}
+          "attn_units": ("paged_attention.cu",
+                         r"constexpr int kCtasPerUnit = \d+;",
+                         "constexpr int kCtasPerUnit = {};", (1, 2, 4, 8)),
+          # the egress plan's CTAs, at most (264: every resident one on an
+          # H100, as the plan has it)
+          "egress_cap": ("fused_decode_mlp.cu",
+                         r"const int most = per_sm \* sms;",
+                         "const int most = min(per_sm * sms, {});",
+                         (264, 198, 132, 66, 264))}
 
 
 def _one(what, root):
@@ -86,11 +108,15 @@ def _one(what, root):
         out = {"fwd": {r["case"]: r["ms"] for r in fwd},
                "bwd": {r["case"]: r["ms"] for r in bwd}}
     elif what == "decode":
+        # this checkout's cases (without the shared-slot check, which an
+        # older GPT ingress fails), ROOT's kernels
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-        rows = chip_smoke.decode_kernel_cases(0, "", flush)
+        rows = _cases().decode_kernel_cases(0, "", flush, shared_slot=False)
         out = {name: {r["case"]: r["ms"] for r in rs}
                for name, rs in rows.items()}
         out["sha256"] = _decode_digests()
+    elif what == "gpt_plans":
+        out = _gpt_plans(chip_smoke)
     elif what == "attn_units":
         # the mixed route's cases (this copy's kernel): ms and max abs error
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
@@ -111,6 +137,8 @@ def _one(what, root):
                 lambda: pa.ragged_paged_attention(*args, q_block=qb, **sc),
                 50, flush, spin=True), "max_abs_err": err}
             del args, sc
+    elif what == "egress_cap":
+        out = _gpt_egress(chip_smoke)
     elif what in GROUPS:
         out = _group_times(chip_smoke, what)
     elif what == "rms":
@@ -119,11 +147,7 @@ def _one(what, root):
         out = _stamps(chip_smoke)
     elif what in ("qmm", "partial"):
         # this checkout's cases, ROOT's kernels (ROOT is first on sys.path)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_cases", Path(__file__).resolve().parent
-            / "chip_smoke.py")
-        cases = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(cases)
+        cases = _cases()
         if what == "qmm":
             out = {r["case"]: r["ms"]
                    for r in cases.quant_matmul_cases(0, "")}
@@ -139,11 +163,7 @@ def _one(what, root):
         # the decode route's split length (DECODE_SPLIT) in turns, ROOT's
         # kernel at this checkout's cases
         from paddle_tpu_torch.ops.cuda import paged_attention as pa
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_cases", Path(__file__).resolve().parent
-            / "chip_smoke.py")
-        cases = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(cases)
+        cases = _cases()
         out = []
         for split in (64, 128, 256, 512, 256, 128, 64):
             pa.DECODE_SPLIT = split
@@ -156,11 +176,7 @@ def _one(what, root):
         # work), and with every q_len 0 (no unit: the launch, the plan and
         # the zeroed rows alone)
         from paddle_tpu_torch.ops.cuda import paged_attention as pa
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_cases", Path(__file__).resolve().parent
-            / "chip_smoke.py")
-        cases = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(cases)
+        cases = _cases()
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
         gen = torch.Generator().manual_seed(0)
         out = {}
@@ -182,11 +198,7 @@ def _one(what, root):
             torch.cuda.empty_cache()
     elif what in ("attn", "opt"):
         # this checkout's cases, ROOT's kernels (ROOT is first on sys.path)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_cases", Path(__file__).resolve().parent
-            / "chip_smoke.py")
-        cases = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(cases)
+        cases = _cases()
         if what == "attn":
             out = {r["case"]: {"ms": r["ms"], "max_abs_err": r["max_abs_err"],
                                "bound_ms": r["bound_ms"]}
@@ -197,6 +209,17 @@ def _one(what, root):
             out = {r["case"]: {"ms": r["ms"], "library_ms": r["library_ms"],
                                "bound_ms": r["bound_ms"]}
                    for r in cases.optimizer_cases(0, "", flush)}
+    elif what == "gserve":
+        out = {}
+        for kv_quant in (False, True):
+            s = chip_smoke.serve_phase(0, megakernel=True, kv_quant=kv_quant)
+            out["int8_pools" if kv_quant else "fp32_pools"] = dict(
+                tokens_per_s=s["tokens_per_s"],
+                decode_dispatch_ms=s["decode_dispatch_ms"],
+                **{k: s["window"][k] for k in (
+                    "launches_per_step", "device_ms_per_step",
+                    "wall_ms_per_step", "busy_share")})
+            del s
     elif what == "qserve":
         q = chip_smoke.llama_serve_phase(0)
         out = {k: q[k] for k in ("tokens_per_s", "mixed_step_ms",
@@ -216,6 +239,91 @@ def _one(what, root):
                "busy_share": tr["profile"]["busy_share"],
                "launches": tr["profile"].get("launches")}
     print("AB", json.dumps({"root": root, what: out}), flush=True)
+
+
+def _cases():
+    """THIS checkout's ``chip_smoke.py`` as a module of its own, its cases
+    run against the kernels of the ROOT first on ``sys.path``."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_cases", Path(__file__).resolve().parent / "chip_smoke.py")
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    return cases
+
+
+def _gpt_egress(chip_smoke):
+    """GPT-124M's decode egress on ROOT's plan (ms behind the device spin,
+    L2 flushed, 50 calls a case, the cases twice in turns): row 5 at B 8,
+    5 and 1, row 6 at a TP=2 rank's B 8 and 5."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H = 768
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    nw, nb = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
+    full = (rn(8, H), rn(8, H), rn(H, H, std=0.003), rn(H, std=0.02), nw,
+            nb, rn(3072, H, std=0.02), rn(3072, std=0.02),
+            rn(H, 3072, std=0.003), rn(H, std=0.02))
+    part = (rn(8, H), nw, nb, rn(1536, H, std=0.02), rn(1536, std=0.02),
+            rn(H, 1536, std=0.003))
+    cases = [(f"row5_b{B}", fm.fused_decode_mlp,
+              tuple(t[:B] for t in full[:2]) + full[2:]) for B in (8, 5, 1)]
+    cases += [(f"row6_tp2_b{B}", fm.fused_decode_mlp_partial,
+               (part[0][:B],) + part[1:]) for B in (8, 5)]
+    out = {"plan": fm.egress_plan(8, H, H, 3072, gelu=True)}
+    for _ in range(2):
+        for name, fn, args in cases:
+            out.setdefault(name, []).append(chip_smoke._time_ms(
+                lambda: fn(*args, eps=1e-5), 50, flush, spin=True))
+    return out
+
+
+def _gpt_plans(chip_smoke):
+    """GPT-124M's split-K ingress under other plans (ms behind the device
+    spin, L2 flushed): fp32 pools, B 8 and 1, one card's 36 heads and a
+    TP=2 rank's 18, at several K-slices a head; and an empty launch."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, hd, ps = 768, 64, 16
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    def timed(fn):
+        return chip_smoke._time_ms(fn, 50, flush, spin=True)
+
+    nw, nb = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
+    out = {"ingress": {}}
+    # the floor of _time_ms: one launch of a kernel that does nothing
+    out["empty_launch"] = timed(lambda: torch.cuda._sleep(1))
+    keep = fq.split_plan
+    try:
+        for nh in (12, 6):
+            n = 3 * nh * hd
+            w, b = rn(n, H, std=0.02), rn(n, std=0.02)
+            pools = [rn(nh, 65, ps, hd) for _ in range(2)]
+            for B in (8, 1):
+                x = rn(B, H)
+                pos = torch.arange(B, device="cuda") * 13
+                bt = torch.arange(1, 1 + 8 * B, device="cuda",
+                                  dtype=torch.int32).reshape(B, 8)
+                kw = dict(eps=1e-5, n_heads=nh, n_kv_heads=nh, head_dim=hd)
+                for S in (3, 4, 6, 8, 4, 3):
+                    fq.split_plan = lambda *a, S=S: S
+                    out["ingress"].setdefault(f"{3 * nh}heads_b{B}_S{S}", []).append(timed(
+                        lambda: fq.fused_decode_qkv(x, nw, nb, w, b, pos, bt,
+                                                    *pools, **kw)))
+    finally:
+        fq.split_plan = keep
+    return out
 
 
 def _rms_digests(chip_smoke):
@@ -317,7 +425,7 @@ def _group_times(chip_smoke, what):
     from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    H, nh, hd, inter, V, ps = 4096, 32, 128, 11008, 32000, 16
+    H, nh, hd, V, ps = 4096, 32, 128, 32000, 16
 
     def rn(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * std
@@ -327,9 +435,6 @@ def _group_times(chip_smoke, what):
         ws = [rn(nh * hd, H, std=0.02) for _ in range(3)]
         P = 1 + 8 * 128
         pools = [rn(nh, P, ps, hd) for _ in range(2)]
-    elif what == "swiglu":
-        ws = (rn(H, H, std=0.005), rn(inter, H, std=0.02),
-              rn(inter, H, std=0.02), rn(H, inter, std=0.005))
     else:
         w_lm = rn(V, H, std=0.02)
     out = {}
@@ -345,13 +450,6 @@ def _group_times(chip_smoke, what):
             def fn():
                 return fq.fused_decode_qkv(x, nw, None, ws, [], pos, bt,
                                            *pools, **kw)
-        elif what == "swiglu":
-            att = rn(B, H)
-
-            def fn():
-                return (fm.fused_decode_mlp(
-                    x, att, ws[0], None, nw, None, ws[1], None, ws[3], None,
-                    ws[2], arch="llama", norm="rms", eps=1e-6),)
         else:
             zero = torch.zeros(B, device="cuda")
 
@@ -386,34 +484,33 @@ def _group_copies(root, names=()):
     for each of GROUPS (or of ``names``): [(kernel, size, copy root)]."""
     base = Path(root).resolve()
     out = []
-    for what, (src, const, sizes) in GROUPS.items():
+    for what, (src, line, fmt, sizes) in GROUPS.items():
         if names and what not in names:
             continue
-        for n in sizes:
-            dst = base / "_chipcopy" / "groups" / f"{what}{n}"
+        for i, n in enumerate(sizes):
+            dst = base / "_chipcopy" / "groups" / f"{what}{n}_{i}"
             shutil.rmtree(dst, ignore_errors=True)
             shutil.copytree(base / "paddle_tpu_torch", dst / "paddle_tpu_torch",
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
             shutil.copy(base / "chip_smoke.py", dst / "chip_smoke.py")
             cu = dst / "paddle_tpu_torch" / "ops" / "cuda" / "csrc" / src
-            text, k = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {n};",
-                              cu.read_text())
+            text, k = re.subn(line, fmt.format(n), cu.read_text())
             if k != 1:
-                raise RuntimeError(f"{src}: {k} definitions of {const}")
+                raise RuntimeError(f"{src}: {k} lines match {line!r}")
             cu.write_text(text)
             out.append((what, n, str(dst)))
     return out
 
 
-# Phase stamps of the two decode kernels (``stamps``): a copy of ROOT's
-# port under ROOT/_chipcopy/stamps whose sources write %globaltimer at
-# these points, thread 0 of each CTA, into a __device__ array read back
-# with cudaMemcpyFromSymbol: (anchor, stamp index) inserted after the
-# anchor's text.
-_STAMP_HEAD = '''
-__device__ unsigned long long g_stamps[4096 * 8];
+# Phase stamps of the decode kernels (``stamps``): a copy of ROOT's port
+# under ROOT/_chipcopy/stamps whose sources write %globaltimer at these
+# points, thread 0 of each CTA, into a __device__ array (zeroed before
+# each traced call) read back with cudaMemcpyFromSymbol: (anchor, stamp
+# index) inserted after the anchor's text, (text, replacement, stamp
+# index) replaced.
+_STAMP_HEAD = """
+__device__ unsigned long long g_stamps[4096 * 16];
 __device__ __forceinline__ unsigned long long stamp_now() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
@@ -422,8 +519,12 @@ __device__ __forceinline__ unsigned long long stamp_now() {
 extern "C" int pdt_read_stamps(unsigned long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, g_stamps, (size_t)n * 8);
 }
-'''
-_STAMP = "if (threadIdx.x == 0) g_stamps[blockIdx.x * 8 + {}] = stamp_now();"
+extern "C" int pdt_clear_stamps() {
+  static unsigned long long zeros[4096 * 16];
+  return (int)cudaMemcpyToSymbol(g_stamps, zeros, sizeof(zeros));
+}
+"""
+_STAMP = "if (threadIdx.x == 0) g_stamps[blockIdx.x * 16 + {}] = stamp_now();"
 STAMPS = {
     # GEMV: 0 entry, 1 x staged, 2 K-slice done, 3 exit
     "quant_matmul.cu": (
@@ -431,24 +532,41 @@ STAMPS = {
         [("  extern __shared__ __align__(16) uint4 xs[];\n", 0),
          ("        __syncthreads();\n", 1),
          ("  // sum[nt][e]: channel rA (e < 2) or rB, x row 8 nt + 2 t + e % 2\n", 2)],
-        [("  if (one) return;", "  if (one) {{ {} return; }}"),
-         ("  if (!is_last) return;", "  if (!is_last) {{ {} return; }}"),
+        [("  if (one) return;", "  if (one) {{ {} return; }}", 3),
+         ("  if (!is_last) return;", "  if (!is_last) {{ {} return; }}", 3),
          ("  if (threadIdx.x == 0) a.tickets[rb] = 0;\n}",
-          "  if (threadIdx.x == 0) a.tickets[rb] = 0;\n  {}\n}}")]),
-    # LLaMA egress: 0 entry, 1 first activations staged, 2 gate/up items
-    # done, 3 gate/up sums done, 4 past the grid barrier, 5 down items
-    # done, 6 exit
+          "  if (threadIdx.x == 0) a.tickets[rb] = 0;\n  {}\n}}", 3)]),
+    # egress: 0 entry, 1 first activations staged, 2 first MLP product's
+    # items done, 3 its sums done, 4 past the grid barrier, 5 second
+    # product's items done, 6 exit; row 5: 7 out-projection items done, 8
+    # its sums done, 9 past the grid barrier, 10 the MLP's slice staged
     "fused_decode_mlp.cu": (
         '#include "decode_gemv.cuh"\n',
-        [("  float* stat = reinterpret_cast<float*>(xs + (size_t)p.rows * kSliceQ);\n", 0),
+        [("  float* stat = ys + (p.fast ? 0 : (size_t)p.B * p.H);\n", 0),
+         ("    if (s0.in) stage_0();\n", 1),
          ("    stage_a();\n  }\n", 1),
          ("  auto boundary_a = [&]() {\n", 2),
          ("    if (!full) reset(tB, p.CB);\n", 3),
          ("    reset(tA, p.CA);\n", 4),
-         ("  // after the down product: out = the slices' sum (row 6), y1 + (that +\n"
-          "  // b2) (row 5)\n", 5)],
+         ("  // after the second product: out = the slices' sum (row 6), y1 + (that +\n"
+          "  // b2) (row 5)\n", 5),
+         ("  auto boundary_0 = [&]() {\n", 7),
+         ("    reset(tB, p.CB);\n    grid.sync();\n", 9),
+         ("      arrive(s0.cb, p.S0, s0.s, p.B * cols, e0, e1);\n", 8)],
         [("      p.out[o] = t;\n    }\n  }\n}",
-          "      p.out[o] = t;\n    }}\n  }}\n  {}\n}}")]),
+          "      p.out[o] = t;\n    }}\n  }}\n  {}\n}}", 6),
+         ("    if (sa.in) stage_a();\n  };",
+          "    if (sa.in) stage_a();\n    {}\n  }};", 10)]),
+    # split-K ingress: 0 entry, 1 slice staged, 2 slice sums written, 3
+    # exit (all but a head's last CTA), 4 the head's last CTA's exit
+    "fused_decode_qkv.cu": (
+        '#include "decode_gemv.cuh"\n',
+        [("  __shared__ int is_last;\n", 0),
+         ("    xs[r * kSplitQ + q] = v;\n  }\n  __syncthreads();\n", 1),
+         ("  // publish, then count the head's arrivals: its last CTA finishes it\n", 2)],
+        [("  if (!is_last) return;", "  if (!is_last) {{ {} return; }}", 3),
+         ("  write_head(p, os, keys, which, j);\n}\n\n// Rows the split kernel's",
+          "  write_head(p, os, keys, which, j);\n  {}\n}}\n\n// Rows the split kernel's", 4)]),
 }
 
 
@@ -465,9 +583,7 @@ def _stamp_copy(root):
         text = cu.read_text()
         edits = [(head, head + _STAMP_HEAD)]
         edits += [(a, a + "  " + _STAMP.format(i) + "\n") for a, i in after]
-        edits += [(a, b.format(_STAMP.format(3 if src == "quant_matmul.cu"
-                                             else 6)))
-                  for a, b in replace]
+        edits += [(a, b.format(_STAMP.format(i))) for a, b, i in replace]
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"{src}: stamp anchor found "
@@ -479,10 +595,12 @@ def _stamp_copy(root):
 
 def _stamps(chip_smoke):
     """One traced call of the GEMV (M 1 and 8 at q/k/v/o, gate/up and the
-    lm_head) and of the LLaMA egress (row 6 at TP=2, B 8 and 1; row 5 at
-    B 8), each after the L2 flush and device spin of ``_time_ms``: per
-    stamp, the (min, median, max) over CTAs of us since the first CTA
-    began, and the call's event ms."""
+    lm_head), of the egress (LLaMA-7B: row 6 at TP=2, B 8 and 1, row 5 at
+    B 8; GPT-124M: row 5 at B 8 and 1, row 6 at TP=2, B 8) and of the
+    split-K ingress (GPT-124M, fp32 pools, B 8 and 1, one card's 36 heads
+    and a TP=2 rank's 18), each after the L2 flush and device spin of
+    ``_time_ms``: per stamp, the (min, median, max) over the CTAs that
+    wrote it of us since the first CTA began, and the call's event ms."""
     import ctypes
 
     import numpy as np
@@ -490,6 +608,7 @@ def _stamps(chip_smoke):
 
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    from paddle_tpu_torch.ops.cuda import fused_decode_qkv as fq
     from paddle_tpu_torch.ops.cuda import quant_matmul as qm
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
@@ -503,6 +622,9 @@ def _stamps(chip_smoke):
         lib.pdt_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
         for _ in range(3):
             fn()
+        torch.cuda.synchronize()
+        if lib.pdt_clear_stamps() != 0:
+            raise RuntimeError("clearing the stamps failed")
         flush.zero_()
         torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -510,15 +632,18 @@ def _stamps(chip_smoke):
         fn()
         e.record()
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (4096 * 8))()
-        if lib.pdt_read_stamps(buf, 4096 * 8) != 0:
+        buf = (ctypes.c_ulonglong * (4096 * 16))()
+        if lib.pdt_read_stamps(buf, 4096 * 16) != 0:
             raise RuntimeError("reading the stamps failed")
-        ts = np.array(buf, dtype=np.float64).reshape(4096, 8)[:grid, :points]
-        rel = (ts - ts[:, 0].min()) / 1e3
+        ts = np.array(buf, dtype=np.float64).reshape(4096, 16)[:grid, :points]
+        ts[ts == 0] = np.nan
+        rel = (ts - np.nanmin(ts[:, 0])) / 1e3
         return {"event_ms": s.elapsed_time(e), "grid": grid, "us": {
-            i: [round(float(f(rel[:, i])), 2) for f in (np.min, np.median,
-                                                         np.max)]
-            for i in range(points)}}
+            i: [round(float(f(rel[:, i])), 2) for f in (np.nanmin,
+                                                         np.nanmedian,
+                                                         np.nanmax)]
+            + [int(np.isfinite(rel[:, i]).sum())]
+            for i in range(points) if np.isfinite(rel[:, i]).any()}}
 
     out = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -541,7 +666,7 @@ def _stamps(chip_smoke):
         out[f"row6_b{B}"] = trace(
             "fused_decode_mlp",
             lambda: fm.fused_decode_mlp_partial(*args, **kw),
-            fm.swiglu_plan(B, H, 0, inter, dev)["grid"], 7)
+            fm.egress_plan(B, H, 0, inter, dev)["grid"], 7)
         del args
     B, inter = 8, 11008
     args = (rn(B, H), rn(B, H), rn(H, H, std=0.02), None, 1.0 + rn(H, std=0.1),
@@ -549,7 +674,39 @@ def _stamps(chip_smoke):
             rn(inter, H, std=0.02))
     out["row5_b8"] = trace("fused_decode_mlp",
                            lambda: fm.fused_decode_mlp(*args, **kw),
-                           fm.swiglu_plan(B, H, H, inter, dev)["grid"], 7)
+                           fm.egress_plan(B, H, H, inter, dev)["grid"], 11)
+    del args
+    # GPT-124M
+    H, hd = 768, 64
+    nw, nb = 1.0 + rn(H, std=0.1), rn(H, std=0.1)
+    for B in (8, 1):
+        args = (rn(B, H), rn(B, H), rn(H, H, std=0.003), rn(H, std=0.02), nw,
+                nb, rn(3072, H, std=0.02), rn(3072, std=0.02),
+                rn(H, 3072, std=0.003), rn(H, std=0.02))
+        out[f"gpt_row5_b{B}"] = trace(
+            "fused_decode_mlp", lambda: fm.fused_decode_mlp(*args, eps=1e-5),
+            fm.egress_plan(B, H, H, 3072, dev, gelu=True)["grid"], 11)
+    args = (rn(8, H), nw, nb, rn(1536, H, std=0.02), rn(1536, std=0.02),
+            rn(H, 1536, std=0.003))
+    out["gpt_row6_tp2_b8"] = trace(
+        "fused_decode_mlp",
+        lambda: fm.fused_decode_mlp_partial(*args, eps=1e-5),
+        fm.egress_plan(8, H, 0, 1536, dev, gelu=True)["grid"], 7)
+    for nh in (12, 6):
+        w, b = rn(3 * nh * hd, H, std=0.02), rn(3 * nh * hd, std=0.02)
+        pools = [rn(nh, 65, 16, hd) for _ in range(2)]
+        for B in (8, 1):
+            x = rn(B, H)
+            pos = torch.arange(B, device=dev) * 13
+            bt = torch.arange(1, 1 + 8 * B, device=dev,
+                              dtype=torch.int32).reshape(B, 8)
+            grid = 3 * nh * fq.split_plan(H)
+            out[f"gpt_row4_{3 * nh}heads_b{B}"] = trace(
+                "fused_decode_qkv",
+                lambda: fq.fused_decode_qkv(x, nw, nb, w, b, pos, bt, *pools,
+                                            eps=1e-5, n_heads=nh,
+                                            n_kv_heads=nh, head_dim=hd),
+                grid, 5)
     return out
 
 
@@ -591,10 +748,10 @@ def main(argv):
                            check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
-                                        "rms", "qmm", "qserve", "partial",
-                                        "attn",
-                                        "opt", "attn_splits",
-                                        "attn_probe"):
+                                        "rms", "qmm", "qserve", "gserve",
+                                        "partial",
+                                        "attn", "opt", "attn_splits",
+                                        "attn_probe", "gpt_plans"):
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv[1:]:

@@ -52,17 +52,20 @@ card.
      ``[32000, 4096]``, pools ``[32, 1025, 16, 128]`` fp32 or int8 with
      scale pools, tables ``[B, 128]``) at B = 8 (the main case), 1 and 5
      and with GQA (32 q heads on 8 kv heads), and at the GPT megakernel
-     serve phase's (x ``[8, 768]``, pools ``[12, 513, 16, 64]``, tables
-     ``[8, 64]``, the tied embedding ``[50304, 768]``): values within
-     2e-5 of the plain version's largest, int8 pool bytes within one
-     step (the count reported) and scales within 1e-6 relative, tokens
-     and bad flags equal except on near ties, a NaN-poisoned row bad with
-     token 0; each beside the unfused eager chain it replaces;
+     serve phase's (x ``[B, 768]``, pools ``[12, 513, 16, 64]``, tables
+     ``[B, 64]``, the tied embedding ``[50304, 768]``; the ingress and
+     the egress at B = 8, 5 and 1, the ingress over fp32 and int8 pools
+     and once more with two rows at one (page, slot): the later row's
+     K/V kept, bitwise): values within 2e-5 of the plain version's
+     largest, int8 pool bytes within one step (the count reported) and
+     scales within 1e-6 relative, tokens and bad flags equal except on
+     near ties, a NaN-poisoned row bad with token 0; each beside the
+     unfused eager chain it replaces;
    * ``fused_decode_mlp_partial`` (the shard-local decode MLP of tensor
      parallelism) at one TP=2 rank's shapes: LLaMA-7B (y1 ``[B, 4096]``,
-     gate and up ``[5504, 4096]``, down ``[4096, 5504]``) at B = 8, 5
-     and 1, GPT-124M (fc1 ``[1536, 768]``, fc2 ``[768, 1536]``) at B = 8
-     and 1: within 2e-5 of the plain version's largest value, beside the
+     gate and up ``[5504, 4096]``, down ``[4096, 5504]``) and GPT-124M
+     (fc1 ``[1536, 768]``, fc2 ``[768, 1536]``), each at B = 8, 5 and 1:
+     within 2e-5 of the plain version's largest value, beside the
      unfused eager chain;
    * ``rope`` at the LLaMA train phase's q ``[2, 2048, 32, 128]`` bf16
      with ``[2048, 128]`` half-pairing tables, forward and the
@@ -111,8 +114,11 @@ card.
    The megakernel serve phase then serves the same requests with
    ``megakernel=True`` under the same checks; every decode step (the
    warm-up's single step and each step of a window) must launch
-   ``fused_decode_qkv``, the attention and ``fused_decode_mlp`` once per
-   layer and ``fused_decode_epilogue`` once. After the two paths in
+   ``fused_decode_qkv`` (on its split-K kernel), the attention and
+   ``fused_decode_mlp`` (its GELU egress) once per layer and
+   ``fused_decode_epilogue`` once, and the profiled decode window must
+   show the split-K ingress and the egress kernel on the device once
+   per layer a step. After the two paths in
    turns, the megakernel serves them once more over int8 KV pages
    (``kv_quant=True``; the teacher replays the quantization, near-tie
    margin twice GPT-124M's own logit gap along the fused decode path,
@@ -149,7 +155,8 @@ card.
    8 of the requests (TP_LLAMA_REQUESTS). Each rank
    checks its launches per dispatch (a megakernel decode step: L
    ``fused_decode_qkv``, L attention, L ``fused_decode_mlp_partial``, one
-   epilogue and no ``fused_decode_mlp``) and 2 L all-reduces a forward,
+   epilogue and no ``fused_decode_mlp``; GPT's ingress and egress on the
+   split-K and GELU kernels) and 2 L all-reduces a forward,
    and profiles one decode window; both ranks' streams and ``stats`` must
    be equal, and every served token the pick of the unsharded model's
    plain forward except near ties below max(MARGIN, 2 x the gap measured
@@ -290,7 +297,8 @@ def build():
 class _Route:
     """A wrapper's count of one route's launches (``tc_launches`` of
     flash attention and the weight-only matmul, ``mixed_launches`` and
-    ``decode_launches`` of the paged attention), read and reset like a
+    ``decode_launches`` of the paged attention, ``split_launches`` of the
+    ingress, ``gelu_launches`` of the egress), read and reset like a
     wrapper's ``launches``."""
 
     def __init__(self, fn, attr="tc_launches"):
@@ -309,8 +317,9 @@ class _Route:
 def counters():
     """Every kernel wrapper's launch counter, by kernel name, the
     tensor-core route counts (``*_tc``) of the flash wrappers and the
-    weight-only matmul, and the paged attention's by route (``*_mixed``,
-    ``*_decode``)."""
+    weight-only matmul, the paged attention's by route (``*_mixed``,
+    ``*_decode``), the ingress's split-K launches (``*_split``) and the
+    egress's GELU launches (``*_gelu``)."""
     from paddle_tpu_torch.ops.cuda import (flash_attention, fused_decode_mlp,
                                            fused_decode_qkv, fused_optimizer,
                                            fused_residual_norm, norms,
@@ -329,9 +338,16 @@ def counters():
                 _Route(flash_attention.flash_attention_bwd),
             "fused_update": fused_optimizer.fused_update,
             "fused_decode_qkv": fused_decode_qkv.fused_decode_qkv,
+            "fused_decode_qkv_split":
+                _Route(fused_decode_qkv.fused_decode_qkv, "split_launches"),
             "fused_decode_mlp": fused_decode_mlp.fused_decode_mlp,
+            "fused_decode_mlp_gelu":
+                _Route(fused_decode_mlp.fused_decode_mlp, "gelu_launches"),
             "fused_decode_mlp_partial":
                 fused_decode_mlp.fused_decode_mlp_partial,
+            "fused_decode_mlp_partial_gelu":
+                _Route(fused_decode_mlp.fused_decode_mlp_partial,
+                       "gelu_launches"),
             "fused_decode_epilogue": fused_decode_mlp.fused_decode_epilogue,
             "rope": rope.rope,
             "fused_residual_rms_norm_fwd":
@@ -882,14 +898,16 @@ def decode_kernel_phase(seed, power):
 
 
 def _decode_row(name, errs, ms, plain_ms, unfused_ms, nbytes, flops, shape,
-                power, kname):
+                power, kname, absolute=False):
     """One kernel case's row and its log line; ``errs`` is (max abs
     error, the plain version's largest |value|) and the case holds when
-    the error is within TOL of that largest value."""
+    the error is within TOL of that largest value (within TOL itself
+    where ``absolute``)."""
     err, largest = errs
-    if not err <= TOL * max(largest, 1.0):
+    limit = TOL if absolute else TOL * max(largest, 1.0)
+    if not err <= limit:
         raise AssertionError(f"{kname} {name}: kernel vs plain max abs error "
-                             f"{err:.3g} > {TOL} x {largest:.3g}")
+                             f"{err:.3g} > {limit:.3g}")
     bound_ms, bound_by = _fp32_bound(nbytes, flops)
     log(f"kernel {kname} {name} {shape}: max_abs_err {err:.3g} (largest "
         f"{largest:.3g}), {ms:.4f} ms (plain {plain_ms:.4f} ms, unfused "
@@ -1076,7 +1094,7 @@ def llama_decode_kernel_cases(seed, power, flush):
             2 * B * (H * H + 3 * inter * H) + 8 * B * inter,
             dict(x=[B, H], wo=[H, H], w_gate=[inter, H], w_up=[inter, H],
                  w_down=[H, inter],
-                 plan=_swiglu_plan(fm, B, H, H, inter, dev)),
+                 plan=_egress_plan(fm, B, H, H, inter, dev)),
             power, "fused_decode_mlp"))
         del x, att, margs, out, ref
     del wo, wg, wu, wd
@@ -1131,23 +1149,14 @@ def llama_decode_kernel_cases(seed, power, flush):
     return rows
 
 
-def _swiglu_plan(fm, bsz, hid, a_w, inter, dev):
-    """The SwiGLU egress kernel's launch plan at these widths (``a_w`` 0:
-    the partial mode); an older checkout timed by ``chip_ab.py`` reports
-    its grid alone."""
-    if hasattr(fm, "swiglu_plan"):
-        return fm.swiglu_plan(bsz, hid, a_w, inter, dev)
-    return dict(grid=fm.swiglu_grid(bsz, hid, a_w, inter, dev))
-
-
 def tp_partial_cases(seed, power, flush):
     """``fused_decode_mlp_partial`` (row 6, the shard-local decode MLP of
     TP serving) against its plain version at the shapes the TP=2
     megakernel legs give it: one rank's half of the MLP. LLaMA-7B (y1
     ``[B, 4096]``, gate and up ``[5504, 4096]``, down ``[4096, 5504]``,
-    RMSNorm) at B = 8 (the engine's slots; the main case), 5 and 1, and
-    GPT-124M (y1 ``[B, 768]``, fc1 ``[1536, 768]`` with its bias, fc2
-    ``[768, 1536]``, LayerNorm) at B = 8 and 1. Values within TOL of the
+    RMSNorm) and GPT-124M (y1 ``[B, 768]``, fc1 ``[1536, 768]`` with its
+    bias, fc2 ``[768, 1536]``, LayerNorm), each at B = 8 (the engine's
+    slots; the main case), 5 and 1. Values within TOL of the
     plain version's largest; each timed behind the device spin beside the
     unfused eager chain (the norm, the cuBLAS projections, the
     activation) of the unfused TP body. No library call computes it."""
@@ -1167,7 +1176,7 @@ def tp_partial_cases(seed, power, flush):
     rows = []
     for arch, H, inter, L, cases in (("llama", 4096, 11008 // 2, 32,
                                       (8, 5, 1)),
-                                     ("gpt", 768, 3072 // 2, 12, (8, 1))):
+                                     ("gpt", 768, 3072 // 2, 12, (8, 5, 1))):
         resid = 0.02 / np.sqrt(2 * L)
         norm_w = 1.0 + rn(H, std=0.1)
         w1, w2 = rn(inter, H, std=0.02), rn(H, inter, std=resid)
@@ -1208,8 +1217,8 @@ def tp_partial_cases(seed, power, flush):
                 + f"_tp2_decode_b{B}"
             shape = dict(y1=[B, H], w1=[inter, H], w2=[H, inter],
                          w_up=None if w_up is None else [inter, H],
-                         plan=(_swiglu_plan(fm, B, H, 0, inter, dev)
-                               if arch == "llama" else None))
+                         plan=_egress_plan(fm, B, H, 0, inter, dev,
+                                           gelu=arch == "gpt"))
             rows.append(_decode_row(name, _max_err(out, ref), ms, plain_ms,
                                     unfused_ms, nbytes, flops, shape, power,
                                     "fused_decode_mlp_partial"))
@@ -1219,20 +1228,89 @@ def tp_partial_cases(seed, power, flush):
     return rows
 
 
-def decode_kernel_cases(seed, power, flush):
+def _egress_plan(fm, bsz, hid, a_w, inter, dev, gelu=False):
+    """The egress kernel's launch plan at these widths (``a_w`` 0: the
+    partial mode); an older checkout timed by ``chip_ab.py`` reports its
+    SwiGLU plan, or its grid alone, or (GELU) nothing."""
+    if hasattr(fm, "egress_plan"):
+        return fm.egress_plan(bsz, hid, a_w, inter, dev, gelu=gelu)
+    if gelu:
+        return None
+    if hasattr(fm, "swiglu_plan"):
+        return fm.swiglu_plan(bsz, hid, a_w, inter, dev)
+    return dict(grid=fm.swiglu_grid(bsz, hid, a_w, inter, dev))
+
+
+def _split_slices(fq, hid):
+    """K-slices a head of the split ingress kernel at this width (None
+    for an older checkout's kernel)."""
+    return fq.split_plan(hid) if hasattr(fq, "split_plan") else None
+
+
+def _shared_slot_check(fq, x, ln_w, ln_b, w, b, pos, bt, pools, kw, name):
+    """Two rows of ``x`` (2 and 6) at one (page, slot): q and every fp32
+    pool entry after the kernel within TOL of the plain version's (int8
+    pools within :func:`_pool_errs`'s limits), and the shared entry bitwise what the kernel writes for the
+    later row when the earlier one is moved to another slot (page 0, the
+    null page): the later row's K/V (and scale) stay, as the JAX kernel's
+    row-by-row writes leave them. Returns the int8 bytes off by one."""
+    pos, bt = pos.clone(), bt.clone()
+    ps, NP = pools[0].shape[2], bt.shape[1]
+    pos[6], bt[6] = pos[2], bt[2]
+    pi = min(int(pos[2]) // ps, NP - 1)
+    page, slot = int(bt[2, pi]), int(pos[2]) % ps
+    mine = [t.clone() for t in pools]
+    out = fq.fused_decode_qkv(x, ln_w, ln_b, w, b, pos, bt, *mine, **kw)
+    ref = fq.fused_decode_qkv_plain(x, ln_w, ln_b, w, b, pos, bt,
+                                    *[t.clone() for t in pools], **kw)
+    moved_bt = bt.clone()
+    moved_bt[2, pi] = 0
+    moved = [t.clone() for t in pools]
+    fq.fused_decode_qkv(x, ln_w, ln_b, w, b, pos, moved_bt, *moved, **kw)
+    torch.cuda.synchronize()
+    err = _max_err(out[0], ref[0])[0]
+    if not err <= TOL:
+        raise AssertionError(f"fused_decode_qkv {name}: q max abs error "
+                             f"{err:.3g} > {TOL}")
+    perr, off = _pool_errs("fused_decode_qkv", name, out[1:], ref[1:])
+    if not perr[0] <= TOL:
+        raise AssertionError(f"fused_decode_qkv {name}: pools max abs "
+                             f"error {perr[0]:.3g} > {TOL}")
+    for i, (got, later) in enumerate(zip(mine, moved)):
+        if not torch.equal(got[:, page, slot], later[:, page, slot]):
+            raise AssertionError(f"fused_decode_qkv {name}: pool {i} at the "
+                                 f"shared (page {page}, slot {slot}) is not "
+                                 f"the later row's")
+    if torch.equal(mine[0][:, page, slot], moved[0][:, 0, slot]):
+        raise AssertionError(f"fused_decode_qkv {name}: the shared slot "
+                             f"holds the earlier row's K")
+    log(f"kernel fused_decode_qkv {name}: rows 2 and 6 at (page {page}, slot "
+        f"{slot}): every pool entry within limits of the plain version's "
+        f"({off} int8 bytes off by one), the shared slot bitwise the later "
+        f"row's")
+    return off
+
+
+def decode_kernel_cases(seed, power, flush, shared_slot=True):
     """The three fused decode kernels against their plain versions at the
-    megakernel serve phase's shapes (GPT-124M, ``GEO``): x ``[8, 768]``,
-    pools ``[12, 513, 16, 64]``, tables ``[8, 64]``, the tied embedding
-    ``[50304, 768]``; the ingress also over int8 pools with their
-    ``[12, 513, 16]`` scale pools at B = 8 and 1 (q within TOL of the
-    plain version's largest value, int8 bytes within one step with the
-    count reported, scales within 1e-6 relative). Each row also times the unfused eager chain the
-    kernel replaces on the unfused decode path (``unfused_ms``); no single
-    library call computes any of these functions (``library_ms`` null).
-    All are timed with the device spin of :func:`_time_ms`: a chain's
-    launches then run back to back, so ``unfused_ms`` is its device time.
-    Values within TOL of the plain version; tokens and bad flags equal
-    except on near ties (one epilogue check poisons a row with NaN)."""
+    megakernel serve phase's shapes (GPT-124M, ``GEO``): x ``[B, 768]``
+    at B = 8 (the engine's slots; each kernel's first row, its main case),
+    5 and 1, pools ``[12, 513, 16, 64]``, tables ``[B, 64]``, the tied
+    embedding ``[50304, 768]``; the ingress over fp32 pools and over int8
+    pools with their ``[12, 513, 16]`` scale pools (q and fp32 pools
+    within TOL, int8 bytes within one step with the count reported,
+    scales within 1e-6 relative), and once more at B = 8
+    with two rows at one (page, slot) over each pool kind
+    (:func:`_shared_slot_check`; skipped with ``shared_slot`` False, for
+    an older kernel timed by ``chip_ab.py``). Each row also times the
+    unfused eager chain the kernel replaces on the unfused decode path
+    (``unfused_ms``); no single library call computes any of these
+    functions (``library_ms`` null). All are timed with the device spin
+    of :func:`_time_ms`: a chain's launches then run back to back, so
+    ``unfused_ms`` is its device time. The ingress's and the egress's
+    values within TOL, the epilogue's logits too; tokens and bad flags
+    equal except on near ties (one epilogue check poisons a row with
+    NaN)."""
     import torch.nn.functional as tF
 
     from paddle_tpu_torch.models.generation import (_slot_page_write,
@@ -1260,134 +1338,108 @@ def decode_kernel_cases(seed, power, flush):
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
         seed + 5)) + 1
     bt = perm[:B * NP].reshape(B, NP).to(torch.int32).to(dev)
-    k0, v0 = rn(nh, P, ps, hd), rn(nh, P, ps, hd)
+    k0 = rn(nh, P, ps, hd)
 
-    def finish(name, err, ms, plain_ms, unfused_ms, nbytes, flops, shape):
-        bound_ms, bound_by = _fp32_bound(nbytes, flops)
-        row = dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   unfused_ms=unfused_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, bytes=nbytes, flops=flops,
-                   library_ms=None, library="none: no single call",
-                   shape=shape)
-        log(f"kernel {name} {shape}: max_abs_err {err:.3g}, {ms:.4f} ms "
-            f"(plain {plain_ms:.4f} ms, unfused chain {unfused_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
-            f"bound) on {power}")
-        return row
+    def pools_of(int8):
+        if not int8:
+            return [rn(*k0.shape) for _ in range(2)]
+        out = [torch.randint(-127, 128, k0.shape, generator=gen, device=dev,
+                             dtype=torch.int8) for _ in range(2)]
+        return out + [torch.rand(k0.shape[:3], generator=gen, device=dev)
+                      * 0.1 + 0.01 for _ in range(2)]
 
-    # ingress: LayerNorm + fused QKV + paged append
+    # ingress: LayerNorm + fused QKV + paged append (+ int8 quantize), the
+    # split-K kernel
     w, b = rn(3 * H, H, std=0.02), rn(3 * H, std=0.02)
     kw = dict(eps=eps, n_heads=nh, n_kv_heads=nh, head_dim=hd)
-    kk, vk, kp, vp = k0.clone(), v0.clone(), k0.clone(), v0.clone()
-    q, _, _ = fq.fused_decode_qkv(x, ln_w, ln_b, w, b, pos, bt, kk, vk, **kw)
-    rq, _, _ = fq.fused_decode_qkv_plain(x, ln_w, ln_b, w, b, pos, bt, kp,
-                                         vp, **kw)
-    torch.cuda.synchronize()
-    err = max(float((q - rq).abs().max()), float((kk - kp).abs().max()),
-              float((vk - vp).abs().max()))
-    if not err <= TOL:
-        raise AssertionError(f"fused_decode_qkv: kernel vs plain max abs "
-                             f"error {err:.3g} > {TOL}")
-
-    def unfused_qkv():
-        h = tF.layer_norm(x, (H,), ln_w, ln_b, eps)
-        qkv = tF.linear(h, w, b).reshape(B, 1, 3, nh, hd)
-        _, k, v = qkv.unbind(2)
-        _slot_page_write(k[:, 0].transpose(0, 1), v[:, 0].transpose(0, 1),
-                         kp, vp, bt, pos)
-
     n_out = 3 * H
-    ms = timed(lambda: fq.fused_decode_qkv(x, ln_w, ln_b, w, b, pos, bt, kk,
-                                           vk, **kw), 50)
-    plain_ms = timed(lambda: fq.fused_decode_qkv_plain(
-        x, ln_w, ln_b, w, b, pos, bt, kp, vp, **kw), 10)
-    # W and its bias, x, the norm's w and b read; q, K and V written;
-    # positions and one table entry per row read
-    qkv_row = finish(
-        "gpt124m_decode", err, ms, plain_ms, timed(unfused_qkv, 20),
-        4 * (n_out * H + n_out + B * H + 2 * H + B * n_out) + 8 * B + 4 * B,
-        2 * B * n_out * H + 8 * B * H,
-        dict(x=[B, H], w=[n_out, H], pools=list(k0.shape),
-             tables=list(bt.shape)))
-    del kk, vk, kp, vp
+    qkv_rows = []
+    for int8 in (False, True):
+        pools = pools_of(int8)
+        shared_off = _shared_slot_check(
+            fq, x, ln_w, ln_b, w, b, pos, bt, pools, kw,
+            f"gpt124m_shared_slot_{'int8' if int8 else 'fp32'}") \
+            if shared_slot else None
+        for b8 in (B, 5, 1):
+            x8, pos8, bt8 = x[:b8], pos[:b8], bt[:b8]
+            mine = [t.clone() for t in pools]
+            out8 = fq.fused_decode_qkv(x8, ln_w, ln_b, w, b, pos8, bt8,
+                                       *mine, **kw)
+            ref8 = fq.fused_decode_qkv_plain(
+                x8, ln_w, ln_b, w, b, pos8, bt8,
+                *[t.clone() for t in pools], **kw)
+            torch.cuda.synchronize()
+            name = f"gpt124m_decode_b{b8}_{'int8' if int8 else 'fp32'}"
+            (perr, plargest), off = _pool_errs("fused_decode_qkv", name,
+                                               out8[1:], ref8[1:])
+            qerr, qlargest = _max_err(out8[0], ref8[0])
 
-    # ... over int8 pools with scale pools (the per-head kernel: the
-    # fused weight and bias cut into q/k/v views, quantize-on-write), as
-    # the megakernel serve over int8 pools gives it
-    qkv8_rows = []
-    for b8 in (B, 1):
-        x8, pos8, bt8 = x[:b8], pos[:b8], bt[:b8]
-        pools = [torch.randint(-127, 128, k0.shape, generator=gen,
-                               device=dev, dtype=torch.int8)
-                 for _ in range(2)]
-        pools += [torch.rand(k0.shape[:3], generator=gen, device=dev) * 0.1
-                  + 0.01 for _ in range(2)]
-        mine = [t.clone() for t in pools]
-        out8 = fq.fused_decode_qkv(x8, ln_w, ln_b, w, b, pos8, bt8, *mine,
-                                   **kw)
-        ref8 = fq.fused_decode_qkv_plain(x8, ln_w, ln_b, w, b, pos8, bt8,
-                                         *pools, **kw)
-        torch.cuda.synchronize()
-        name = f"gpt124m_decode_b{b8}_int8"
-        _, off = _pool_errs("fused_decode_qkv", name, out8[1:], ref8[1:])
+            def unfused_qkv():
+                h = tF.layer_norm(x8, (H,), ln_w, ln_b, eps)
+                qkv = tF.linear(h, w, b).reshape(b8, 1, 3, nh, hd)
+                _, k, v = qkv.unbind(2)
+                _slot_page_write(k[:, 0].transpose(0, 1),
+                                 v[:, 0].transpose(0, 1), *mine[:2], bt8,
+                                 pos8, *mine[2:])
 
-        def unfused_qkv8():
-            h = tF.layer_norm(x8, (H,), ln_w, ln_b, eps)
-            qkv = tF.linear(h, w, b).reshape(b8, 1, 3, nh, hd)
-            _, k, v = qkv.unbind(2)
-            _slot_page_write(k[:, 0].transpose(0, 1),
-                             v[:, 0].transpose(0, 1), mine[0], mine[1], bt8,
-                             pos8, mine[2], mine[3])
-
-        # W and its bias, x, the norm's w and b read; q, the K/V bytes and
-        # their scales written; positions and one table entry per row read
-        qkv8_rows.append(_decode_row(
-            name, _max_err(out8[0], ref8[0]),
-            timed(lambda: fq.fused_decode_qkv(x8, ln_w, ln_b, w, b, pos8,
-                                              bt8, *mine, **kw), 50),
-            timed(lambda: fq.fused_decode_qkv_plain(
-                x8, ln_w, ln_b, w, b, pos8, bt8, *pools, **kw), 10),
-            timed(unfused_qkv8, 20),
-            4 * (n_out * H + n_out + b8 * H + 2 * H + b8 * H)
-            + 2 * b8 * H + 2 * 4 * b8 * nh + 8 * b8 + 4 * b8,
-            2 * b8 * n_out * H + 8 * b8 * H + 6 * b8 * 2 * H,
-            dict(x=[b8, H], w=[n_out, H], pools=list(k0.shape),
-                 dtype="int8", tables=list(bt8.shape),
-                 int8_bytes_off_by_one=off),
-            power, "fused_decode_qkv"))
-        del pools, mine, out8, ref8
-    del w, b
+            # W and its bias, x, the norm's w and b read; q and K/V (their
+            # bytes and scales) written; positions and one table entry per
+            # row read
+            kv_bytes = (2 * b8 * H + 2 * 4 * b8 * nh) if int8 else 8 * b8 * H
+            qkv_rows.append(_decode_row(
+                name, (max(qerr, perr), max(qlargest, plargest)),
+                timed(lambda: fq.fused_decode_qkv(
+                    x8, ln_w, ln_b, w, b, pos8, bt8, *mine, **kw), 50),
+                timed(lambda: fq.fused_decode_qkv_plain(
+                    x8, ln_w, ln_b, w, b, pos8, bt8, *pools, **kw), 10),
+                timed(unfused_qkv, 20),
+                4 * (n_out * H + n_out + b8 * H + 2 * H + b8 * H)
+                + kv_bytes + 8 * b8 + 4 * b8,
+                2 * b8 * n_out * H + 8 * b8 * H
+                + (6 * b8 * 2 * H if int8 else 0),
+                dict(x=[b8, H], w=[n_out, H], pools=list(k0.shape),
+                     dtype="int8" if int8 else "fp32",
+                     tables=list(bt8.shape), int8_bytes_off_by_one=off,
+                     slices=_split_slices(fq, H),
+                     shared_slot_int8_bytes_off_by_one=(
+                         shared_off if b8 == B else None)),
+                power, "fused_decode_qkv", absolute=True))
+            del mine, out8, ref8
+        del pools
+    del w, b, k0
 
     # egress: out-proj + residual + LayerNorm + fc1 + GELU + fc2 + residual
     wo, bo = rn(H, H, std=resid), rn(H, std=0.02)
     w1, b1 = rn(inter, H, std=0.02), rn(inter, std=0.02)
     w2, b2 = rn(H, inter, std=resid), rn(H, std=0.02)
-    margs = (x, att, wo, bo, ln_w, ln_b, w1, b1, w2, b2)
-    out = fm.fused_decode_mlp(*margs, eps=eps)
-    ref = fm.fused_decode_mlp_plain(*margs, eps=eps)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    if not err <= TOL:
-        raise AssertionError(f"fused_decode_mlp: kernel vs plain max abs "
-                             f"error {err:.3g} > {TOL}")
+    mlp_rows = []
+    for b8 in (B, 5, 1):
+        x8, att8 = x[:b8], att[:b8]
+        margs = (x8, att8, wo, bo, ln_w, ln_b, w1, b1, w2, b2)
+        out = fm.fused_decode_mlp(*margs, eps=eps)
+        ref = fm.fused_decode_mlp_plain(*margs, eps=eps)
+        torch.cuda.synchronize()
 
-    def unfused_mlp():
-        y = x + tF.linear(att, wo, bo)
-        h = tF.layer_norm(y, (H,), ln_w, ln_b, eps)
-        return y + tF.linear(tF.gelu(tF.linear(h, w1, b1),
-                                     approximate="tanh"), w2, b2)
+        def unfused_mlp():
+            y = x8 + tF.linear(att8, wo, bo)
+            h = tF.layer_norm(y, (H,), ln_w, ln_b, eps)
+            return y + tF.linear(tF.gelu(tF.linear(h, w1, b1),
+                                         approximate="tanh"), w2, b2)
 
-    # the three weights and their biases, the norm's w and b, x and att
-    # read, the output written
-    mlp_row = finish(
-        "gpt124m_decode", err,
-        timed(lambda: fm.fused_decode_mlp(*margs, eps=eps), 50),
-        timed(lambda: fm.fused_decode_mlp_plain(*margs, eps=eps), 10),
-        timed(unfused_mlp, 20),
-        4 * (H * H + 2 * inter * H + inter + 2 * H + 2 * H + 3 * B * H),
-        2 * B * (H * H + 2 * inter * H) + 20 * B * inter,
-        dict(x=[B, H], wo=[H, H], w1=[inter, H], w2=[H, inter]))
-    del wo, w1, w2, margs
+        # the three weights and their biases, the norm's w and b, x and
+        # att read, the output written
+        mlp_rows.append(_decode_row(
+            f"gpt124m_decode_b{b8}", _max_err(out, ref),
+            timed(lambda: fm.fused_decode_mlp(*margs, eps=eps), 50),
+            timed(lambda: fm.fused_decode_mlp_plain(*margs, eps=eps), 10),
+            timed(unfused_mlp, 20),
+            4 * (H * H + 2 * inter * H + inter + 2 * H + 2 * H + 3 * b8 * H),
+            2 * b8 * (H * H + 2 * inter * H) + 20 * b8 * inter,
+            dict(x=[b8, H], wo=[H, H], w1=[inter, H], w2=[H, inter],
+                 plan=_egress_plan(fm, b8, H, H, inter, dev, gelu=True)),
+            power, "fused_decode_mlp", absolute=True))
+        del margs, out, ref
+    del wo, w1, w2
 
     # epilogue: final LayerNorm + tied LM head + guarded argmax
     wte = rn(V, H, std=0.02)
@@ -1418,8 +1470,8 @@ def decode_kernel_cases(seed, power, flush):
     ekw = dict(eps=eps, transpose_lm=True)
     # the embedding, x, the norm's w and b and the poison lane read; the
     # logits, nxt (int64) and bad (bool) written
-    epi_row = finish(
-        "gpt124m_decode", err,
+    epi_row = _decode_row(
+        "gpt124m_decode_b8", _max_err(lg, rlg),
         timed(lambda: fm.fused_decode_epilogue(x, ln_w, ln_b, wte, None,
                                                zero, **ekw), 20),
         timed(lambda: fm.fused_decode_epilogue_plain(x, ln_w, ln_b, wte,
@@ -1427,11 +1479,11 @@ def decode_kernel_cases(seed, power, flush):
         timed(unfused_epilogue, 10),
         4 * (V * H + B * H + 2 * H + B + B * V) + 9 * B,
         2 * B * V * H + 8 * B * H,
-        dict(x=[B, H], w_lm=[V, H], near_ties=ties))
-    del wte, k0, v0
+        dict(x=[B, H], w_lm=[V, H], near_ties=ties), power,
+        "fused_decode_epilogue")
+    del wte
     torch.cuda.empty_cache()
-    return {"fused_decode_qkv": [qkv_row] + qkv8_rows,
-            "fused_decode_mlp": [mlp_row],
+    return {"fused_decode_qkv": qkv_rows, "fused_decode_mlp": mlp_rows,
             "fused_decode_epilogue": [epi_row]}
 
 
@@ -1568,8 +1620,9 @@ def _drive(eng, on_card):
     tensor cores; a
     decode step with ``megakernel`` also ``fused_decode_qkv`` and
     ``fused_decode_mlp`` (under tensor parallelism
-    ``fused_decode_mlp_partial`` instead) once per layer and
-    ``fused_decode_epilogue`` once, any other step none of them. Under
+    ``fused_decode_mlp_partial`` instead) once per layer, for GPT each of
+    them on its split-K or GELU kernel, and ``fused_decode_epilogue``
+    once, any other step none of them. Under
     tensor parallelism every forward also runs 2 L all-reduces (checked
     on the CPU too). Returns (completions, launches by dispatch kind, host
     ms by kind)."""
@@ -1578,8 +1631,10 @@ def _drive(eng, on_card):
     L = eng.model.cfg.num_layers
     n_mm = sum(isinstance(m, WeightOnlyLinear) for m in eng.model.modules())
     tp = eng.tp > 1
-    fused = ("fused_decode_qkv", "fused_decode_mlp",
-             "fused_decode_mlp_partial", "fused_decode_epilogue",
+    gpt = not type(eng.model).__name__.startswith("Llama")
+    fused = ("fused_decode_qkv", "fused_decode_qkv_split", "fused_decode_mlp",
+             "fused_decode_mlp_gelu", "fused_decode_mlp_partial",
+             "fused_decode_mlp_partial_gelu", "fused_decode_epilogue",
              "weight_only_matmul", "weight_only_matmul_tc")
     launches = {"mixed": dict.fromkeys(counters(), 0),
                 "decode": dict.fromkeys(counters(), 0)}
@@ -1609,8 +1664,12 @@ def _drive(eng, on_card):
                     "weight_only_matmul": n_mm * k}
             if eng.megakernel:
                 want.update(fused_decode_qkv=L * k, fused_decode_epilogue=k)
-                want["fused_decode_mlp_partial" if tp
-                     else "fused_decode_mlp"] = L * k
+                egress = ("fused_decode_mlp_partial" if tp
+                          else "fused_decode_mlp")
+                want[egress] = L * k
+                if gpt:
+                    want.update({"fused_decode_qkv_split": L * k,
+                                 egress + "_gelu": L * k})
         else:
             continue
         want = {n: want.get(n, 0) for n in (
@@ -1762,25 +1821,27 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
 
 
 # device kernels (by name) a profiled decode window counts
-WINDOW_KERNELS = ("gemv_tc_kernel", "swiglu_kernel")
+WINDOW_KERNELS = ("gemv_tc_kernel", "egress_kernel", "qkv_split_kernel")
 
 
 def _check_window_kernels(model, window, megakernel):
     """In a profiled decode window of k steps (every slot decoding, fp32
     activations): row 17's GEMV runs once per weight-only projection a
-    step, and the LLaMA egress kernel (rows 5 and 6) once per layer a
-    step of a megakernel serve of LLaMA, with or without TP, on the
-    device, and neither runs anywhere else: no launch beyond those (the
-    wrappers' counts, checked exactly per dispatch by :func:`_drive`,
-    show each call is one launch). The profiler's activity records can
-    drop a kernel (seen once in 256 on the card), so the device counts
-    may fall short by at most one a step."""
+    step, the egress kernel (rows 5 and 6) once per layer a step of a
+    megakernel serve, with or without TP, and the split-K ingress (row 4)
+    once per layer a step of a megakernel serve of GPT, on the device,
+    and none runs anywhere else: no launch beyond those (the wrappers'
+    counts, checked exactly per dispatch by :func:`_drive`, show each
+    call is one launch). The profiler's activity records can drop a
+    kernel (seen once in 256 on the card), so the device counts may fall
+    short by at most one a step."""
     from paddle_tpu_torch.quantization import WeightOnlyLinear
     k, L = window["steps"], model.cfg.num_layers
     n_mm = sum(isinstance(m, WeightOnlyLinear) for m in model.modules())
     llama = type(model).__name__.startswith("Llama")
     want = {"gemv_tc_kernel": n_mm * k,
-            "swiglu_kernel": L * k if megakernel and llama else 0}
+            "egress_kernel": L * k if megakernel else 0,
+            "qkv_split_kernel": L * k if megakernel and not llama else 0}
     got = window["kernel_launches"]
     log(f"decode window: device launches {got} (want {want}, at most one "
         f"a step fewer)")
@@ -1882,8 +1943,9 @@ def profile_window(model, prompts, new_tokens, geo):
            and e.self_device_time_total > 0]
     n = sum(e.count for e in evs)
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    # the device launches of the two decode kernels whose count per step
-    # the serve checks (row 17's GEMV, rows 5-6's LLaMA egress kernel)
+    # the device launches of the decode kernels whose count per step the
+    # serve checks (row 17's GEMV, rows 5-6's egress, row 4's split-K
+    # ingress)
     named = {key: sum(e.count for e in evs if key in e.key)
              for key in WINDOW_KERNELS}
     path = "megakernel" if geo.get("megakernel") else "unfused"
@@ -3706,6 +3768,22 @@ def main(argv=None):
             n for paths in fused_paths.values() for n in paths.values()) <= 0:
         raise AssertionError(f"launches by path: attention {attn_paths}, "
                              f"fused decode {fused_paths}")
+    # every GPT ingress launch on the split-K kernel, every GPT egress
+    # launch on the GELU egress
+    gpt_routes = {"fused_decode_qkv": {}, "fused_decode_mlp": {},
+                  "fused_decode_mlp_partial": {}}
+    for p, r in {**mk_runs, **tp_mk_runs}.items():
+        if not p.startswith("gpt"):
+            continue
+        c = r["counts"]
+        egress = "fused_decode_mlp_partial" if p in tp_mk_runs \
+            else "fused_decode_mlp"
+        gpt_routes["fused_decode_qkv"][p] = c["fused_decode_qkv_split"]
+        gpt_routes[egress][p] = c[egress + "_gelu"]
+        if not (c["fused_decode_qkv_split"] == c["fused_decode_qkv"] > 0
+                and c[egress + "_gelu"] == c[egress] > 0):
+            raise AssertionError(f"{p}: GPT's fused decode launches by "
+                                 f"route {c}")
     out = []
     for kname, source, replaces, cases, launches in specs:
         if launches <= 0:
@@ -3728,6 +3806,9 @@ def main(argv=None):
             out[-1]["routes"] = {r["case"]: r["route"] for r in cases}
         if kname in fused_paths:
             out[-1]["launches_by_path"] = fused_paths[kname]
+        if kname in gpt_routes:
+            # GPT's launches: the split-K ingress, the GELU egress
+            out[-1]["gpt_launches_on_new_kernel_by_path"] = gpt_routes[kname]
         if kname.startswith("flash_attention"):
             # the main path's bf16 launches take the tensor-core kernels;
             # fp32 and other head dims the CUDA-core ones

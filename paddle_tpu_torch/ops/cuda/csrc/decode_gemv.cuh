@@ -3,12 +3,13 @@
 // token per serving slot) by weight matrices kept in the nn.Linear
 // layout [out, in]. Each output column is then one contiguous weight row
 // dotted with every activation row: a weight-streaming GEMV whose cost
-// is the weight bytes, read once. A warp owns a column and reads its row
-// with 16-byte loads, up to eight in flight per lane, after the block
-// asked the L2 for all of its rows; the activation rows sit in shared
+// is the weight bytes, read once. Warps read weight rows with 16-byte
+// loads, several in flight per lane; the activation rows sit in shared
 // memory, normalised there first where the layer asks for a norm. Rows
 // too wide for shared memory stream through it in K-chunks (load_chunk),
-// normalised on the way from per-row statistics (row_norm_stats).
+// or a CTA takes one K-slice of them; either is normalised on the way
+// from per-row statistics (row_norm_stats). Split-K partial sums are
+// added in slice order (slice_sum), so two calls give the same bits.
 
 #pragma once
 
@@ -104,21 +105,36 @@ __device__ inline void rms_norm_rows(float* s, const float* __restrict__ w,
   __syncthreads();
 }
 
-// The norm's statistics of rows x [B, K] read from device memory, for
-// rows that stream through shared memory in K-chunks (load_chunk):
-// stat[2 r] = the row's mean (0 for rms), stat[2 r + 1] = its rsqrt(var +
-// eps) (layer: var = E[x^2] - mean^2) or rsqrt(E[x^2] + eps) (rms). Plain
-// loads, as load_rows. One warp per row. Ends with a block barrier.
+// The norm's statistics of rows x [B, K] (device or shared memory), for
+// rows that stream through shared memory in K-chunks (load_chunk) or by
+// K-slices: stat[2 r] = the row's mean (0 for rms), stat[2 r + 1] = its
+// rsqrt(var + eps) (layer: var = E[x^2] - mean^2) or rsqrt(E[x^2] + eps)
+// (rms). 16-byte loads, kStatLoads in flight a lane (one round trip for a
+// row of up to 32 kStatLoads float4s: GPT-124M's 768 floats); plain
+// loads, as load_rows. One warp per row; x 16-byte aligned, K % 4 == 0.
+// Ends with a block barrier.
+constexpr int kStatLoads = 8;
+
 __device__ inline void row_norm_stats(float* stat, const float* x, int B, int K,
                                       bool rms, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int K4 = K / 4;
   for (int r = warp; r < B; r += blockDim.x / 32) {
-    const float* row = x + (size_t)r * K;
+    const float4* row = reinterpret_cast<const float4*>(x + (size_t)r * K);
     float sum = 0.f, sq = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float v = row[k];
-      sum += v;
-      sq = fmaf(v, v, sq);
+    for (int base = lane; base < K4; base += 32 * kStatLoads) {
+      float4 v[kStatLoads];
+#pragma unroll
+      for (int u = 0; u < kStatLoads; ++u)
+        v[u] = base + 32 * u < K4 ? row[base + 32 * u] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kStatLoads; ++u) {
+        sum += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+        sq = fmaf(v[u].x, v[u].x, sq);
+        sq = fmaf(v[u].y, v[u].y, sq);
+        sq = fmaf(v[u].z, v[u].z, sq);
+        sq = fmaf(v[u].w, v[u].w, sq);
+      }
     }
     sum = warp_sum(sum);
     sq = warp_sum(sq);
@@ -139,6 +155,25 @@ __device__ inline float norm_one(float v, float mean, float rstd, bool rms,
                                  float w, const float* b, int k) {
   v = (rms ? v * rstd : (v - mean) * rstd) * w;
   return b != nullptr ? v + __ldg(b + k) : v;
+}
+
+// A float4 through the norm of row_norm_stats' statistics, as norm_one:
+// ((v - mean) * rstd) * w (layer) or (v * rstd) * w (rms), then + b only
+// where b is given (b and w the float4s of the same columns).
+__device__ inline float4 norm4(float4 v, float mean, float rstd, bool rms, float4 w,
+                               const float4* b) {
+  v.x = (rms ? v.x * rstd : (v.x - mean) * rstd) * w.x;
+  v.y = (rms ? v.y * rstd : (v.y - mean) * rstd) * w.y;
+  v.z = (rms ? v.z * rstd : (v.z - mean) * rstd) * w.z;
+  v.w = (rms ? v.w * rstd : (v.w - mean) * rstd) * w.w;
+  if (b != nullptr) {
+    const float4 c = *b;
+    v.x += c.x;
+    v.y += c.y;
+    v.z += c.z;
+    v.w += c.w;
+  }
+  return v;
 }
 
 // Stream K-chunks of activation rows through shared memory: copy columns
@@ -207,46 +242,6 @@ __device__ inline void prefetch_row_l2(const float* w_row, int K) {
 
 constexpr int kBatch = 8;   // 16-byte weight loads in flight per lane
 
-// acc[r] = dot(a[r, :K], w_row[:K]) for r < nr (nr <= kRowTile), summed
-// across the warp: every lane returns the totals. `a` is shared memory
-// with rows K floats apart; w_row is a weight row in device memory, 16-byte
-// aligned, K % 4 == 0. Up to kBatch 16-byte weight loads per lane are
-// issued before any is used (a 768-wide row is one batch).
-__device__ inline void warp_dot_rows(const float* __restrict__ w_row, const float* a,
-                                     int K, int nr, float (&acc)[kRowTile]) {
-  const int lane = threadIdx.x % 32;
-  const int K4 = K / 4;
-  const float4* w4 = reinterpret_cast<const float4*>(w_row);
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-#pragma unroll
-  for (int r = 0; r < kRowTile; ++r) acc[r] = 0.f;
-  for (int base = lane; base < K4; base += 32 * kBatch) {
-    float4 wv[kBatch];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int k = base + 32 * u;
-      wv[u] = k < K4 ? __ldg(w4 + k) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int k = base + 32 * u;
-      if (k >= K4) break;
-#pragma unroll
-      for (int r = 0; r < kRowTile; ++r) {
-        if (r < nr) {
-          const float4 av = a4[(size_t)r * K4 + k];
-          acc[r] = fmaf(av.x, wv[u].x, acc[r]);
-          acc[r] = fmaf(av.y, wv[u].y, acc[r]);
-          acc[r] = fmaf(av.z, wv[u].z, acc[r]);
-          acc[r] = fmaf(av.w, wv[u].w, acc[r]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowTile; ++r) acc[r] = warp_sum(acc[r]);
-}
-
 // acc[i][r] = dot(a[r, :K], w[i][:K]) for i < kN weight rows and r < nr
 // (nr <= kRowTile), summed across the warp: every lane returns the totals.
 // `a` is shared memory with rows K floats apart; each w[i] is a weight row
@@ -257,10 +252,7 @@ __device__ inline void warp_dot_rows(const float* __restrict__ w_row, const floa
 // SM before its share of HBM does at LLaMA-7B's widths). kBatch / kN
 // 16-byte loads per weight row and lane are issued before any is used,
 // kBatch in all. Every lane adds its k = lane + 32 j terms in ascending j
-// whatever kN is, so a column's sum is bitwise warp_dot_rows'. One row at
-// a time stays with warp_dot_rows: kN = 1 here put the GPT MLP kernel at
-// 128 registers with spills (111 and none with warp_dot_rows) and 5%
-// slower on the H100.
+// whatever kN is.
 template <int kN>
 __device__ inline void warp_dot_multi(const float* const (&w)[kN], const float* a,
                                       int K, int nr, float (&acc)[kN][kRowTile]) {
@@ -306,6 +298,62 @@ __device__ inline void warp_dot_multi(const float* const (&w)[kN], const float* 
   for (int i = 0; i < kN; ++i)
 #pragma unroll
     for (int r = 0; r < kRowTile; ++r) acc[i][r] = warp_sum(acc[i][r]);
+}
+
+// A weight float4 that is used once: stream it past L1.
+__device__ __forceinline__ float4 ld_stream4(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0,%1,%2,%3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 w, float acc) {
+  acc = fmaf(a.x, w.x, acc);
+  acc = fmaf(a.y, w.y, acc);
+  acc = fmaf(a.z, w.z, acc);
+  return fmaf(a.w, w.w, acc);
+}
+
+// Part s of n units cut into S parts (the first index of the part).
+__device__ __forceinline__ int cut(int s, int n, int S) {
+  return (int)((long long)s * n / S);
+}
+
+constexpr int kReduceBatch = 8;   // slice sums of an output loaded at once
+
+// The sum in slice order of S split-K partial sums `step` floats apart
+// from src, written earlier in this launch by other CTAs (read from L2):
+// a fixed order, so the same bits on every call.
+__device__ inline float slice_sum(const float* src, size_t step, int S) {
+  float o = 0.f;
+  for (int s0 = 0; s0 < S; s0 += kReduceBatch) {
+    float t[kReduceBatch];
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j)
+      if (s0 + j < S) t[j] = __ldcg(src + (s0 + j) * step);
+#pragma unroll
+    for (int j = 0; j < kReduceBatch; ++j)
+      if (s0 + j < S) o += t[j];
+  }
+  return o;
+}
+
+// Copy n floats from device memory into shared memory without holding
+// them in registers (cp.async, 16 bytes at a time, every thread of the
+// block taking part; both 16-byte aligned, n % 4 == 0), through the L2
+// (data written earlier in this launch by other CTAs reads right). The
+// copies land by cp_async_wait_all() and a block barrier.
+__device__ inline void copy_async(float* smem, const float* src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + 4 * i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src + 4 * i));
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // Set the dynamic shared-memory limit of `kernel` when it needs more than

@@ -15,11 +15,12 @@
   residual, the partial sum that the layer's all-reduce adds up. It is
   a mode of the kernel that serves the arch without TP.
 
-``arch="llama"`` runs ``swiglu_kernel`` in both: each product's K cut
-into slices of at most 512 floats, every CTA one slice of one column
-block, the slices' sums added in slice order by the block's CTAs, each
-for its share of the outputs (:func:`swiglu_plan`; its plain version
-:func:`swiglu_plan_for` and :func:`swiglu_work`).
+Both run ``egress_kernel``, one weight stream over the products for
+either activation (GELU for ``arch="gpt"``, SwiGLU for ``"llama"``):
+each product's K cut into slices of at most 512 floats, every CTA one
+slice of one column block, the slices' sums added in slice order by the
+block's CTAs, each for its share of the outputs (:func:`egress_plan`;
+its plain version :func:`egress_plan_for` and :func:`egress_work`).
 * :func:`fused_decode_epilogue` replaces ``_epilogue_block``: the final
   norm, the LM head and the guarded greedy pick. It returns ``(logits
   [B, V] pre-poison, nxt [B], bad [B] bool)``, with ``nxt`` and ``bad``
@@ -37,9 +38,9 @@ and for an untied head, whose bias ``b_lm`` is added only when
 ``transpose_lm`` is False, as in JAX.
 
 CPU tensors take the ``_plain`` versions; CUDA tensors launch the
-kernels (``csrc/fused_decode_mlp.cu``: the GELU MLP kernel for
-``arch="gpt"`` with LayerNorm, the SwiGLU kernel for ``arch="llama"``,
-the epilogue for either norm) or raise. ``rows=`` and ``interpret=`` are
+kernels (``csrc/fused_decode_mlp.cu``: the egress kernel, for
+``arch="gpt"`` with LayerNorm only, and the epilogue for either norm)
+or raise; each wrapper's ``gelu_launches`` counts its GELU launches. ``rows=`` and ``interpret=`` are
 TPU knobs, accepted for call compatibility and not read.
 """
 from __future__ import annotations
@@ -56,8 +57,8 @@ __all__ = ["fused_decode_mlp", "fused_decode_mlp_plain",
 
 _lib = None
 _tickets: dict = {}   # device -> the epilogue's int32 ticket (kept at 0)
-_swiglu_counts: dict = {}  # (device, stream, C0, CA, CB) -> arrival counts
-_swiglu_plans: dict = {}   # (device, B, H, A, I) -> a SwiGLU launch's plan
+_egress_plans: dict = {}   # (device, B, H, A, I, gelu, rms, norm bias) ->
+#                            a launch's plan and its buffers per stream
 
 
 def _kernels():
@@ -66,23 +67,16 @@ def _kernels():
         from ._build import load
         lib = load("fused_decode_mlp")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pdt_fused_decode_mlp_f32.argtypes = [P] * 13 + [I] * 4 + [F, P]
-        lib.pdt_fused_decode_mlp_f32.restype = I
-        lib.pdt_fused_decode_mlp_partial_f32.argtypes = ([P] * 8 + [I] * 3
-                                                         + [F, P])
-        lib.pdt_fused_decode_mlp_partial_f32.restype = I
         lib.pdt_fused_decode_epilogue_f32.argtypes = ([P] * 13 + [I] * 3
                                                       + [F, I, P])
         lib.pdt_fused_decode_epilogue_f32.restype = I
         lib.pdt_fused_decode_epilogue_grid.argtypes = [I]
         lib.pdt_fused_decode_epilogue_grid.restype = I
-        lib.pdt_fused_decode_mlp_smem_bytes.argtypes = [I] * 4
-        lib.pdt_fused_decode_mlp_smem_bytes.restype = ctypes.c_size_t
-        lib.pdt_fused_decode_swiglu_f32.argtypes = ([P] * 14 + [I] * 5
+        lib.pdt_fused_decode_egress_f32.argtypes = ([P] * 15 + [I] * 6
                                                     + [F, P, P])
-        lib.pdt_fused_decode_swiglu_f32.restype = I
-        lib.pdt_fused_decode_swiglu_plan.argtypes = [I] * 4 + [P]
-        lib.pdt_fused_decode_swiglu_plan.restype = I
+        lib.pdt_fused_decode_egress_f32.restype = I
+        lib.pdt_fused_decode_egress_plan.argtypes = [I] * 7 + [P]
+        lib.pdt_fused_decode_egress_plan.restype = I
         lib.pdt_fused_decode_epilogue_smem_bytes.argtypes = [I] * 2
         lib.pdt_fused_decode_epilogue_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_cuda_error_string.argtypes = [I]
@@ -233,37 +227,18 @@ def fused_decode_mlp(x, att, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
     _check_card(name, (("x", x), ("att", att), ("wo", wo), ("bo", bo),
                        ("norm_w", norm_w), ("norm_b", norm_b), ("w1", w1),
                        ("b1", b1), ("w2", w2), ("b2", b2), ("w_up", w_up)))
-    if llama and norm_w.data_ptr() % 16:
+    if norm_w.data_ptr() % 16:
         raise ValueError(f"{name}: norm_w must be 16-byte aligned")
-    y1 = torch.empty_like(x)
-    if llama:
-        out = _swiglu_launch(name, dev, y1, norm_w, norm_b, w1, w_up, w2,
-                             norm=norm, eps=eps, x=x, att=att, wo=wo, bo=bo,
-                             b2=b2)
-        fused_decode_mlp.launches += 1
-        return out
-    lib = _kernels()
-    smem = lib.pdt_fused_decode_mlp_smem_bytes(bsz, hid, a_w, inter)
-    if not 0 < smem <= SMEM_LIMIT:
-        raise ValueError(f"{name}: {bsz} rows of width "
-                         f"{max(hid, a_w, inter)} do not fit the "
-                         f"{SMEM_LIMIT} B of shared memory of a CTA")
-    f = torch.empty(bsz, inter, dtype=x.dtype, device=dev)
-    out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pdt_fused_decode_mlp_f32(
-            x.data_ptr(), att.data_ptr(), wo.data_ptr(), _ptr(bo),
-            norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(), _ptr(b1),
-            w2.data_ptr(), _ptr(b2), y1.data_ptr(), f.data_ptr(),
-            out.data_ptr(), bsz, hid, a_w, inter, float(eps), stream)
-    if rc != 0:
-        _raise(name, rc)
+    out = _egress_launch(name, dev, torch.empty_like(x), norm_w, norm_b, w1,
+                         w_up, w2, norm=norm, eps=eps, x=x, att=att, wo=wo,
+                         bo=bo, b1=b1, b2=b2)
     fused_decode_mlp.launches += 1
+    fused_decode_mlp.gelu_launches += not llama
     return out
 
 
 fused_decode_mlp.launches = 0
+fused_decode_mlp.gelu_launches = 0
 
 
 def fused_decode_mlp_partial(y1, norm_w, norm_b, w1, b1, w2, w_up=None, *,
@@ -305,50 +280,38 @@ def fused_decode_mlp_partial(y1, norm_w, norm_b, w1, b1, w2, w_up=None, *,
             f"JAX package serves no GELU MLP behind an RMSNorm")
     _check_card(name, (("y1", y1), ("norm_w", norm_w), ("norm_b", norm_b),
                        ("w1", w1), ("b1", b1), ("w2", w2), ("w_up", w_up)))
-    if llama and norm_w.data_ptr() % 16:
+    if norm_w.data_ptr() % 16:
         raise ValueError(f"{name}: norm_w must be 16-byte aligned")
-    if llama:
-        out = _swiglu_launch(name, dev, y1, norm_w, norm_b, w1, w_up, w2,
-                             norm=norm, eps=eps)
-        fused_decode_mlp_partial.launches += 1
-        return out
-    lib = _kernels()
-    smem = lib.pdt_fused_decode_mlp_smem_bytes(bsz, hid, 0, inter)
-    if not 0 < smem <= SMEM_LIMIT:
-        raise ValueError(f"{name}: {bsz} rows of width {max(hid, inter)} do "
-                         f"not fit the {SMEM_LIMIT} B of shared memory of a "
-                         f"CTA")
-    f = torch.empty(bsz, inter, dtype=y1.dtype, device=dev)
-    out = torch.empty_like(y1)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pdt_fused_decode_mlp_partial_f32(
-            y1.data_ptr(), norm_w.data_ptr(), _ptr(norm_b), w1.data_ptr(),
-            _ptr(b1), w2.data_ptr(), f.data_ptr(), out.data_ptr(), bsz, hid,
-            inter, float(eps), stream)
-    if rc != 0:
-        _raise(name, rc)
+    out = _egress_launch(name, dev, y1, norm_w, norm_b, w1, w_up, w2,
+                         norm=norm, eps=eps, b1=b1)
     fused_decode_mlp_partial.launches += 1
+    fused_decode_mlp_partial.gelu_launches += not llama
     return out
 
 
 fused_decode_mlp_partial.launches = 0
+fused_decode_mlp_partial.gelu_launches = 0
 
 
 PLAN_KEYS = ("grid", "S0", "SA", "SB", "C0", "CA", "CB", "rows", "smem",
              "most")
-SLICE_Q = 128   # float4s of one of the SwiGLU kernel's K-slices (512 floats)
+SLICE_Q = 128   # float4s of one of the egress kernel's K-slices (512 floats)
 
 
-def swiglu_plan_for(bsz, hid, a_w, inter, most):
-    """Plain version of the library's SwiGLU plan (:func:`swiglu_plan`)
-    when ``most`` CTAs can be resident (``a_w`` 0: the partial mode, no
-    out projection): each product's K cut into the fewest slices of at
-    most ``SLICE_Q`` float4s (``S0``, ``SA``, ``SB``), the CTAs into as
-    many column blocks a slice as fill ``most`` (``C0``, ``CA``, ``CB``:
-    at least one column a block of the gate/up product, two of the out
-    projection and the down product); ``rows`` is B rounded up to the
-    rows a warp's registers hold at once (B up to 2, else 4)."""
+def egress_plan_for(bsz, hid, a_w, inter, most, gelu=False):
+    """Plain version of the library's egress plan (:func:`egress_plan`)
+    when ``most`` CTAs may be used (``a_w`` 0: the partial mode, no out
+    projection; ``gelu``: the GELU MLP behind GPT's LayerNorm, else
+    SwiGLU behind LLaMA's RMSNorm without bias): each product's K cut
+    into the fewest slices of at most ``SLICE_Q`` float4s (``S0``,
+    ``SA``, ``SB``), the CTAs into as many column blocks a slice as fill
+    ``most`` (``C0``, ``CA``, ``CB``: at least two columns a block of
+    the out projection, of fc1 and of the second product, one of the
+    gate/up product); ``rows`` is B rounded up to the rows a warp's
+    registers hold at once (B up to 2, else 4); ``smem`` holds, beside
+    the activation slice, the LayerNorm's slices and y1's rows (GELU: a
+    norm from full-row statistics; LLaMA's RMSNorm factors 1 / rms out
+    of the sums instead)."""
     rt = bsz if bsz <= 2 else 4
 
     def slices(k):
@@ -356,26 +319,29 @@ def swiglu_plan_for(bsz, hid, a_w, inter, most):
 
     s0, sa, sb = slices(a_w), slices(hid), slices(inter)
     c0 = min(most // s0, (hid + 1) // 2) if s0 else 0
-    ca, cb = min(most // sa, inter), min(most // sb, (hid + 1) // 2)
+    ca = min(most // sa, (inter + 1) // 2 if gelu else inter)
+    cb = min(most // sb, (hid + 1) // 2)
     rows = -(-bsz // rt) * rt
+    smem = (rows + 2 * gelu) * SLICE_Q * 16 + 4 * (gelu * bsz * hid
+                                                   + 2 * bsz)
     return dict(grid=max(c0 * s0, ca * sa, cb * sb), S0=s0, SA=sa, SB=sb,
-                C0=c0, CA=ca, CB=cb, rows=rows,
-                smem=rows * SLICE_Q * 16 + 8 * bsz, most=most)
+                C0=c0, CA=ca, CB=cb, rows=rows, smem=smem, most=most)
 
 
-def swiglu_work(plan, hid, a_w, inter):
-    """Every CTA's share of the SwiGLU kernel's products under ``plan``,
-    the kernel's rule: ``{"out_proj": [...], "gate_up": [...], "down":
-    [...]}`` of ``(cta, k0, k1, n0, n1)``, CTA c taking K-slice ``c % S``
+def egress_work(plan, hid, a_w, inter):
+    """Every CTA's share of the egress kernel's products under ``plan``,
+    the kernel's rule: ``{"out_proj": [...], "mlp_in": [...],
+    "mlp_out": [...]}`` (the out projection, fc1 or gate/up, fc2 or
+    down) of ``(cta, k0, k1, n0, n1)``, CTA c taking K-slice ``c % S``
     of column block ``c // S``; once all S are in, each adds the slices,
     in slice order, for its 1/S of the block's outputs."""
     def cut(i, n, parts):
         return i * n // parts
 
-    work = {"out_proj": [], "gate_up": [], "down": []}
+    work = {"out_proj": [], "mlp_in": [], "mlp_out": []}
     for name, k, n, s, c in (("out_proj", a_w, hid, plan["S0"], plan["C0"]),
-                             ("gate_up", hid, inter, plan["SA"], plan["CA"]),
-                             ("down", inter, hid, plan["SB"], plan["CB"])):
+                             ("mlp_in", hid, inter, plan["SA"], plan["CA"]),
+                             ("mlp_out", inter, hid, plan["SB"], plan["CB"])):
         for cta in range(min(plan["grid"], s * c)):
             sl, blk = cta % s, cta // s
             work[name].append((cta, 4 * cut(sl, k // 4, s),
@@ -384,74 +350,88 @@ def swiglu_work(plan, hid, a_w, inter):
     return work
 
 
-def _swiglu_plan(bsz, hid, a_w, inter, device):
-    """The library's plan of one SwiGLU launch (a ctypes int array in
-    ``PLAN_KEYS`` order), made once per card and widths."""
+def _egress_plan(bsz, hid, a_w, inter, gelu, norm, has_nb, device):
+    """The library's plan of one egress launch, made once per card,
+    widths, activation and norm: ``(plan, buffers)``, ``plan`` a ctypes
+    int array in ``PLAN_KEYS`` order and ``buffers`` a dict, per stream,
+    of the launch's scratch and arrival counts."""
     dev = torch.device(device)
     key = (dev.index if dev.index is not None else
-           torch.cuda.current_device(), bsz, hid, a_w, inter)
-    plan = _swiglu_plans.get(key)
-    if plan is None:
+           torch.cuda.current_device(), bsz, hid, a_w, inter, gelu,
+           norm == "rms", bool(has_nb))
+    got = _egress_plans.get(key)
+    if got is None:
         plan = (ctypes.c_int * len(PLAN_KEYS))()
         with torch.cuda.device(key[0]):
-            rc = _kernels().pdt_fused_decode_swiglu_plan(bsz, hid, a_w,
-                                                         inter, plan)
+            rc = _kernels().pdt_fused_decode_egress_plan(
+                bsz, hid, a_w, inter, int(gelu), int(norm == "rms"),
+                int(bool(has_nb)), plan)
         if rc != 0:
             _raise("fused_decode_mlp", rc)
-        _swiglu_plans[key] = plan
-    return plan
+        got = _egress_plans[key] = (plan, {})
+    return got
 
 
-def swiglu_plan(bsz, hid, a_w, inter, device=None):
-    """The plan of one LLaMA egress launch (row 5; ``a_w`` 0: its partial
-    mode, row 6) on the card at these widths: ``grid`` CTAs; ``S0``,
-    ``SA``, ``SB`` K-slices of the out-projection, gate/up and down
-    products (at most 512 wide); ``C0``, ``CA``, ``CB`` column blocks of
-    each; ``rows`` (B rounded up to the rows a warp's registers hold at
-    once); ``smem`` bytes a CTA; ``most`` CTAs that can be resident."""
-    return dict(zip(PLAN_KEYS, _swiglu_plan(
-        bsz, hid, a_w, inter, "cuda" if device is None else device)))
+def egress_plan(bsz, hid, a_w, inter, device=None, gelu=False):
+    """The plan of one egress launch (row 5; ``a_w`` 0: its partial
+    mode, row 6; ``gelu``: GPT's GELU MLP behind its LayerNorm, else
+    LLaMA's SwiGLU behind its RMSNorm) on the card at these widths:
+    ``grid`` CTAs; ``S0``, ``SA``, ``SB`` K-slices of the out-projection,
+    first and second MLP products (at most 512 wide); ``C0``, ``CA``,
+    ``CB`` column blocks of each; ``rows`` (B rounded up to the rows a
+    warp's registers hold at once); ``smem`` bytes a CTA; ``most`` CTAs
+    the plan may use (every resident one)."""
+    norm = "layer" if gelu else "rms"
+    return dict(zip(PLAN_KEYS, _egress_plan(
+        bsz, hid, a_w, inter, gelu, norm, gelu,
+        "cuda" if device is None else device)[0]))
 
 
-def _swiglu_counts_buf(dev, stream, c0, ca, cb):
-    """The arrival counts of the column blocks of one plan on one stream
-    (``C0`` out-projection, ``CA`` gate/up, then ``CB`` down blocks):
-    int32 zeros at first; a launch puts each product's counts back to 0
-    before the next launch counts them."""
-    key = (dev, stream, c0, ca, cb)
-    t = _swiglu_counts.get(key)
-    if t is None:
-        t = torch.zeros(c0 + ca + cb, dtype=torch.int32, device=dev)
-        _swiglu_counts[key] = t
-    return t
+def _egress_buffers(bufs, dev, stream, plan, bsz, hid, a_w, inter, gelu):
+    """The scratch and arrival counts of one plan on one stream (reused by
+    its launches, which run in stream order): the slices' sums of the
+    out projection, of the first and second MLP products, the activation
+    and the fast path's sums of squares, in floats; int32 counts, zero at
+    first, of the ``C0`` out-projection, ``CA`` first-product and ``CB``
+    second-product column blocks, which a launch puts back to 0 before
+    the next launch counts them."""
+    got = bufs.get(stream)
+    if got is None:
+        s0, sa, sb, c0, ca, cb = plan[1:7]
+        scratch = torch.empty(s0 * bsz * hid + sa * (1 if gelu else 2) * bsz
+                              * inter + sb * bsz * hid + bsz * inter
+                              + ca * sa * bsz, dtype=torch.float32,
+                              device=dev)
+        counts = torch.zeros(c0 + ca + cb, dtype=torch.int32, device=dev)
+        got = bufs[stream] = (scratch.data_ptr(), counts.data_ptr(),
+                              scratch, counts)
+    return got
 
 
-def _swiglu_launch(name, dev, y1, norm_w, norm_b, wg, wu, wd, *, norm, eps,
-                   x=None, att=None, wo=None, bo=None, b2=None):
-    """One launch of the SwiGLU kernel: row 5 with ``x``, ``att``, ``wo``
-    (``y1`` the scratch it writes), else row 6 (``y1`` given). Returns the
-    output [B, H]."""
+def _egress_launch(name, dev, y1, norm_w, norm_b, w1, wu, w2, *, norm, eps,
+                   x=None, att=None, wo=None, bo=None, b1=None, b2=None):
+    """One launch of the egress kernel: row 5 with ``x``, ``att``, ``wo``
+    (``y1`` the scratch it writes), else row 6 (``y1`` given); GELU
+    without ``wu``, else SwiGLU. Returns the output [B, H]."""
     bsz, hid = y1.shape
-    a_w, inter = (0 if att is None else att.shape[1]), wg.shape[0]
-    plan = _swiglu_plan(bsz, hid, a_w, inter, dev)
-    got = dict(zip(PLAN_KEYS, plan))
-    if not 0 < got["smem"] <= SMEM_LIMIT:
+    a_w, inter = (0 if att is None else att.shape[1]), w1.shape[0]
+    gelu = wu is None
+    plan, bufs = _egress_plan(bsz, hid, a_w, inter, gelu, norm,
+                              norm_b is not None, dev)
+    if not 0 < plan[8] <= SMEM_LIMIT:
         raise ValueError(f"{name}: {bsz} rows do not fit the {SMEM_LIMIT} "
                          f"B of shared memory of a CTA")
-    s0, sa, sb, ca = got["S0"], got["SA"], got["SB"], got["CA"]
-    scratch = torch.empty(s0 * bsz * hid + sa * 2 * bsz * inter
-                          + sb * bsz * hid + ca * sa * bsz + bsz * inter,
-                          dtype=torch.float32, device=dev)
     out = torch.empty_like(y1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        counts = _swiglu_counts_buf(dev, stream, got["C0"], ca, got["CB"])
-        rc = _kernels().pdt_fused_decode_swiglu_f32(
+        scratch, counts = _egress_buffers(bufs, dev, stream, plan, bsz, hid,
+                                          a_w, inter, gelu)[:2]
+        rc = _kernels().pdt_fused_decode_egress_f32(
             _ptr(x), _ptr(att), _ptr(wo), _ptr(bo), norm_w.data_ptr(),
-            _ptr(norm_b), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-            _ptr(b2), y1.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), bsz, hid, a_w, inter, int(norm == "rms"),
-            float(eps), plan, stream)
+            _ptr(norm_b), w1.data_ptr(), _ptr(b1), _ptr(wu), w2.data_ptr(),
+            _ptr(b2), y1.data_ptr(), scratch, counts, out.data_ptr(), bsz,
+            hid, a_w, inter, int(gelu), int(norm == "rms"), float(eps), plan,
+            stream)
     if rc != 0:
         _raise(name, rc)
     return out

@@ -18,8 +18,7 @@ written at ``(bt[b, min(pos // page_size, NP - 1)], pos % page_size)``
 (the JAX ``_page_slot``: positions past the table clamp onto its last
 page), through ``kv_quantize`` into int8 pools (``_quantize_or_cast``).
 Where two rows share a (page, slot), the later row's value stays, as
-the JAX kernel writes them row by row, except in the GPT fp32 kernel,
-which leaves one of them unspecified.
+the JAX kernel writes them row by row.
 
 The rope angles have one home, the serving path's
 ``models.generation._rope_tables`` (fp32 ``theta ** -e``, the JAX
@@ -34,11 +33,13 @@ written IN PLACE (the TPU kernel's ``input_output_aliases``) and
 returned.
 
 CPU tensors take :func:`fused_decode_qkv_plain`; CUDA tensors launch a
-kernel of ``csrc/fused_decode_qkv.cu`` or raise: the GPT branch with fp32
-pools its first kernel, every other branch the per-head kernel. ``rows=``
-and ``interpret=`` are the TPU kernel's tiling and interpret knobs:
-accepted for call compatibility and not read. bf16 pools raise: the
-paged attention has no bf16 variant yet.
+kernel of ``csrc/fused_decode_qkv.cu`` or raise: a call without rope
+(GPT's, over fp32 or int8 pools) the split-K kernel, its heads' K cut
+into :func:`split_plan`'s slices (counted in
+``fused_decode_qkv.split_launches``), a call with rope (LLaMA's) the
+per-head kernel. ``rows=`` and ``interpret=`` are the TPU kernel's
+tiling and interpret knobs: accepted for call compatibility and not
+read. bf16 pools raise: the paged attention has no bf16 variant yet.
 """
 from __future__ import annotations
 
@@ -46,11 +47,14 @@ import ctypes
 
 import torch
 
-__all__ = ["fused_decode_qkv", "fused_decode_qkv_plain", "_norm_block"]
+__all__ = ["fused_decode_qkv", "fused_decode_qkv_plain", "_norm_block",
+           "split_plan", "split_work"]
 
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory one CTA may use (H100)
+SPLIT_Q = 64   # float4s of one of the split kernel's K-slices, at most
 
 _lib = None
+_split_bufs: dict = {}  # (device, stream, heads, floats) -> counts, sums
 
 
 def _kernel():
@@ -59,11 +63,16 @@ def _kernel():
         from ._build import load
         lib = load("fused_decode_qkv")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.pdt_fused_decode_qkv_f32.argtypes = ([P] * 10 + [I] * 8
-                                                 + [ctypes.c_float, P])
-        lib.pdt_fused_decode_qkv_f32.restype = I
-        lib.pdt_fused_decode_qkv_smem_bytes.argtypes = [I] * 2
-        lib.pdt_fused_decode_qkv_smem_bytes.restype = ctypes.c_size_t
+        lib.pdt_fused_decode_qkv_split.argtypes = ([P] * 18 + [I] * 10
+                                                   + [ctypes.c_float, P])
+        lib.pdt_fused_decode_qkv_split.restype = I
+        lib.pdt_fused_decode_qkv_split_smem_bytes.argtypes = [I] * 3
+        lib.pdt_fused_decode_qkv_split_smem_bytes.restype = ctypes.c_size_t
+        lib.pdt_fused_decode_qkv_split_q.restype = I
+        if lib.pdt_fused_decode_qkv_split_q() != SPLIT_Q:
+            raise RuntimeError(f"fused_decode_qkv: the library's K-slices "
+                               f"hold {lib.pdt_fused_decode_qkv_split_q()} "
+                               f"float4s, this module plans {SPLIT_Q}")
         lib.pdt_fused_decode_qkv_heads.argtypes = ([P] * 18 + [I] * 9
                                                    + [ctypes.c_float, P])
         lib.pdt_fused_decode_qkv_heads.restype = I
@@ -140,15 +149,18 @@ def _as_lists(ws, bs):
     return ws, bs
 
 
-def _split(ws, bs, nq, nk):
-    """``(wq, wk, wv)`` and ``(bq, bk, bv)`` (``None`` where absent),
-    a fused weight and bias cut into views."""
-    if len(ws) == 1:
-        cuts = (slice(0, nq), slice(nq, nq + nk),
-                slice(nq + nk, nq + 2 * nk))
-        ws = [ws[0][c] for c in cuts]
-        bs = [bs[0][c] for c in cuts] if bs else []
-    return ws, bs if bs else [None] * 3
+def _split_ptrs(ws, bs, nq, nk, hid):
+    """The device addresses of ``wq, wk, wv, bq, bk, bv`` (0 for an
+    absent bias): a fused weight and bias give offsets into their
+    storage (fp32, ``[out, in]``), three give their own."""
+    if len(ws) == 3:
+        return [w.data_ptr() for w in ws] + (
+            [b.data_ptr() for b in bs] if bs else [0] * 3)
+    w0 = ws[0].data_ptr()
+    b0 = bs[0].data_ptr() if bs else 0
+    offs = (0, nq, nq + nk)
+    return [w0 + 4 * o * hid for o in offs] + [
+        b0 + 4 * o if bs else 0 for o in offs]
 
 
 def _rope(x, positions, head_dim, rope_theta, rope):
@@ -205,6 +217,43 @@ def fused_decode_qkv_plain(x, norm_w, norm_b, w_qkv, b_qkv, positions,
     if k_scales is not None:
         return q, k_pages, v_pages, k_scales, v_scales
     return q, k_pages, v_pages
+
+
+def split_plan(hid):
+    """K-slices a head of the split kernel for ``hid`` inputs: the fewest
+    none longer than ``SPLIT_Q`` float4s (GPT-124M: 3 slices of 256
+    floats, 108 CTAs on one card, 54 on a TP=2 rank). More slices, to
+    fill the SMs (4 or 6 at 36 heads, 4 to 12 at 18), measured no faster
+    on an H100: every CTA stages its rows' statistics and its slice, and
+    the head's last CTA adds one more partial sum a slice (``chip_ab.py
+    gpt_plans``, PERF.md)."""
+    return -(-(hid // 4) // SPLIT_Q)
+
+
+def split_work(hid, hd, heads, slices):
+    """Every CTA's share of the split kernel, the kernel's rule: ``(cta,
+    n0, n1, k0, k1)``, CTA ``c`` taking K-slice ``c % slices`` of head
+    ``c // slices``'s output columns; the head's last CTA to arrive adds
+    the slices' sums in slice order."""
+    k4 = hid // 4
+    return [(h * slices + s, h * hd, (h + 1) * hd, 4 * (s * k4 // slices),
+             4 * ((s + 1) * k4 // slices))
+            for h in range(heads) for s in range(slices)]
+
+
+def _split_buffers(dev, stream, heads, floats):
+    """The split kernel's buffers on one stream (reused by its launches,
+    which run in stream order): the addresses of the arrival counts a
+    head, int32 zeros that every launch puts back to 0, and of the
+    slices' sums, ``floats`` of them (slices x B x the outputs)."""
+    key = (dev, stream, heads, floats)
+    got = _split_bufs.get(key)
+    if got is None:
+        counts = torch.zeros(heads, dtype=torch.int32, device=dev)
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
+        got = _split_bufs[key] = (counts.data_ptr(), part.data_ptr(),
+                                  counts, part)
+    return got
 
 
 def _check_card(named):
@@ -333,41 +382,39 @@ def fused_decode_qkv(x, norm_w, norm_b, w_qkv, b_qkv, positions,
     pos = positions.reshape(-1).to(torch.int64).contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     q = torch.empty(bsz, n_heads, head_dim, dtype=x.dtype, device=dev)
-    gpt_fp32 = norm == "layer" and len(ws) == 1 and not roped and not quant
-    if not gpt_fp32 and head_dim % 2:
-        raise ValueError(f"fused_decode_qkv: the per-head kernel takes an "
-                         f"even head_dim, got {head_dim}")
-    if gpt_fp32:
-        smem = lib.pdt_fused_decode_qkv_smem_bytes(bsz, hid)
-    else:
+    if roped:
         smem = lib.pdt_fused_decode_qkv_heads_smem_bytes(bsz, hid, head_dim)
+    else:
+        smem = lib.pdt_fused_decode_qkv_split_smem_bytes(bsz, hid, head_dim)
     if not 0 < smem <= SMEM_LIMIT:
         raise ValueError(f"fused_decode_qkv: {bsz} rows of {hid} do not fit "
                          f"the {SMEM_LIMIT} B of shared memory of a CTA")
+    common = _split_ptrs(ws, bs, nq, nk, hid)
+    pools = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             _ptr(k_scales), _ptr(v_scales))
+    geo = (bsz, hid, n_heads, n_kv_heads, head_dim, k_pages.shape[1],
+           k_pages.shape[2], bt.shape[1])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if gpt_fp32:
-            rc = lib.pdt_fused_decode_qkv_f32(
-                x.data_ptr(), norm_w.data_ptr(), _ptr(norm_b),
-                ws[0].data_ptr(), _ptr(bs[0] if bs else None),
-                pos.data_ptr(), bt.data_ptr(), q.data_ptr(),
-                k_pages.data_ptr(), v_pages.data_ptr(), bsz, hid, n_heads,
-                n_kv_heads, head_dim, k_pages.shape[1], k_pages.shape[2],
-                bt.shape[1], float(eps), stream)
-        else:
-            (wq, wk, wv), (bq, bk, bv) = _split(ws, bs, nq, nk)
+        if roped:
             rc = lib.pdt_fused_decode_qkv_heads(
-                x.data_ptr(), norm_w.data_ptr(), _ptr(norm_b),
-                wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), _ptr(bq),
-                _ptr(bk), _ptr(bv), _ptr(cos), _ptr(sin), pos.data_ptr(),
-                bt.data_ptr(), q.data_ptr(), k_pages.data_ptr(),
-                v_pages.data_ptr(), _ptr(k_scales), _ptr(v_scales), bsz,
-                hid, n_heads, n_kv_heads, head_dim, k_pages.shape[1],
-                k_pages.shape[2], bt.shape[1], int(norm == "rms"),
+                x.data_ptr(), norm_w.data_ptr(), _ptr(norm_b), *common,
+                cos.data_ptr(), sin.data_ptr(), pos.data_ptr(),
+                bt.data_ptr(), *pools, *geo, int(norm == "rms"),
                 float(eps), stream)
+        else:
+            heads = n_heads + 2 * n_kv_heads
+            slices = split_plan(hid)
+            counts, part = _split_buffers(
+                dev, stream, heads, slices * bsz * (nq + 2 * nk))[:2]
+            rc = lib.pdt_fused_decode_qkv_split(
+                x.data_ptr(), norm_w.data_ptr(), _ptr(norm_b), *common,
+                pos.data_ptr(), bt.data_ptr(), *pools, part, counts, *geo,
+                slices, int(norm == "rms"), float(eps), stream)
     if rc != 0:
         _err(rc)
     fused_decode_qkv.launches += 1
+    fused_decode_qkv.split_launches += not roped
     if quant:
         return q, k_pages, v_pages, k_scales, v_scales
     return q, k_pages, v_pages
@@ -378,3 +425,4 @@ def _ptr(t):
 
 
 fused_decode_qkv.launches = 0
+fused_decode_qkv.split_launches = 0

@@ -13,7 +13,8 @@ decode paths pick the same tokens). The GPT megakernel over fp32 pools is
 held against the JAX engine in tests/test_torch_engine.py. Each side runs
 its workloads in one fixed order on one model per family, so all see the
 same decode-bootstrap history; the JAX engines compile each geometry once
-per module (interpret-mode Pallas, ~45 s for the three).
+per module (interpret-mode Pallas, ~45 s for the three), the GPT one in a
+spawned process of its own while this one compiles the LLaMA ones.
 
 One decode step of the JAX ``_llama_decode_fused`` (its Pallas kernels in
 interpret mode, as the JAX tests run them) is held against the port's on
@@ -24,6 +25,7 @@ scales within 1e-6 relative on these tiny inputs.
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_refs import jax_gpt, jax_gpt_beside, named_arrays
 
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
@@ -93,26 +95,24 @@ def _workloads(make_llama, make_gpt, megakernel, names=NAMES):
     return res
 
 
+def _jax_gpt_workloads(make):
+    """The JAX GPT workload of :func:`results`, run by
+    :func:`jax_gpt_beside` in a process of its own."""
+    return _workloads(None, make, True, ["gpt_kvq"])
+
+
 @pytest.fixture(scope="module")
 def jax_models():
     pytest.importorskip("jax")
     import paddle_tpu as paddle
-    from paddle_tpu.models.gpt import GPTConfig as JGConfig
-    from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
     from paddle_tpu.models.llama import LlamaConfig as JLConfig
     from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 
     paddle.seed(0)
     jl = JLlama(JLConfig(**LLAMA_CFG))
     jl.eval()
-    paddle.seed(0)
-    jg = JGPT(JGConfig(**GPT_CFG, dropout=0.0))
-    jg.eval()
-    return {"llama": jl, "gpt": jg,
-            "llama_named": {k: np.asarray(v.numpy())
-                            for k, v in jl.state_dict().items()},
-            "gpt_named": {k: np.asarray(v.numpy())
-                          for k, v in jg.state_dict().items()}}
+    return {"llama": jl, "llama_named": named_arrays(jl),
+            "gpt_named": named_arrays(jax_gpt(GPT_CFG))}
 
 
 def _port_llama(named):
@@ -126,7 +126,7 @@ def _port_gpt(named):
 
 
 @pytest.fixture(scope="module")
-def results(jax_models):
+def results(jax_models, tmp_path_factory):
     from paddle_tpu.inference import ContinuousBatchingEngine as JEngine
     jm = jax_models
 
@@ -137,8 +137,12 @@ def results(jax_models):
         return lambda **kw: ContinuousBatchingEngine(model, device="cpu",
                                                      **kw)
 
-    res = {"jax": _workloads(jmake(jm["llama"]), jmake(jm["gpt"]), True,
-                             JAX_NAMES)}
+    gpt_ref, jax_res = jax_gpt_beside(
+        tmp_path_factory.mktemp("llama_megakernel"), GPT_CFG,
+        _jax_gpt_workloads, jm["gpt_named"],
+        lambda: _workloads(jmake(jm["llama"]), None, True,
+                           ["llama_fp", "llama_kvq"]))
+    res = {"jax": {**jax_res, **gpt_ref}}
     for mk in (True, False):   # a fresh pair of models per side
         res[mk] = _workloads(tmake(_port_llama(jm["llama_named"])),
                              tmake(_port_gpt(jm["gpt_named"])), mk)

@@ -15,11 +15,14 @@ K/V vectors come out of another summation order).
 
 The JAX engines compile each geometry once per module (interpret-mode
 Pallas), and each side's workloads run in one fixed order on one model
-per family, so both see the same decode-bootstrap history.
+per family, so both see the same decode-bootstrap history. The JAX GPT
+workloads run in a spawned process of their own while this one runs the
+LLaMA ones.
 """
 import numpy as np
 import pytest
 import torch
+from test_torch_jax_refs import jax_gpt, jax_gpt_beside, named_arrays
 
 from paddle_tpu_torch.core import state as t_state
 from paddle_tpu_torch.inference import ContinuousBatchingEngine
@@ -129,12 +132,18 @@ def _jax_named_quantized(jm):
     return named
 
 
+def _jax_gpt_workloads(make):
+    """The JAX GPT workloads of :func:`results`, run by
+    :func:`jax_gpt_beside` in a process of their own."""
+    res = {}
+    _gpt_workloads(make, res)
+    return res
+
+
 @pytest.fixture(scope="module")
 def jax_models():
     pytest.importorskip("jax")
     import paddle_tpu as paddle
-    from paddle_tpu.models.gpt import GPTConfig as JGConfig
-    from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
     from paddle_tpu.models.llama import LlamaConfig as JLConfig
     from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
     from paddle_tpu.quantization import weight_only_quantize as j_woq
@@ -145,15 +154,11 @@ def jax_models():
     paddle.seed(0)
     jwo = j_woq(JLlama(JLConfig(**LLAMA_CFG)))
     jwo.eval()
-    paddle.seed(0)
-    jg = JGPT(JGConfig(**GPT_CFG, dropout=0.0))
-    jg.eval()
+    jg = jax_gpt(GPT_CFG)
     return {"llama": jl, "llama_wo": jwo, "gpt": jg,
-            "llama_named": {k: np.asarray(v.numpy())
-                            for k, v in jl.state_dict().items()},
+            "llama_named": named_arrays(jl),
             "llama_wo_named": _jax_named_quantized(jwo),
-            "gpt_named": {k: np.asarray(v.numpy())
-                          for k, v in jg.state_dict().items()}}
+            "gpt_named": named_arrays(jg)}
 
 
 def _port_llama(named, quantized=False):
@@ -164,7 +169,7 @@ def _port_llama(named, quantized=False):
 
 
 @pytest.fixture(scope="module")
-def results(jax_models):
+def results(jax_models, tmp_path_factory):
     from paddle_tpu.inference import ContinuousBatchingEngine as JEngine
     jm = jax_models
     res = {"jax": {}, "port": {}}
@@ -176,8 +181,12 @@ def results(jax_models):
         return lambda **kw: ContinuousBatchingEngine(model, device="cpu",
                                                      **kw)
 
-    _llama_workloads(jmake(jm["llama"]), jmake(jm["llama_wo"]), res["jax"])
-    _gpt_workloads(jmake(jm["gpt"]), res["jax"])
+    gpt_refs, _ = jax_gpt_beside(
+        tmp_path_factory.mktemp("quant_serving"), GPT_CFG,
+        _jax_gpt_workloads, jm["gpt_named"],
+        lambda: _llama_workloads(jmake(jm["llama"]), jmake(jm["llama_wo"]),
+                                 res["jax"]))
+    res["jax"].update(gpt_refs)
     tg = GPTForCausalLM(GPTConfig(**GPT_CFG), device="cpu")
     load_gpt_from_jax(tg, jm["gpt_named"])
     _llama_workloads(tmake(_port_llama(jm["llama_named"])),
