@@ -1,10 +1,11 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,decode,train,glue,rms,qmm,qserve,gserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
+    python3 chip_ab.py {flash,decode,train,glue,nbackend,rms,norm,qmm,qserve,gserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
     python3 chip_ab.py groups ROOT [NAME ...]
     python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
-    python3 chip_ab.py stamps ROOT
+    python3 chip_ab.py stamps ROOT [decode|norm ...]
     python3 chip_ab.py gpt_plans ROOT
+    python3 chip_ab.py ln_groups ROOT
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
 ms per case, forward and backward), THIS checkout's GPT-124M fused
@@ -12,7 +13,12 @@ decode kernel cases on ROOT's kernels (``decode``: kernel ms of each, at
 B 8, 5 and 1, and a sha256 of the three fp32 kernels' outputs on fixed
 inputs) or its train phase (``train``: step
 ms, and the device busy ms and launches of the profiled step; ``glue``
-the same with ``train_glue_fusion`` on), or the fused residual
+the same with ``train_glue_fusion`` on, ``nbackend`` under the norm
+backend), or THIS checkout's norm kernel cases (rows 9-16,
+``chip_smoke.norm_kernel_phase``) on ROOT's kernels (``norm``: ms per
+case, and a sha256 of each norm kernel's outputs on fixed inputs, so
+that the kernels a PR leaves alone can be held bitwise equal to the
+parent's and a new one to itself), or the fused residual
 + RMSNorm kernels on fixed inputs (``rms``: a sha256 of every output's
 bytes, so two checkouts' kernels can be held bitwise equal, and ms per
 launch), or the weight-only matmul's kernel cases (``qmm``: kernel ms
@@ -48,10 +54,18 @@ egress ms (row 5 at B 8, 5 and 1, row 6 at a TP=2 rank's B 8 and 5).
 ``stamps`` builds a copy of ROOT's port under ``ROOT/_chipcopy/stamps/``
 whose GEMV (row 17), egress kernel (rows 5-6) and split-K ingress (row
 4) write ``%globaltimer`` stamps at their phases (x staged, slice done,
-sums done, grid barrier, exit), and prints for one call of each (the
-GEMV and the LLaMA egress at the LLaMA-7B decode shapes, the GELU egress
-and the ingress at GPT-124M's) the (min, median, max, count) over CTAs
-of each stamp, in us from the first CTA's start.
+sums done, grid barrier, exit), and so does the LayerNorm backward
+(rows 10 and 16: the first row's loads landed, rows done, partial row
+written, past the grid barrier, dw/db written), and prints for one call of
+each (``decode``: the GEMV and the LLaMA egress at the LLaMA-7B decode
+shapes, the GELU egress and the ingress at GPT-124M's; ``norm``: the
+LayerNorm backward at GPT-124M's training rows) the (min, median, max,
+count) over CTAs of each stamp, in us from the first CTA's start.
+
+``ln_groups`` times the LayerNorm backward (rows 10 and 16 at GPT-124M's
+rows) on ROOT's kernels under other plans: the most chunks a lane holds
+before a row takes more warps (``norms.LN_LANE_MOST``), in turns,
+and one CTA an SM; and after an L2 flush that reads, not writes.
 
 ``gpt_plans`` times GPT-124M's split-K ingress at several K-slices a
 head, and an empty launch, in one process on ROOT's kernels.
@@ -100,8 +114,9 @@ def _one(what, root):
     import chip_smoke
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if what not in GROUPS and what != "stamps":   # a copy builds at use
-        chip_smoke.build()
+    if what not in GROUPS and what != "ln_groups" \
+            and not what.startswith("stamps"):
+        chip_smoke.build()   # these build only the libraries they load
     if what == "flash":
         flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
         fwd, bwd = chip_smoke.flash_cases(0, "", flush)
@@ -143,8 +158,17 @@ def _one(what, root):
         out = _group_times(chip_smoke, what)
     elif what == "rms":
         out = _rms_digests(chip_smoke)
-    elif what == "stamps":
-        out = _stamps(chip_smoke)
+    elif what.startswith("stamps"):
+        out = _stamps(chip_smoke, what.split(":")[1].split(","))
+    elif what == "norm":
+        # this checkout's cases (no launch check: an older tree's
+        # LayerNorm backward is two launches), ROOT's kernels
+        out = {name: {r["case"]: r["ms"] for r in rs} for name, rs in
+               _cases().norm_kernel_phase(0, "", check_launches=False)
+               .items()}
+        out["sha256"] = _norm_digests()
+    elif what == "ln_groups":
+        out = _ln_groups(chip_smoke)
     elif what in ("qmm", "partial"):
         # this checkout's cases, ROOT's kernels (ROOT is first on sys.path)
         cases = _cases()
@@ -233,7 +257,8 @@ def _one(what, root):
                    decode_dispatches=q["decode_dispatches"])
     else:
         # an older checkout's train_phase may not take ``glue``
-        kw = {"glue": True} if what == "glue" else {}
+        kw = {"glue": dict(glue=True),
+              "nbackend": dict(norm_backend=True, steps=5)}.get(what, {})
         tr = chip_smoke.train_phase(0, **kw)
         out = {"step_ms": tr["step_ms"], "busy_ms": tr["profile"]["busy_ms"],
                "busy_share": tr["profile"]["busy_share"],
@@ -361,6 +386,114 @@ def _rms_digests(chip_smoke):
             "bwd_ms": chip_smoke._time_ms(
                 lambda: fr.fused_residual_rms_norm_bwd(res, w, rstd, dres,
                                                        dn), 50, flush)}
+    return out
+
+
+def _norm_digests():
+    """sha256 of each norm kernel's outputs (rows 9-16; each backward
+    from its own forward's outputs, the fused ones with and without
+    dres) on inputs drawn from seed 0 at the train phases' rows:
+    LayerNorm at GPT-124M's ``[8192, 768]`` and 8191 rows in bf16 and
+    fp32, RMSNorm at LLaMA-7B's ``[4096, 4096]`` and 4093 rows."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
+    from paddle_tpu_torch.ops.cuda import norms as nm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    outs = {}
+
+    def add(name, ts):
+        outs.setdefault(name, []).extend(ts)
+    for n, h, norm in ((8192, 768, "layer"), (8191, 768, "layer"),
+                       (4096, 4096, "rms"), (4093, 4096, "rms")):
+        for dt in (torch.bfloat16, torch.float32):
+            x, y, dres, g = (torch.randn(n, h, generator=gen, device="cuda")
+                             .to(dt) for _ in range(4))
+            w = (1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+                 ).to(dt)
+            b = (0.1 * torch.randn(h, generator=gen, device="cuda")).to(dt)
+            if norm == "layer":
+                f = fr.fused_residual_layer_norm_fwd(x, y, w, b, 1e-5)
+                add("fused_residual_layer_norm_fwd", f)
+                res, _, mean, rstd = f
+                add("fused_residual_layer_norm_bwd",
+                    fr.fused_residual_layer_norm_bwd(res, w, mean, rstd,
+                                                     dres, g)
+                    + fr.fused_residual_layer_norm_bwd(res, w, mean, rstd,
+                                                       None, g))
+                f = nm.layer_norm_fwd(x, w, b, 1e-5)
+                add("layer_norm_fwd", f)
+                add("layer_norm_bwd", nm.layer_norm_bwd(x, w, *f[1:], g))
+            else:
+                f = fr.fused_residual_rms_norm_fwd(x, y, w, 1e-6)
+                add("fused_residual_rms_norm_fwd", f)
+                res, _, rstd = f
+                add("fused_residual_rms_norm_bwd",
+                    fr.fused_residual_rms_norm_bwd(res, w, rstd, dres, g)
+                    + fr.fused_residual_rms_norm_bwd(res, w, rstd, None, g))
+                f = nm.rms_norm_fwd(x, w, 1e-6)
+                add("rms_norm_fwd", f)
+                add("rms_norm_bwd", nm.rms_norm_bwd(x, w, f[1], g))
+            torch.cuda.synchronize()
+            del x, y, dres, g
+    return {k: _digest(ts) for k, ts in sorted(outs.items())}
+
+
+def _ln_groups(chip_smoke):
+    """The LayerNorm backward at GPT-124M's rows (row 10: ``[8192, 768]``
+    bf16 with dres, and fp32; row 16: fp32) under LN_LANE_MOST 3 (the
+    plan's), 6 and 1 16-byte chunks a lane, in turns (ms behind the
+    device spin, L2 flushed), with each plan's G; then at one CTA an SM,
+    and after a flush that leaves the L2 clean."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
+    from paddle_tpu_torch.ops.cuda import norms as nm
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for name, dt, fused in (("row10_bf16", torch.bfloat16, True),
+                            ("row10_f32", torch.float32, True),
+                            ("row16_f32", torch.float32, False)):
+        x, dres, g = (torch.randn(8192, 768, generator=gen, device="cuda")
+                      .to(dt) for _ in range(3))
+        w = (1.0 + 0.1 * torch.randn(768, generator=gen, device="cuda")
+             ).to(dt)
+        _, mean, rstd = nm.layer_norm_fwd(x, w, torch.zeros_like(w))
+        if fused:
+            fn = (lambda x=x, w=w, m=mean, r=rstd, d=dres, g=g:
+                  fr.fused_residual_layer_norm_bwd(x, w, m, r, d, g))
+        else:
+            fn = (lambda x=x, w=w, m=mean, r=rstd, g=g:
+                  nm.layer_norm_bwd(x, w, m, r, g))
+        cases.append((name, dt, fn))
+    keep = nm.LN_LANE_MOST
+    out = {}
+    try:
+        for most in (3, 6, 1, 3):
+            nm.LN_LANE_MOST = most
+            for name, dt, fn in cases:
+                G, _ = nm.ln_bwd_group(768, dt.itemsize)
+                out.setdefault(f"{name}_G{G}", []).append(
+                    chip_smoke._time_ms(fn, 50, flush, spin=True))
+    finally:
+        nm.LN_LANE_MOST = keep
+
+    class ReadFlush:
+        """An L2 flush that reads 256 MB: it leaves no dirty line."""
+        def zero_(self):
+            flush.sum()
+
+    occ = dict(nm._ln_occupancy)
+    for name, dt, fn in cases:
+        # the plan's grid against one CTA an SM, and after a flush that
+        # leaves the L2 clean (``_time_ms``'s write leaves it dirty)
+        nm._ln_occupancy.update({k: 1 for k in occ})
+        out[f"{name}_1cta_per_sm"] = chip_smoke._time_ms(fn, 50, flush,
+                                                         spin=True)
+        nm._ln_occupancy.update(occ)
+        out[f"{name}_clean_l2"] = chip_smoke._time_ms(fn, 50, ReadFlush(),
+                                                      spin=True)
     return out
 
 
@@ -567,7 +700,20 @@ STAMPS = {
         [("  if (!is_last) return;", "  if (!is_last) {{ {} return; }}", 3),
          ("  write_head(p, os, keys, which, j);\n}\n\n// Rows the split kernel's",
           "  write_head(p, os, keys, which, j);\n  {}\n}}\n\n// Rows the split kernel's", 4)]),
+    # the LayerNorm backward: 0 entry, 1 the first row's loads landed
+    # (thread 0's), 2 its group's rows done, 3 the CTA's partial row
+    # written, 4 past the grid barrier, 5 its slice of dw/db written
+    "row_norm.cuh": (
+        "#include <stdint.h>\n",
+        [("  __shared__ float2 gsum[2][kWarps];\n", 0),
+         ("  // rows done: the CTA's partial row [dw | db | 0 pad], groups in order\n", 2),
+         ("  // partial row written: every CTA's is in past the grid barrier\n", 3),
+         ("  cg::this_grid().sync();\n", 4),
+         ("  // dw and db written\n", 5)],
+        [("    // first loads landed\n",
+          "    // first loads landed\n    if (it == 0) {{ {} }}\n", 1)]),
 }
+STAMP_SETS = ("decode", "norm")
 
 
 def _stamp_copy(root):
@@ -593,14 +739,17 @@ def _stamp_copy(root):
     return str(dst)
 
 
-def _stamps(chip_smoke):
-    """One traced call of the GEMV (M 1 and 8 at q/k/v/o, gate/up and the
-    lm_head), of the egress (LLaMA-7B: row 6 at TP=2, B 8 and 1, row 5 at
-    B 8; GPT-124M: row 5 at B 8 and 1, row 6 at TP=2, B 8) and of the
-    split-K ingress (GPT-124M, fp32 pools, B 8 and 1, one card's 36 heads
-    and a TP=2 rank's 18), each after the L2 flush and device spin of
-    ``_time_ms``: per stamp, the (min, median, max) over the CTAs that
-    wrote it of us since the first CTA began, and the call's event ms."""
+def _stamps(chip_smoke, which=STAMP_SETS):
+    """One traced call of each kernel of the sets in ``which``, each after
+    the L2 flush and device spin of ``_time_ms``: per stamp, the (min,
+    median, max) over the CTAs that wrote it of us since the first CTA
+    began, and the call's event ms. ``decode``: the GEMV (M 1 and 8 at
+    q/k/v/o, gate/up and the lm_head), the egress (LLaMA-7B: row 6 at
+    TP=2, B 8 and 1, row 5 at B 8; GPT-124M: row 5 at B 8 and 1, row 6 at
+    TP=2, B 8) and the split-K ingress (GPT-124M, fp32 pools, B 8 and 1,
+    one card's 36 heads and a TP=2 rank's 18); ``norm``: the LayerNorm
+    backward at GPT-124M's training rows (row 10 bf16 and fp32, row 16
+    fp32)."""
     import ctypes
 
     import numpy as np
@@ -647,6 +796,10 @@ def _stamps(chip_smoke):
 
     out = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if "norm" in which:
+        out.update(_norm_stamps(trace, rn, sms))
+    if "decode" not in which:
+        return out
     for k, n in ((4096, 4096), (4096, 11008), (4096, 32000)):
         qw = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
                            dtype=torch.int8).t()
@@ -710,6 +863,38 @@ def _stamps(chip_smoke):
     return out
 
 
+def _norm_stamps(trace, rn, sms):
+    """The LayerNorm backward's stamps (``_stamps``): row 10 at
+    ``[8192, 768]`` bf16 with dres and fp32, row 16 fp32, each on its own
+    library's plan."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
+    from paddle_tpu_torch.ops.cuda import norms as nm
+    out = {}
+    n, h = 8192, 768
+    for name, lib, dt, entries in (
+            ("row10_bf16", "fused_residual_norm", torch.bfloat16,
+             fr._kernels()[6]),
+            ("row10_f32", "fused_residual_norm", torch.float32,
+             fr._kernels()[6]),
+            ("row16_f32", "norms", torch.float32, nm._kernels()[5])):
+        x, dres, g = (rn(n, h).to(dt) for _ in range(3))
+        w = (1.0 + rn(h, std=0.1)).to(dt)
+        _, mean, rstd = nm.layer_norm_fwd(x, w, torch.zeros_like(w))
+        G, _ = nm.ln_bwd_group(h, dt.itemsize)
+        plan = nm.ln_bwd_plan(n, h, dt, sms,
+                              entries[1](nm.DTYPE_CODE[dt], 1, h, G))
+        if lib == "norms":
+            fn = lambda: nm.layer_norm_bwd(x, w, mean, rstd, g)  # noqa
+        else:
+            fn = lambda: fr.fused_residual_layer_norm_bwd(  # noqa: E731
+                x, w, mean, rstd, dres, g)
+        out[name] = dict(trace(lib, fn, plan["ctas"], 6), plan=plan)
+        del x, dres, g
+    return out
+
+
 def _ptxas(root, names):
     """ptxas's resource usage of ``csrc/<name>.cu`` for each of
     ``names`` under ROOT, built with the port's own flags."""
@@ -736,8 +921,9 @@ def main(argv):
     if len(argv) >= 3 and argv[0] == "--one":
         _one(argv[1], argv[2])
         return 0
-    if len(argv) == 2 and argv[0] == "stamps":
-        subprocess.run([sys.executable, __file__, "--one", "stamps",
+    if len(argv) >= 2 and argv[0] == "stamps":
+        which = ",".join(argv[2:] or STAMP_SETS)
+        subprocess.run([sys.executable, __file__, "--one", f"stamps:{which}",
                         _stamp_copy(argv[1])], check=True, timeout=900)
         return 0
     if len(argv) >= 2 and argv[0] == "groups":
@@ -748,10 +934,11 @@ def main(argv):
                            check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
-                                        "rms", "qmm", "qserve", "gserve",
-                                        "partial",
+                                        "nbackend", "rms", "norm", "qmm",
+                                        "qserve", "gserve", "partial",
                                         "attn", "opt", "attn_splits",
-                                        "attn_probe", "gpt_plans"):
+                                        "attn_probe", "gpt_plans",
+                                        "ln_groups"):
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv[1:]:

@@ -2569,19 +2569,22 @@ def llama_kernel_phase(seed, power):
 # -------------------------------------------------------- norm kernels --
 def _row_case(rows, name, kname, errs, ms, plain_ms, nbytes, flops, power,
               shape, dt, library_ms=None, library="none: no single call",
-              unfused_ms=None):
+              unfused_ms=None, **more):
     """One kernel case row (bound from this case's bytes and fp32 flops),
-    logged and appended to ``rows``."""
+    logged and appended to ``rows``; ``more`` goes into the row as it
+    is."""
     bound_ms, bound_by = _fp32_bound(nbytes, flops)
     row = dict(case=name, max_abs_err=max(e for e, _ in errs.values()),
                tolerance={k: lim for k, (_, lim) in errs.items()}, ms=ms,
                plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound_ms,
                bound_by=bound_by, bytes=nbytes, library_ms=library_ms,
                library=library, rows=list(shape),
-               dtype=str(dt).replace("torch.", ""))
+               dtype=str(dt).replace("torch.", ""), **more)
     extra = "" if unfused_ms is None else f", unfused chain {unfused_ms:.4f} ms"
     if library_ms is not None:
         extra += f", library {library_ms:.4f} ms"
+    if more.get("library_autograd_ms") is not None:
+        extra += f" (autograd.grad {more['library_autograd_ms']:.4f} ms)"
     log(f"kernel {kname} {name} {list(shape)} {row['dtype']}: max_abs_err "
         f"{row['max_abs_err']:.3g}, {ms:.4f} ms (plain {plain_ms:.4f} ms"
         f"{extra}, bound {bound_ms:.4f} ms by {bound_by}, "
@@ -2698,10 +2701,14 @@ def norm_cases(seed, power, flush):
     ``incubate.fused_rms_norm`` gives it under O2; the incubate call must
     launch the kernel once and return its result). Tolerances as
     :func:`ln_pair_cases` (bf16: one rounding). ``library_ms`` times
-    ``torch.nn.functional.layer_norm`` / ``rms_norm`` forward, and for a
-    backward row autograd's backward of that call (one
-    ``torch.autograd.grad``); all behind the device spin, as
-    :func:`ln_pair_cases`."""
+    ``torch.nn.functional.layer_norm`` / ``rms_norm`` forward; for the
+    LayerNorm backward ``torch.ops.aten.native_layer_norm_backward``, the
+    one call that computes dx, dw and db from the same inputs and stats
+    (its largest gap to the plain version kept as
+    ``library_max_abs_err``), for the RMS backward autograd's backward of
+    ``F.rms_norm``; autograd's backward of the forward call (one
+    ``torch.autograd.grad``) is kept as ``library_autograd_ms`` for both.
+    All behind the device spin, as :func:`ln_pair_cases`."""
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.incubate.nn import functional as IF
@@ -2774,45 +2781,105 @@ def norm_cases(seed, power, flush):
         kname = "layer_norm" if layer else "rms_norm"
         _check_errs(f"{kname}_fwd {name}", ferrs)
         _check_errs(f"{kname}_bwd {name}", berrs)
-        del f32, ro, rrstd, rdx, rdw, xhat
+        del f32, ro, rrstd, xhat
 
         xg, wg, bg = (t.detach().clone().requires_grad_() for t in (x, w, b))
         with torch.no_grad():
             lib_f = _time_ms(lambda: lib(xg, wg, bg), 20, flush, spin=True)
         lo = lib(xg, wg, bg)
-        lib_b = _time_ms(lambda: torch.autograd.grad(
+        lib_ag = _time_ms(lambda: torch.autograd.grad(
             lo, (xg, wg, bg) if layer else (xg, wg), g, retain_graph=True),
             20, flush, spin=True)
         del lo, xg, wg, bg
+        lib_b, lib_err = lib_ag, None
+        if layer:
+            def aten_bwd():
+                return torch.ops.aten.native_layer_norm_backward(
+                    g, x, [h], mean, rstd, w, b, [True, True, True])
+            lib_err = max(float((got.float() - ref).abs().max())
+                          for got, ref in zip(aten_bwd(), (rdx, rdw, rdb)))
+            lib_b = _time_ms(aten_bwd, 20, flush, spin=True)
         esize = x.element_size()
         rows_bytes = n * h * esize
         nvec = 2 if layer else 1     # w (and b) read; dw (and db) written
         nstat = 8 * n if layer else 4 * n
-        for which, errs, fn, pfn, lib_ms, nbytes, flops in (
+        bwd_lib = ("torch.ops.aten.native_layer_norm_backward" if layer
+                   else "torch.nn.functional.rms_norm backward "
+                   "(autograd.grad)")
+        for which, errs, fn, pfn, lib_ms, nbytes, flops, more in (
                 ("fwd", ferrs, fwd, pfwd, lib_f,
-                 2 * rows_bytes + nvec * h * esize + nstat, 8 * n * h),
+                 2 * rows_bytes + nvec * h * esize + nstat, 8 * n * h,
+                 dict(library=f"torch.nn.functional.{kname}")),
                 ("bwd", berrs, bwd, pbwd, lib_b,
                  3 * rows_bytes + (1 + nvec) * h * esize + nstat,
-                 12 * n * h)):
+                 12 * n * h, dict(library=bwd_lib,
+                                  library_autograd_ms=lib_ag,
+                                  library_max_abs_err=lib_err))):
             _row_case(out[f"{kname}_{which}"], name, f"{kname}_{which}", errs,
                       _time_ms(fn, 50, flush, spin=True),
                       _time_ms(pfn, 10, flush, spin=True),
                       nbytes, flops, power, (n, h), dt, library_ms=lib_ms,
-                      library=f"torch.nn.functional.{kname}"
-                      + (" backward (autograd.grad)" if which == "bwd"
-                         else ""))
-        del x, g, w, b, o, rstd, dx, dw
+                      **more)
+        del x, g, w, b, o, rstd, dx, dw, rdx, rdw
         torch.cuda.empty_cache()
     return out
 
 
-def norm_kernel_phase(seed, power):
+def ln_bwd_launches(seed, calls=4):
+    """The device kernels of ``calls`` calls of each LayerNorm backward
+    wrapper (rows 10 and 16) at GPT-124M's rows, from ``torch.profiler``:
+    each call is one launch of ``ln_bwd_kernel`` and nothing else (no
+    ``partial_sum_kernel``). The profiler's records can drop a kernel
+    (seen once in 256), so one fewer is let pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
+    from paddle_tpu_torch.ops.cuda import norms as nm
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    out = {}
+    for name, dt, call in (
+            ("fused_residual_layer_norm_bwd", torch.bfloat16,
+             lambda x, w, m, r, g: fr.fused_residual_layer_norm_bwd(
+                 x, w, m, r, g, g)),
+            ("layer_norm_bwd", torch.float32, nm.layer_norm_bwd)):
+        x, g = (torch.randn(8192, 768, generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        w = torch.ones(768, device="cuda", dtype=dt)
+        _, m, r = nm.layer_norm_fwd(x, w, torch.zeros_like(w))
+        call(x, w, m, r, g)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call(x, w, m, r, g)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        ln = sum("ln_bwd_kernel" in k for k in names)
+        log(f"kernel {name}: {len(names)} device kernels in {calls} calls, "
+            f"{ln} of them ln_bwd_kernel")
+        if not (calls - 1 <= ln == len(names) <= calls):
+            raise AssertionError(f"{name}: {calls} calls launched {names}")
+        out[name] = dict(calls=calls, device_kernels=len(names),
+                         ln_bwd_kernel=ln)
+        del x, g, w, m, r
+    return out
+
+
+def norm_kernel_phase(seed, power, check_launches=True):
+    """Rows 9-16 against their plain versions (:func:`norm_cases`,
+    :func:`ln_pair_cases`); with ``check_launches``, each LayerNorm
+    backward call one launch (:func:`ln_bwd_launches`)."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = norm_cases(seed, power, flush)
     rows["fused_residual_layer_norm_fwd"], \
         rows["fused_residual_layer_norm_bwd"] = ln_pair_cases(seed, power,
                                                                flush)
     del flush
+    if check_launches:
+        for name, got in ln_bwd_launches(seed).items():
+            for row in rows[name]:
+                row["device_kernels_a_call"] = got
     torch.cuda.empty_cache()
     return rows
 

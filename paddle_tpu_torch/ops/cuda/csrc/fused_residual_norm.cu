@@ -21,11 +21,10 @@
 // ms at 3.35 TB/s); at GPT-124M training (x, y [8192, 768] bf16) the
 // Layer forward moves 25.2 MB in and 25.2 MB out (~0.015 ms). The row
 // kernels are row_norm.cuh's (design notes there): rows kept in
-// registers between their reductions and their use, dw/db partials per
-// CTA summed by a second small kernel in a fixed order (no atomics).
-// The RMS entries keep their backward at kRows rows per CTA and the
-// one-thread-per-column sum; the Layer entries take up to kMaxBlocks
-// CTAs and the split sum.
+// registers between their reductions and their use, sums in a fixed
+// order (no atomics). The RMS backward is a row kernel at kRows rows per
+// CTA and a one-thread-per-column sum of its dw partials; the Layer
+// backward is one launch, its dw/db summed past a grid barrier.
 //
 // Plain C interface (bound with ctypes); the wrapper in
 // fused_residual_norm.py checks shapes, types and contiguity and
@@ -60,9 +59,8 @@ int pdt_rms_bwd(int dtype, const void* res, const float* w, const float* rstd,
                 float* dw, int n, int h, int vec, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const int rc = row_norm_bwd_rows(kRms, dtype, 0, res, w, nullptr, rstd,
-                                   dres, dnormed, d, dw_part, n, h, vec, kRows,
-                                   st);
+  const int rc = rms_bwd_rows(dtype, 0, res, w, rstd, dres, dnormed, d,
+                              dw_part, n, h, vec, kRows, st);
   if (rc != (int)cudaSuccess) return rc;
   const int nblk = (n + kRows - 1) / kRows;
   dw_sum_kernel<<<(h + kThreads - 1) / kThreads, kThreads, 0, st>>>(
@@ -83,19 +81,22 @@ int pdt_rln_fwd(int dtype, int wdtype, const void* x, const void* y,
                             mean, rstd, n, h, eps, vec, (cudaStream_t)stream);
 }
 
-// Partial rows of the Layer backward for n rows: `part` is [2, this, h]
-// (dw's, then db's, fp32); `dwdb` is [2, h] in w's type.
-int pdt_rln_bwd_blocks(int n) {
-  const int r = bwd_rows_per_cta(n);
-  return (n + r - 1) / r;
+// The Layer backward (row 10), one launch (row_norm.cuh's
+// ln_bwd_kernel) on the plan of norms.ln_bwd_plan; dres may be null;
+// `dwdb` is [2, h] in w's type (dw, then db). The CTAs an SM holds for
+// that plan come from pdt_ln_bwd_ctas_per_sm (a negative cudaError_t on
+// failure).
+int pdt_ln_bwd_ctas_per_sm(int dtype, int vec, int h, int G) {
+  return ln_bwd_ctas_per_sm(dtype, vec, h, G);
 }
 
-int pdt_rln_bwd(int dtype, int wdtype, const void* res, const void* w,
-                const float* mean, const float* rstd, const void* dres,
-                const void* dnormed, void* d, float* part, void* dwdb, int n,
-                int h, int vec, void* stream) {
-  return row_norm_bwd(kLayer, dtype, wdtype, res, w, mean, rstd, dres,
-                      dnormed, d, part, dwdb, n, h, vec, (cudaStream_t)stream);
+int pdt_ln_bwd(int dtype, int wdtype, const void* res, const void* w,
+               const float* mean, const float* rstd, const void* dres,
+               const void* dnormed, void* d, void* dwdb, float* part,
+               int n, int h, int vec, int G, int ctas, int cols,
+               void* stream) {
+  return ln_bwd(dtype, wdtype, res, w, mean, rstd, dres, dnormed, d, dwdb,
+                part, n, h, vec, G, ctas, cols, (cudaStream_t)stream);
 }
 
 const char* pdt_cuda_error_string(int err) {

@@ -20,7 +20,9 @@
 //
 // Plain C interface (bound with ctypes); the wrapper in norms.py checks
 // shapes, types and contiguity and allocates the outputs and the
-// partials.
+// scratch. The RMS backward is a row kernel and a small kernel summing
+// its dw partials; the Layer backward is one launch (row_norm.cuh's
+// ln_bwd_kernel).
 
 #include "row_norm.cuh"
 
@@ -41,20 +43,34 @@ int pdt_norm_fwd(int norm, int dtype, int wdtype, const void* x,
                              (cudaStream_t)stream);
 }
 
-// Partial rows of the backward for n rows: `part` is [this, h] (RMS) or
-// [2, this, h] (Layer: dw's, then db's), fp32; `dwdb` is [h] or [2, h]
-// in w's type.
+// The RMS backward (row 14): `part` is [this, h] fp32 partial rows of
+// dw; `dw` is [h] in w's type.
 int pdt_norm_bwd_blocks(int n) {
   const int r = bwd_rows_per_cta(n);
   return (n + r - 1) / r;
 }
 
-int pdt_norm_bwd(int norm, int dtype, int wdtype, const void* x,
-                 const void* w, const float* mean, const float* rstd,
-                 const void* g, void* dx, float* part, void* dwdb, int n,
-                 int h, int vec, void* stream) {
-  return row_norm_bwd(norm, dtype, wdtype, x, w, mean, rstd, nullptr, g, dx,
-                      part, dwdb, n, h, vec, (cudaStream_t)stream);
+int pdt_rms_norm_bwd(int dtype, int wdtype, const void* x, const void* w,
+                     const float* rstd, const void* g, void* dx, float* part,
+                     void* dw, int n, int h, int vec, void* stream) {
+  return rms_norm_bwd(dtype, wdtype, x, w, rstd, g, dx, part, dw, n, h, vec,
+                      (cudaStream_t)stream);
+}
+
+// The Layer backward (row 16), one launch (row_norm.cuh's ln_bwd_kernel)
+// on the plan of norms.ln_bwd_plan; `dres` null; `dwdb` is [2, h] in w's
+// type (dw, then db). The CTAs an SM holds for that plan come from
+// pdt_ln_bwd_ctas_per_sm (a negative cudaError_t on failure).
+int pdt_ln_bwd_ctas_per_sm(int dtype, int vec, int h, int G) {
+  return ln_bwd_ctas_per_sm(dtype, vec, h, G);
+}
+
+int pdt_ln_bwd(int dtype, int wdtype, const void* x, const void* w,
+               const float* mean, const float* rstd, const void* dres,
+               const void* g, void* d, void* dwdb, float* part, int n,
+               int h, int vec, int G, int ctas, int cols, void* stream) {
+  return ln_bwd(dtype, wdtype, x, w, mean, rstd, dres, g, d, dwdb,
+                part, n, h, vec, G, ctas, cols, (cudaStream_t)stream);
 }
 
 // The largest row width the kernels take for a dtype and load width.

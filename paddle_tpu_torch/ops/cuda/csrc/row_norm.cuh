@@ -25,28 +25,34 @@
 // registers between its reductions and its use:
 // * forward: one CTA of kThreads per row; each thread holds K chunks of
 //   VEC columns (16-byte loads), and block reductions give the stats;
-// * backward: one CTA per block of rows, walking them in turn; each
+// * RMS backward: one CTA per block of rows, walking them in turn; each
 //   thread holds its chunks' xhat and wg for the row and adds g * xhat
-//   (and g) into fp32 partials for its columns, kept in registers across
-//   the rows. The CTA writes its partial rows of dw (and db); a second,
-//   small kernel sums them over the CTAs in a fixed order. No float
-//   atomics: a step is bitwise repeatable, like the TPU kernels' tile
-//   partials summed on the host.
+//   into fp32 partials for its columns, kept in registers across the
+//   rows. The CTA writes its partial row of dw; a second, small kernel
+//   sums them over the CTAs in a fixed order;
+// * Layer backward: ln_bwd_kernel, one launch on a persistent grid, a
+//   row to a group of warps with every lane busy, dw/db summed in a
+//   fixed order past a grid barrier (design notes there).
+// No float atomics: a step is bitwise repeatable, like the TPU kernels'
+// tile partials summed on the host.
 // The TPU kernels pad rows to a block of 256; here a CTA masks its own
 // ragged end, so nothing is padded.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;          // the RMS pair's rows per backward CTA
-constexpr int kMaxBlocks = 512;   // the other backwards' CTAs, at most
+constexpr int kMaxBlocks = 512;   // the RMS norm backward's CTAs, at most
 enum { kRms = 0, kLayer = 1 };
 
 template <typename T>
@@ -84,25 +90,6 @@ __device__ inline float block_sum(float v, float* buf) {
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < kWarps; ++i) s += buf[i];
-  return s;
-}
-
-// Two sums at once (the Layer backward's c1 and c2), as block_sum.
-__device__ inline float2 block_sum2(float a, float b, float2* buf) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) buf[warp] = make_float2(a, b);
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) {
-    s.x += buf[i].x;
-    s.y += buf[i].y;
-  }
   return s;
 }
 
@@ -193,35 +180,31 @@ row_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
-// ---------------------------------------------------------------- bwd --
+// ------------------------------------------------------------ RMS bwd --
 // x is the forward's normed input (the residual sum for the fused
 // pairs); dres may be null. The CTA's dw partial row goes to
-// part[blockIdx.x], its db partial (Layer) to part[gridDim.x +
-// blockIdx.x].
-template <int NORM, typename T, typename WT, int VEC, int K>
+// part[blockIdx.x]. (The Layer backward is ln_bwd_kernel below.)
+template <typename T, typename WT, int VEC, int K>
 __global__ void __launch_bounds__(kThreads)
-row_norm_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
-                    const float* __restrict__ mean,
-                    const float* __restrict__ rstd, const T* __restrict__ dres,
-                    const T* __restrict__ g, T* __restrict__ d,
-                    float* __restrict__ part, int n, int h, int rows_per_cta) {
+rms_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+               const float* __restrict__ rstd, const T* __restrict__ dres,
+               const T* __restrict__ g, T* __restrict__ d,
+               float* __restrict__ part, int n, int h, int rows_per_cta) {
   __shared__ float buf[2][kWarps];
-  __shared__ float2 buf2[2][kWarps];
   using P = Pack<T, VEC>;
   const int nchunks = h / VEC;
-  float dw[K][VEC], db[K][VEC];
+  float dw[K][VEC];
 #pragma unroll
   for (int j = 0; j < K; ++j)
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) dw[j][v] = db[j][v] = 0.f;
+    for (int v = 0; v < VEC; ++v) dw[j][v] = 0.f;
   const int row0 = blockIdx.x * rows_per_cta;
   const int rows = min(rows_per_cta, n - row0);
   for (int i = 0; i < rows; ++i) {
     const long long base = (long long)(row0 + i) * h;
     const float rs = rstd[row0 + i];
-    const float mu = NORM == kLayer ? mean[row0 + i] : 0.f;
     float xh[K][VEC], wg[K][VEC];
-    float p1 = 0.f, p2 = 0.f;
+    float p2 = 0.f;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int c = threadIdx.x + j * kThreads;
@@ -232,26 +215,14 @@ row_norm_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
         for (int v = 0; v < VEC; ++v) {
           const float gf = to_f<T>(gv.v[v]);
           const float xf = to_f<T>(xv.v[v]);
-          xh[j][v] = NORM == kRms ? __fmul_rn(xf, rs)
-                                  : __fmul_rn(__fsub_rn(xf, mu), rs);
+          xh[j][v] = __fmul_rn(xf, rs);
           wg[j][v] = __fmul_rn(gf, to_f<WT>(w[c * VEC + v]));
           p2 += wg[j][v] * xh[j][v];
           dw[j][v] = __fadd_rn(dw[j][v], __fmul_rn(gf, xh[j][v]));
-          if constexpr (NORM == kLayer) {
-            p1 += wg[j][v];
-            db[j][v] = __fadd_rn(db[j][v], gf);
-          }
         }
       }
     }
-    float c1 = 0.f, c2;
-    if constexpr (NORM == kRms) {
-      c2 = __fdiv_rn(block_sum(p2, buf[i & 1]), (float)h);
-    } else {
-      const float2 s = block_sum2(p1, p2, buf2[i & 1]);
-      c1 = __fdiv_rn(s.x, (float)h);
-      c2 = __fdiv_rn(s.y, (float)h);
-    }
+    const float c2 = __fdiv_rn(block_sum(p2, buf[i & 1]), (float)h);
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int c = threadIdx.x + j * kThreads;
@@ -264,10 +235,7 @@ row_norm_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           const float drv = dres != nullptr ? to_f<T>(dr.v[v]) : 0.f;
-          const float t = NORM == kRms
-                              ? __fsub_rn(wg[j][v], __fmul_rn(xh[j][v], c2))
-                              : __fsub_rn(__fsub_rn(wg[j][v], c1),
-                                          __fmul_rn(xh[j][v], c2));
+          const float t = __fsub_rn(wg[j][v], __fmul_rn(xh[j][v], c2));
           o.v[v] = from_f<T>(__fadd_rn(drv, __fmul_rn(rs, t)));
         }
         *reinterpret_cast<P*>(d + base + c * VEC) = o;
@@ -275,16 +243,12 @@ row_norm_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
     }
   }
   float* out = part + (long long)blockIdx.x * h;
-  float* outb = part + (long long)(gridDim.x + blockIdx.x) * h;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
     const int c = threadIdx.x + j * kThreads;
     if (c < nchunks) {
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        out[c * VEC + v] = dw[j][v];
-        if constexpr (NORM == kLayer) outb[c * VEC + v] = db[j][v];
-      }
+      for (int v = 0; v < VEC; ++v) out[c * VEC + v] = dw[j][v];
     }
   }
 }
@@ -300,12 +264,11 @@ dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
   dw[col] = s;
 }
 
-// The other backwards' dw (y = 0) and db (y = 1): out[y][col] = the sum
-// over the nblk partial rows part[y][.][col], in a fixed order, written
-// in the weights' type OT. A CTA takes 32 columns; warp k sums rows k,
-// k + kWarps, ... and warp 0 adds the kWarps sums in order: the many
-// rows of a narrow h are read by kWarps times more threads than one per
-// column.
+// The RMS norm's dw (row 14): out[col] = the sum over the nblk partial
+// rows part[.][col], in a fixed order, written in the weights' type OT.
+// A CTA takes 32 columns; warp k sums rows k, k + kWarps, ... and warp 0
+// adds the kWarps sums in order: the many rows of a narrow h are read by
+// kWarps times more threads than one per column.
 template <typename OT>
 __global__ void __launch_bounds__(kThreads)
 partial_sum_kernel(const float* __restrict__ part, OT* __restrict__ out,
@@ -313,17 +276,16 @@ partial_sum_kernel(const float* __restrict__ part, OT* __restrict__ out,
   __shared__ float acc[kWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
-  const float* p = part + (long long)blockIdx.y * nblk * h;
   float s = 0.f;
   if (col < h)
-    for (int b = warp; b < nblk; b += kWarps) s += p[(long long)b * h + col];
+    for (int b = warp; b < nblk; b += kWarps) s += part[(long long)b * h + col];
   acc[warp][lane] = s;
   __syncthreads();
   if (warp == 0 && col < h) {
     float t = 0.f;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) t += acc[i][lane];
-    out[(long long)blockIdx.y * h + col] = from_f<OT>(t);
+    out[col] = from_f<OT>(t);
   }
 }
 
@@ -342,8 +304,8 @@ inline int row_norm_max_h(int dtype, int vec) {
   return 8 * kThreads * v;
 }
 
-// Rows per backward CTA for the kernels that are not the RMS pair: at
-// least kRows, and at most kMaxBlocks CTAs (fewer partial rows to sum).
+// Rows per backward CTA of the RMS norm (not the pair): at least kRows,
+// and at most kMaxBlocks CTAs (fewer partial rows to sum).
 inline int bwd_rows_per_cta(int n) {
   const int r = (n + kMaxBlocks - 1) / kMaxBlocks;
   return r > kRows ? r : kRows;
@@ -419,86 +381,483 @@ int row_norm_fwd(int norm, int dtype, int wdtype, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int NORM, typename T, typename WT, int VEC>
-int bwd_launch_t(const void* x, const void* w, const float* mean,
-                 const float* rstd, const void* dres, const void* g, void* d,
-                 float* part, int n, int h, int rows_per_cta, cudaStream_t st) {
-  const int nblk = (n + rows_per_cta - 1) / rows_per_cta;
-  const T* xx = static_cast<const T*>(x);
-  const WT* ww = static_cast<const WT*>(w);
-  const T* dr = static_cast<const T*>(dres);
-  const T* gg = static_cast<const T*>(g);
-  T* dd = static_cast<T*>(d);
-#define PDT_BWD(KK)                                                      \
-  row_norm_bwd_kernel<NORM, T, WT, VEC, KK><<<nblk, kThreads, 0, st>>>(  \
-      xx, ww, mean, rstd, dr, gg, dd, part, n, h, rows_per_cta)
-  switch (pick_k(h, VEC)) {
-    case 1: PDT_BWD(1); break;
-    case 2: PDT_BWD(2); break;
-    case 4: PDT_BWD(4); break;
-    case 8: PDT_BWD(8); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PDT_BWD
-  return (int)cudaGetLastError();
-}
-
-template <int NORM>
-struct BwdRun {
-  template <typename T, typename WT, int VEC>
-  struct F {
-    static int run(const void* x, const void* w, const float* mean,
-                   const float* rstd, const void* dres, const void* g,
-                   void* d, float* part, int n, int h, int rows_per_cta,
-                   cudaStream_t st) {
-      return bwd_launch_t<NORM, T, WT, VEC>(x, w, mean, rstd, dres, g, d,
-                                            part, n, h, rows_per_cta, st);
+template <typename T, typename WT, int VEC>
+struct RmsBwdRun {
+  static int run(const void* x, const void* w, const float* rstd,
+                 const void* dres, const void* g, void* d, float* part, int n,
+                 int h, int rows_per_cta, cudaStream_t st) {
+    const int nblk = (n + rows_per_cta - 1) / rows_per_cta;
+    const T* xx = static_cast<const T*>(x);
+    const WT* ww = static_cast<const WT*>(w);
+    const T* dr = static_cast<const T*>(dres);
+    const T* gg = static_cast<const T*>(g);
+    T* dd = static_cast<T*>(d);
+#define PDT_BWD(KK)                                                   \
+  rms_bwd_kernel<T, WT, VEC, KK><<<nblk, kThreads, 0, st>>>(          \
+      xx, ww, rstd, dr, gg, dd, part, n, h, rows_per_cta)
+    switch (pick_k(h, VEC)) {
+      case 1: PDT_BWD(1); break;
+      case 2: PDT_BWD(2); break;
+      case 4: PDT_BWD(4); break;
+      case 8: PDT_BWD(8); break;
+      default: return (int)cudaErrorInvalidValue;
     }
-  };
+#undef PDT_BWD
+    return (int)cudaGetLastError();
+  }
 };
 
-// The row kernel of the backward (dtype, wdtype and vec as for the
-// forward): `part` holds the CTAs' fp32 partial rows ([ceil(n /
-// rows_per_cta), h] for dw, then as many for db with the Layer norm).
-// The caller sums them.
-inline int row_norm_bwd_rows(int norm, int dtype, int wdtype, const void* x,
-                             const void* w, const float* mean,
-                             const float* rstd, const void* dres,
-                             const void* g, void* d, float* part, int n, int h,
-                             int vec, int rows_per_cta, cudaStream_t st) {
-  if (norm == kRms)
-    return dispatch_types<BwdRun<kRms>::template F>(
-        dtype, wdtype, vec, x, w, mean, rstd, dres, g, d, part, n, h,
-        rows_per_cta, st);
-  if (norm == kLayer)
-    return dispatch_types<BwdRun<kLayer>::template F>(
-        dtype, wdtype, vec, x, w, mean, rstd, dres, g, d, part, n, h,
-        rows_per_cta, st);
-  return (int)cudaErrorInvalidValue;
+// The RMS row kernel of the backward (dtype, wdtype and vec as for the
+// forward): `part` holds the CTAs' fp32 partial rows of dw ([ceil(n /
+// rows_per_cta), h]). The caller sums them.
+inline int rms_bwd_rows(int dtype, int wdtype, const void* x, const void* w,
+                        const float* rstd, const void* dres, const void* g,
+                        void* d, float* part, int n, int h, int vec,
+                        int rows_per_cta, cudaStream_t st) {
+  return dispatch_types<RmsBwdRun>(dtype, wdtype, vec, x, w, rstd, dres, g,
+                                  d, part, n, h, rows_per_cta, st);
 }
 
-// The backward of every norm but the RMS pair: the row kernel, then
-// partial_sum_kernel into `dwdb` ([h] dw, then [h] db for Layer), in
-// the weights' type.
-inline int row_norm_bwd(int norm, int dtype, int wdtype, const void* x,
-                        const void* w, const float* mean, const float* rstd,
-                        const void* dres, const void* g, void* d, float* part,
-                        void* dwdb, int n, int h, int vec, cudaStream_t st) {
+// The RMS norm's backward (row 14): the row kernel, then
+// partial_sum_kernel into `dw` ([h]) in the weights' type.
+inline int rms_norm_bwd(int dtype, int wdtype, const void* x, const void* w,
+                        const float* rstd, const void* g, void* d, float* part,
+                        void* dw, int n, int h, int vec, cudaStream_t st) {
   if (n <= 0) return (int)cudaSuccess;
   if (wdtype != 0 && wdtype != 1) return (int)cudaErrorInvalidValue;
   const int rpc = bwd_rows_per_cta(n);
-  const int rc = row_norm_bwd_rows(norm, dtype, wdtype, x, w, mean, rstd,
-                                   dres, g, d, part, n, h, vec, rpc, st);
+  const int rc = rms_bwd_rows(dtype, wdtype, x, w, rstd, nullptr, g, d, part,
+                              n, h, vec, rpc, st);
   if (rc != (int)cudaSuccess) return rc;
-  const dim3 grid((h + 31) / 32, norm == kLayer ? 2 : 1);
+  const int grid = (h + 31) / 32;
   const int nblk = (n + rpc - 1) / rpc;
   if (wdtype == 0)
     partial_sum_kernel<float><<<grid, kThreads, 0, st>>>(
-        part, static_cast<float*>(dwdb), nblk, h);
+        part, static_cast<float*>(dw), nblk, h);
   else
     partial_sum_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        part, static_cast<__nv_bfloat16*>(dwdb), nblk, h);
+        part, static_cast<__nv_bfloat16*>(dw), nblk, h);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ Layer bwd --
+// The Layer backward of both entries (rows 10 and 16) in ONE launch.
+// What held the two-kernel design back (one row at a time a CTA of 256
+// threads, 96 of them busy at h 768 bf16; two __syncthreads a row; dres
+// loaded after the reduction; w read a scalar at a time every row; the
+// dw/db partials summed by a second launch) and what this does instead:
+// * a row to a group of G warps (ln_bwd_k: K chunks of VEC columns a
+//   lane; at h 768 every lane holds 3 chunks, one warp a row in bf16,
+//   two in fp32: norms.ln_bwd_group), so a row's sums are warp shuffles,
+//   and across a group's G > 1 warps one named barrier a row
+//   (double-buffered, as block_sum's);
+// * x, g and dres of a row are loaded together before its sums (the
+//   first row's before w is staged), and as many groups as the SMs hold
+//   resident walk the rows (a persistent grid, gridDim.x * groups rows
+//   apart), so other groups' loads are in flight while one group
+//   reduces and stores;
+// * w is read once a CTA, into shared memory as fp32; the rows are read
+//   with streaming loads (evict first: each byte is read once);
+// * each lane keeps dw/db of its columns in fp32 registers over all of
+//   its group's rows; the CTA adds its groups' in group order and writes
+//   one partial row; then, past a grid barrier (a cooperative launch:
+//   every CTA is resident), each CTA adds its slice of the columns over
+//   all the partial rows, whole 32-byte sectors a warp, and writes dw
+//   and db in w's type. The same launch, and no one CTA reads all the
+//   partial rows: a first design, in which the last CTA of each set of
+//   ~sqrt(CTAs) and then the last set added them, spent ~9.5 us on an
+//   H100 at 8192 x 768 after the rows were done (PERF.md), one L2 round
+//   trip after another.
+// No float atomics: which rows a group takes, and every sum's order, are
+// fixed by (n, h, the row type, the SM count and the CTAs an SM holds),
+// so repeat runs on a card are bitwise equal.
+struct LnBwdArgs {
+  const void* x;        // [n, h] the forward's normed input (T)
+  const void* w;        // [h] (WT)
+  const float* mean;    // [n]
+  const float* rstd;    // [n]
+  const void* dres;     // [n, h] (T) or null: a zero residual cotangent
+  const void* g;        // [n, h] the cotangent of the norm's output (T)
+  void* d;              // [n, h] out (T)
+  void* dwdb;           // [2, h] out: dw, then db (WT)
+  float* part;          // [gridDim.x, cols] fp32 scratch: partial rows
+  int n, h;
+  int G;                // warps a row: 1, 2, 4 or 8
+  int cols;             // a partial row's floats: 2 h rounded up to 4
+};
+
+constexpr int kLnSumLoads = 16;  // partial rows a thread loads at once
+
+// The chunks a lane takes (its template K) for a row of h columns read
+// VEC at a time by G warps: the next of 1, 2, 3, 4, 6, 8; -1 past 8.
+inline int ln_bwd_k(int h, int vec_elems, int G) {
+  const int need = ((h + vec_elems - 1) / vec_elems + 32 * G - 1) / (32 * G);
+  const int ks[] = {1, 2, 3, 4, 6, 8};
+  for (int k : ks)
+    if (need <= k) return k;
+  return -1;
+}
+
+// Dynamic shared memory: w as fp32 (h rounded up to 4), then the groups'
+// dw/db rows when a CTA has more than one group; at least a float a
+// thread (the final sums reuse it).
+inline int ln_bwd_smem(int h, int G, int cols) {
+  const int groups = kWarps / G;
+  const int f = (h + 3) / 4 * 4 + (groups > 1 ? groups * cols : 0);
+  return (f > kThreads ? f : kThreads) * (int)sizeof(float);
+}
+
+// VEC elements of T (16 bytes, or one fp32 or bf16), read once: a
+// streaming load (evict first).
+template <typename P>
+__device__ __forceinline__ P ld_stream(const P* p) {
+  P out;
+  if constexpr (sizeof(P) == 16)
+    *reinterpret_cast<uint4*>(&out) = __ldcs(reinterpret_cast<const uint4*>(p));
+  else if constexpr (sizeof(P) == 4)
+    *reinterpret_cast<unsigned*>(&out) =
+        __ldcs(reinterpret_cast<const unsigned*>(p));
+  else
+    *reinterpret_cast<unsigned short*>(&out) =
+        __ldcs(reinterpret_cast<const unsigned short*>(p));
+  return out;
+}
+
+// Hides a packed row's registers from the compiler (no instruction), so
+// that it cannot keep the values it converted from them earlier.
+template <typename P>
+__device__ __forceinline__ void opaque(P& p) {
+  if constexpr (sizeof(P) % 4 == 0) {
+    uint32_t* u = reinterpret_cast<uint32_t*>(&p);
+#pragma unroll
+    for (int i = 0; i < (int)(sizeof(P) / 4); ++i) asm volatile("" : "+r"(u[i]));
+  } else {
+    unsigned short* u = reinterpret_cast<unsigned short*>(&p);
+    asm volatile("" : "+h"(u[0]));
+  }
+}
+
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// VEC fp32 values at s (16-byte aligned when VEC is a multiple of 4).
+template <int VEC>
+__device__ __forceinline__ void vec_load(const float* s, float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const float4 t = reinterpret_cast<const float4*>(s)[q];
+      v[4 * q] = t.x, v[4 * q + 1] = t.y, v[4 * q + 2] = t.z,
+      v[4 * q + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = s[i];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void vec_store(float* s, const float (&v)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q)
+      reinterpret_cast<float4*>(s)[q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s[i] = v[i];
+  }
+}
+
+// The column sums of `rows` rows of src (stride cols), written to out
+// (in OT) where below `limit`: CTA b takes the column ranges b, b +
+// gridDim.x, ... of W columns (a power of two, 8 to 256: ~cols / CTAs),
+// thread t column t % W of the range and rows t / W, t / W + 256 / W,
+// ... (its loads in flight together, added in order), so that the lanes
+// of a warp read whole 32-byte sectors of a row; then the lanes of a warp
+// that share a column meet in a shuffle tree and the warps in warp order.
+// The order is fixed by (rows, cols, gridDim.x).
+template <typename OT>
+__device__ inline void slice_sums(const float* src, int rows, int cols,
+                                  int limit, OT* out, float* buf) {
+  const int C = gridDim.x;
+  int W = 8;
+  while (W < kThreads && W * C < cols) W *= 2;
+  const int step = kThreads / W, cl = threadIdx.x % W, r0 = threadIdx.x / W;
+  const int lanes = W < 32 ? 32 / W : 1;  // a warp's threads on a column
+  for (int c0 = blockIdx.x * W; c0 < cols; c0 += C * W) {
+    const int col = c0 + cl;
+    float s = 0.f;
+    for (int rb = r0; col < cols && rb < rows; rb += kLnSumLoads * step) {
+      float t[kLnSumLoads];
+#pragma unroll
+      for (int k = 0; k < kLnSumLoads; ++k) {
+        const int r = rb + k * step;
+        t[k] = r < rows ? __ldcg(src + (size_t)r * cols + col) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kLnSumLoads; ++k)
+        if (rb + k * step < rows) s = __fadd_rn(s, t[k]);
+    }
+    for (int o = 16; o >= W; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    buf[threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.x < W && col < limit) {
+      float v = buf[threadIdx.x];
+      for (int i = lanes; i < step; i += lanes)
+        v = __fadd_rn(v, buf[i * W + threadIdx.x]);
+      out[col] = from_f<OT>(v);
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, typename WT, int VEC, int K>
+__global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
+  extern __shared__ __align__(16) float lsm[];
+  __shared__ float2 gsum[2][kWarps];
+  using P = Pack<T, VEC>;
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  const T* __restrict__ dres = static_cast<const T*>(a.dres);
+  T* __restrict__ d = static_cast<T*>(a.d);
+  const WT* __restrict__ w = static_cast<const WT*>(a.w);
+  const int h = a.h, G = a.G, groups = kWarps / G, glanes = 32 * G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / G, gl = threadIdx.x - grp * glanes;
+  const int nchunks = h / VEC;
+  // a row's loads, all issued before its sums
+  P xv[K], gv[K], rv[K];
+  float rs = 0.f, mu = 0.f;
+  auto load = [&](int row) {
+    const size_t base = (size_t)row * h;
+    rs = a.rstd[row];
+    mu = a.mean[row];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int c = gl + j * glanes;
+      if (c < nchunks) {
+        xv[j] = ld_stream(reinterpret_cast<const P*>(x + base + c * VEC));
+        gv[j] = ld_stream(reinterpret_cast<const P*>(g + base + c * VEC));
+        if (dres != nullptr)
+          rv[j] = ld_stream(reinterpret_cast<const P*>(dres + base + c * VEC));
+      }
+    }
+  };
+  const int stride = gridDim.x * groups;
+  int row = blockIdx.x * groups + grp;
+  if (row < a.n) load(row);  // in flight while w is staged
+  for (int i = threadIdx.x; i < h; i += kThreads) lsm[i] = to_f<WT>(w[i]);
+  __syncthreads();
+  float dw[K][VEC], db[K][VEC];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) dw[j][v] = db[j][v] = 0.f;
+
+  for (int it = 0; row < a.n; ++it) {
+    const size_t base = (size_t)row * h;
+    float p1 = 0.f, p2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int c = gl + j * glanes;
+      if (c < nchunks) {
+        float wv[VEC];
+        vec_load<VEC>(lsm + c * VEC, wv);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float gf = to_f<T>(gv[j].v[v]);
+          const float xh = __fmul_rn(__fsub_rn(to_f<T>(xv[j].v[v]), mu), rs);
+          const float wg = __fmul_rn(gf, wv[v]);
+          p1 += wg;
+          p2 += wg * xh;
+          dw[j][v] = __fadd_rn(dw[j][v], __fmul_rn(gf, xh));
+          db[j][v] = __fadd_rn(db[j][v], gf);
+        }
+      }
+    }
+    // first loads landed
+    // c1, c2: the group's sums, by shuffles, then across its warps
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      p1 += __shfl_xor_sync(0xffffffffu, p1, o);
+      p2 += __shfl_xor_sync(0xffffffffu, p2, o);
+    }
+    if (G > 1) {
+      if (lane == 0) gsum[it & 1][warp] = make_float2(p1, p2);
+      group_sync(1 + grp, glanes);
+      p1 = p2 = 0.f;
+      for (int i = 0; i < G; ++i) {
+        const float2 s = gsum[it & 1][grp * G + i];
+        p1 += s.x;
+        p2 += s.y;
+      }
+    }
+    const float c1 = __fdiv_rn(p1, (float)h), c2 = __fdiv_rn(p2, (float)h);
+    // xhat and wg again from the row's packed values: the same bits, but
+    // from copies the compiler cannot see are equal, so that it keeps the
+    // packed row across the sums rather than the first pass's fp32
+    // values (in bf16 half the registers: 128 a thread, not 164, and two
+    // CTAs an SM)
+    float m2 = mu, r2 = rs;
+    asm volatile("" : "+f"(m2), "+f"(r2)::"memory");
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      opaque(xv[j]);
+      opaque(gv[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int c = gl + j * glanes;
+      if (c < nchunks) {
+        float wv[VEC];
+        vec_load<VEC>(lsm + c * VEC, wv);
+        P o;
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float gf = to_f<T>(gv[j].v[v]);
+          const float xh = __fmul_rn(__fsub_rn(to_f<T>(xv[j].v[v]), m2), r2);
+          const float wg = __fmul_rn(gf, wv[v]);
+          const float drv = dres != nullptr ? to_f<T>(rv[j].v[v]) : 0.f;
+          const float t = __fsub_rn(__fsub_rn(wg, c1), __fmul_rn(xh, c2));
+          o.v[v] = from_f<T>(__fadd_rn(drv, __fmul_rn(r2, t)));
+        }
+        *reinterpret_cast<P*>(d + base + c * VEC) = o;
+      }
+    }
+    row += stride;
+    if (row < a.n) load(row);
+  }
+
+  // rows done: the CTA's partial row [dw | db | 0 pad], groups in order
+  float* prow = a.part + (size_t)blockIdx.x * a.cols;
+  if (groups == 1) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int c = gl + j * glanes;
+      if (c < nchunks) {
+        vec_store<VEC>(prow + c * VEC, dw[j]);
+        vec_store<VEC>(prow + h + c * VEC, db[j]);
+      }
+    }
+    for (int i = 2 * h + threadIdx.x; i < a.cols; i += kThreads) prow[i] = 0.f;
+  } else {
+    float* red = lsm + (h + 3) / 4 * 4 + (size_t)grp * a.cols;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int c = gl + j * glanes;
+      if (c < nchunks) {
+        vec_store<VEC>(red + c * VEC, dw[j]);
+        vec_store<VEC>(red + h + c * VEC, db[j]);
+      }
+    }
+    for (int i = 2 * h + gl; i < a.cols; i += glanes) red[i] = 0.f;
+    __syncthreads();
+    const float4* red4 = reinterpret_cast<const float4*>(lsm + (h + 3) / 4 * 4);
+    for (int i = threadIdx.x; i < a.cols / 4; i += kThreads) {
+      float4 s = red4[i];
+      for (int q = 1; q < groups; ++q) {
+        const float4 t = red4[(size_t)q * (a.cols / 4) + i];
+        s.x = __fadd_rn(s.x, t.x);
+        s.y = __fadd_rn(s.y, t.y);
+        s.z = __fadd_rn(s.z, t.z);
+        s.w = __fadd_rn(s.w, t.w);
+      }
+      reinterpret_cast<float4*>(prow)[i] = s;
+    }
+  }
+
+  // partial row written: every CTA's is in past the grid barrier
+  cg::this_grid().sync();
+  // dw and db: this CTA's slice of the columns over every partial row
+  slice_sums<WT>(a.part, gridDim.x, a.cols, 2 * h, static_cast<WT*>(a.dwdb),
+                 lsm);
+  // dw and db written
+}
+
+template <typename T, typename WT, int VEC>
+struct LnBwdRun {
+  template <int K>
+  static int go(const LnBwdArgs* a, int ctas, int smem, int* occ,
+                cudaStream_t st) {
+    auto kernel = ln_bwd_kernel<T, WT, VEC, K>;
+    // the opt-in above 48 KB, once a device
+    static int set_to[64];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (smem > set_to[dev]) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      set_to[dev] = smem;
+    }
+    if (occ != nullptr)
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          occ, kernel, kThreads, smem);
+    void* args[] = {(void*)a};
+    return (int)cudaLaunchCooperativeKernel((const void*)kernel, ctas,
+                                            kThreads, args, smem, st);
+  }
+  // occ null: launch ctas CTAs; else store the CTAs an SM holds in *occ
+  static int run(const LnBwdArgs* a, int ctas, int* occ, cudaStream_t st) {
+    const int k = ln_bwd_k(a->h, VEC, a->G);
+    const int smem = ln_bwd_smem(a->h, a->G, a->cols);
+    switch (k) {
+      case 1: return go<1>(a, ctas, smem, occ, st);
+      case 2: return go<2>(a, ctas, smem, occ, st);
+      case 3: return go<3>(a, ctas, smem, occ, st);
+      case 4: return go<4>(a, ctas, smem, occ, st);
+      case 6: return go<6>(a, ctas, smem, occ, st);
+      case 8: return go<8>(a, ctas, smem, occ, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+};
+
+inline bool ln_bwd_groups_ok(int G) {
+  return G == 1 || G == 2 || G == 4 || G == 8;
+}
+
+inline int ln_bwd_cols(int h) { return (2 * h + 3) / 4 * 4; }
+
+// The CTAs an SM holds of the Layer backward for rows of h in `dtype` on
+// groups of G warps: the fewer of its fp32-w and bf16-w kernels (so that
+// w's type does not move the plan), or a negative cudaError_t.
+inline int ln_bwd_ctas_per_sm(int dtype, int vec, int h, int G) {
+  if (!ln_bwd_groups_ok(G) || h <= 0) return -(int)cudaErrorInvalidValue;
+  LnBwdArgs a{};
+  a.h = h;
+  a.G = G;
+  a.cols = ln_bwd_cols(h);
+  int most = 1 << 30;
+  for (int wdtype = 0; wdtype < 2; ++wdtype) {
+    int occ = 0;
+    const int rc = dispatch_types<LnBwdRun>(dtype, wdtype, vec, &a, 0, &occ,
+                                           (cudaStream_t)0);
+    if (rc != (int)cudaSuccess) return -rc;
+    most = occ < most ? occ : most;
+  }
+  return most;
+}
+
+// The Layer backward on a plan (norms.ln_bwd_plan): `ctas` CTAs (at most
+// those the SMs hold: a cooperative launch) of G-warp groups, partial
+// rows of `cols` floats in `part` ([ctas, cols]). dtype, wdtype and vec
+// as for the forward; dres may be null.
+inline int ln_bwd(int dtype, int wdtype, const void* x, const void* w,
+                  const float* mean, const float* rstd, const void* dres,
+                  const void* g, void* d, void* dwdb, float* part, int n,
+                  int h, int vec, int G, int ctas, int cols, cudaStream_t st) {
+  if (n <= 0 || h <= 0 || !ln_bwd_groups_ok(G) || ctas <= 0 ||
+      cols != ln_bwd_cols(h))
+    return (int)cudaErrorInvalidValue;
+  const LnBwdArgs a{x, w, mean, rstd, dres, g, d, dwdb, part, n, h, G, cols};
+  return dispatch_types<LnBwdRun>(dtype, wdtype, vec, &a, ctas,
+                                  (int*)nullptr, st);
 }
 
 }  // namespace

@@ -25,8 +25,9 @@ and arithmetic:
 The kernels (``csrc/fused_residual_norm.cu``, the row kernels of
 ``csrc/row_norm.cuh``) read each row once. CPU tensors take the plain
 versions (``*_plain``); CUDA tensors launch the kernels (counted in each
-wrapper's ``launches``, one per call: a backward's call is its row
-kernel and the small kernel that sums the dw/db partials) or raise.
+wrapper's ``launches``, one per call: the RMS backward's call is its row
+kernel and the small kernel that sums the dw partials, the LayerNorm
+backward's one kernel, planned by ``norms.ln_bwd_plan``) or raise.
 """
 from __future__ import annotations
 
@@ -72,15 +73,8 @@ def _kernels():
                          + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                  ctypes.c_void_p])
         lfwd.restype = ctypes.c_int
-        lbwd = lib.pdt_rln_bwd
-        lbwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lbwd.restype = ctypes.c_int
-        lib.pdt_rln_bwd_blocks.argtypes = [ctypes.c_int]
-        lib.pdt_rln_bwd_blocks.restype = ctypes.c_int
         _fns = (fwd, bwd, lib.pdt_rms_bwd_rows(), lib.pdt_rms_max_h,
-                lib.pdt_cuda_error_string, lfwd, lbwd,
-                lib.pdt_rln_bwd_blocks)
+                lib.pdt_cuda_error_string, lfwd, _n.ln_bwd_entries(lib))
     return _fns
 
 
@@ -177,7 +171,9 @@ def fused_residual_rms_norm_bwd(res, w, rstd, dres, dnormed):
     w32, rstd = w.float().contiguous(), rstd.contiguous()
     d = torch.empty_like(res)
     part = torch.empty(-(-n // brows), h, dtype=torch.float32, device=dev)
-    dw = torch.empty(h, dtype=torch.float32, device=dev)
+    # no rows: the kernels do not run, and dw is the empty sum
+    dw = (torch.empty if n else torch.zeros)(h, dtype=torch.float32,
+                                             device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = bwd(_n.DTYPE_CODE[res.dtype], res.data_ptr(), w32.data_ptr(),
@@ -185,7 +181,8 @@ def fused_residual_rms_norm_bwd(res, w, rstd, dres, dnormed):
                  dnormed.data_ptr(), d.data_ptr(), part.data_ptr(),
                  dw.data_ptr(), n, h, int(vec), stream)
     _n.raise_rc(name, rc, err_str)
-    fused_residual_rms_norm_bwd.launches += 1
+    if n:                     # no rows, no launch
+        fused_residual_rms_norm_bwd.launches += 1
     return d, dw.to(w.dtype)
 
 
@@ -203,7 +200,7 @@ def fused_residual_layer_norm_fwd(x, y, w, b, eps=1e-5):
     dev = _n.device_of(name, (x, y, w, b))
     if dev.type == "cpu":
         return fused_residual_layer_norm_fwd_plain(x, y, w, b, eps)
-    _, _, _, max_h, err_str, fwd, _, _ = _kernels()
+    _, _, _, max_h, err_str, fwd, _ = _kernels()
     x, y = x.contiguous(), y.contiguous()
     vec = _n.vec_ok((x, y), h)
     _n.kernel_ready(name, x, h, vec, max_h)
@@ -241,27 +238,18 @@ def fused_residual_layer_norm_bwd(res, w, mean, rstd, dres, dnormed):
     if dev.type == "cpu":
         return fused_residual_layer_norm_bwd_plain(res, w, mean, rstd, dres,
                                                    dnormed)
-    _, _, _, max_h, err_str, _, bwd, blocks = _kernels()
+    _, _, _, max_h, err_str, _, entries = _kernels()
     res, dnormed = res.contiguous(), dnormed.contiguous()
     dres = None if dres is None else dres.contiguous()
     rows_t = [res, dnormed] + ([] if dres is None else [dres])
     vec = _n.vec_ok(rows_t, h)
     _n.kernel_ready(name, res, h, vec, max_h)
-    wdt, wk, _ = _n.weight_vectors(w)
-    mean, rstd = mean.contiguous(), rstd.contiguous()
-    d = torch.empty_like(res)
-    part = torch.empty(2, blocks(n), h, dtype=torch.float32, device=dev)
-    dwdb = torch.empty(2, h, dtype=wdt, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = bwd(_n.DTYPE_CODE[res.dtype], _n.DTYPE_CODE[wdt],
-                 res.data_ptr(), wk.data_ptr(), mean.data_ptr(),
-                 rstd.data_ptr(),
-                 None if dres is None else dres.data_ptr(),
-                 dnormed.data_ptr(), d.data_ptr(), part.data_ptr(),
-                 dwdb.data_ptr(), n, h, int(vec), stream)
-    _n.raise_rc(name, rc, err_str)
-    fused_residual_layer_norm_bwd.launches += 1
+    _, wk, _ = _n.weight_vectors(w)
+    d, dwdb = _n.ln_bwd_launch(name, entries, err_str, res, wk,
+                               mean.contiguous(), rstd.contiguous(), dres,
+                               dnormed, vec)
+    if n:                     # no rows, no launch
+        fused_residual_layer_norm_bwd.launches += 1
     return d, dwdb[0].to(w.dtype), dwdb[1].to(w.dtype)
 
 

@@ -418,3 +418,74 @@ def test_layer_kernels_read_weights_in_their_own_dtype_on_card(cuda, dtype,
     assert torch.equal(d, rd)
     assert dw.dtype == db.dtype == wdtype
     assert torch.equal(dw, rdw.to(wdtype)) and torch.equal(db, rdb.to(wdtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 768, 1024, 4096, "largest"])
+@pytest.mark.parametrize("n", [1, 7, 8191, 8192])
+def test_layer_bwd_kernel_matches_plain_on_card(cuda, n, h, dtype):
+    """The one-launch Layer backward (row 10) at every group size its
+    plan picks, with dres and without (``None``: zero), against the
+    plain version on the kernel's own res and stats (tolerances as
+    above); one launch a call; a second run bitwise equal."""
+    if h == "largest":
+        h = 8 * 256 * (16 // dtype.itemsize)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=cuda)
+    x, y, dres, dn = (rn(n, h).to(dtype) for _ in range(4))
+    w, b = (1.0 + 0.1 * rn(h)).to(dtype), rn(h).to(dtype)
+    res, _, mean, rstd = tfr.fused_residual_layer_norm_fwd(x, y, w, b, 1e-5)
+    before = tfr.fused_residual_layer_norm_bwd.launches
+    got = tfr.fused_residual_layer_norm_bwd(res, w, mean, rstd, dres, dn)
+    got0 = tfr.fused_residual_layer_norm_bwd(res, w, mean, rstd, None, dn)
+    torch.cuda.synchronize()
+    assert tfr.fused_residual_layer_norm_bwd.launches == before + 2
+    f32 = [t.float() for t in (res, w, dres, dn)]
+    bf = dtype == torch.bfloat16
+
+    def lim(ref):
+        return 2.0 ** -8 * float(ref.abs().max()) + 1e-6 if bf else 1e-5
+    xhat = (f32[0] - mean) * rstd
+    for (d, dw, db), r in ((got, f32[2]), (got0, None)):
+        rd, rdw, rdb = tfr.fused_residual_layer_norm_bwd_plain(
+            f32[0], f32[1], mean, rstd, r, f32[3])
+        assert float((d.float() - rd).abs().max()) <= lim(rd)
+        for g_, ref, terms in ((dw, rdw, f32[3] * xhat),
+                               (db, rdb, f32[3])):
+            tol = lim(ref) if bf else 1e-5 * float(
+                terms.abs().sum(0).max())
+            assert float((g_.float() - ref).abs().max()) <= tol
+    again = tfr.fused_residual_layer_norm_bwd(res, w, mean, rstd, dres, dn)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_layer_bwd_one_element_loads_on_card(cuda, wdtype):
+    """bf16 rows one element off 16-byte alignment (the kernel's
+    one-element path, 4 warps a row) beside fp32 and bf16 weights: the
+    plain version's results within one bf16 rounding, dw and db in the
+    weights' dtype."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    n, h = 8191, 768
+
+    def rows():
+        flat = torch.randn(n * h + 1, generator=gen, device=cuda)
+        return flat.to(torch.bfloat16)[1:].view(n, h)
+    res, dres, dn = rows(), rows(), rows()
+    assert res.data_ptr() % 16
+    w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=cuda)).to(wdtype)
+    mean = res.float().mean(1, keepdim=True)
+    rstd = torch.rsqrt((res.float() - mean).square().mean(1, keepdim=True)
+                       + 1e-5)
+    d, dw, db = tfr.fused_residual_layer_norm_bwd(res, w, mean, rstd, dres,
+                                                  dn)
+    assert dw.dtype == db.dtype == wdtype
+    rd, rdw, rdb = tfr.fused_residual_layer_norm_bwd_plain(
+        res.float(), w.float(), mean, rstd, dres.float(), dn.float())
+    for got, ref in ((d, rd), (dw, rdw), (db, rdb)):
+        assert float((got.float() - ref).abs().max()) <= (
+            2.0 ** -8 * float(ref.abs().max()) + 1e-6)

@@ -373,6 +373,177 @@ def test_weight_vectors_keep_a_dtype_the_kernels_read(wd, bd, want):
     assert torch.equal(wk.float(), w.float())
 
 
+# ------------------------------------------ the Layer backward's plan --
+def _largest_h(dtype):
+    """The widest row the kernels take with 16-byte loads (the row
+    template's 8 chunks a thread of 256)."""
+    return 8 * 256 * (16 // dtype.itemsize)
+
+
+@pytest.mark.parametrize("dtype,h,want", [
+    (torch.float32, 64, (1, 1)), (torch.float32, 768, (2, 3)),
+    (torch.float32, 1024, (4, 2)), (torch.float32, 4096, (8, 4)),
+    (torch.float32, _largest_h(torch.float32), (8, 8)),
+    (torch.bfloat16, 64, (1, 1)), (torch.bfloat16, 768, (1, 3)),
+    (torch.bfloat16, 1024, (2, 2)), (torch.bfloat16, 4096, (8, 2)),
+    (torch.bfloat16, _largest_h(torch.bfloat16), (8, 8))])
+def test_ln_bwd_group_picks_the_fewest_warps(dtype, h, want):
+    """G is the fewest warps (1, 2, 4, 8) that hold a row with at most 3
+    16-byte chunks a lane (24 bf16 or 12 fp32 elements); K the chunks a
+    lane then takes. At GPT-124M's 768 every lane is busy with 3 chunks:
+    one warp a row in bf16, two in fp32."""
+    esize = dtype.itemsize
+    G, K = tn.ln_bwd_group(h, esize)
+    assert (G, K) == want
+    chunks = h * esize // 16
+    assert chunks <= 32 * G * K                       # the row fits
+    if G > 1:                                         # and no fewer do
+        assert -(-chunks // (16 * G)) > tn.LN_LANE_MOST
+    if h == 768:
+        assert chunks == 32 * G * K == 32 * G * 3     # every lane busy
+
+
+def test_ln_bwd_group_one_element_loads_and_the_limit():
+    """Without 16-byte loads (a row not a multiple of 16 bytes, or data
+    not aligned) a lane takes at most 8 elements; the widest such row the
+    kernels take (2048) fits 8 warps, one more does not."""
+    assert tn.ln_bwd_group(203, 4, vec=False) == (1, 8)
+    assert tn.ln_bwd_group(768, 2, vec=False) == (4, 6)
+    assert tn.ln_bwd_group(2048, 4, vec=False) == (8, 8)
+    with pytest.raises(ValueError, match="exceeds"):
+        tn.ln_bwd_group(2049, 4, vec=False)
+    with pytest.raises(ValueError, match="exceeds"):
+        tn.ln_bwd_group(_largest_h(torch.bfloat16) + 8, 2)
+
+
+def _plan_rows(p, n):
+    """Each (CTA, group)'s rows, as the kernel walks them."""
+    return {(b, q): list(range(b * p["groups"] + q, n, p["stride"]))
+            for b in range(p["ctas"]) for q in range(p["groups"])}
+
+
+def _column_ranges(ctas, cols, threads=256):
+    """Each CTA's ranges of the final sums' columns, and W, their width:
+    CTA b takes ranges b, b + ctas, ... of W columns (a power of two from
+    8 to 256, at least cols / ctas), as ``slice_sums`` in
+    ``csrc/row_norm.cuh`` splits them."""
+    W = 8
+    while W < threads and W * ctas < cols:
+        W *= 2
+    return W, [[(c0, min(c0 + W, cols))
+                for c0 in range(b * W, cols, ctas * W)]
+               for b in range(ctas)]
+
+
+def _final_sums(part, threads=256):
+    """The kernel's column sums of ``part`` [ctas, cols] in fp32 and in
+    its order: thread t of a range takes column t % W and rows t // W,
+    t // W + 256 / W, ... in order; the threads of a warp on one column
+    meet in a shuffle tree, then the warps add in warp order."""
+    ctas, cols = part.shape
+    W, ranges = _column_ranges(ctas, cols, threads)
+    step, lanes = threads // W, max(32 // W, 1)
+    out = np.zeros(cols, np.float32)
+    for rs in ranges:
+        for c0, c1 in rs:
+            rows = [np.zeros(c1 - c0, np.float32) for _ in range(step)]
+            for r0 in range(step):
+                for r in range(r0, ctas, step):
+                    rows[r0] = rows[r0] + part[r, c0:c1]
+            warps = []
+            for w0 in range(0, step, lanes):
+                v = rows[w0:w0 + lanes]
+                o = lanes // 2
+                while o:
+                    v = [v[j] + v[j ^ o] for j in range(lanes)]
+                    o //= 2
+                warps.append(v[0])
+            tot = warps[0]
+            for v in warps[1:]:
+                tot = tot + v
+            out[c0:c1] = tot
+    return out
+
+
+@pytest.mark.parametrize("n,h,dtype,sms,cps", [
+    (1, 768, torch.bfloat16, 132, 2), (7, 64, torch.float32, 132, 3),
+    (8191, 768, torch.bfloat16, 132, 2), (8192, 768, torch.float32, 132, 1),
+    (8192, 4096, torch.bfloat16, 132, 2), (300, 1024, torch.float32, 4, 2),
+    (100000, 768, torch.bfloat16, 132, 2)])
+def test_ln_bwd_plan_covers_every_row_once(n, h, dtype, sms, cps):
+    """Every row is taken by exactly one group; no more CTAs than the
+    card holds resident (a cooperative launch), and none without a row;
+    the CTAs' column slices of the final sums cover every column once;
+    the scratch holds a partial row a CTA."""
+    p = tn.ln_bwd_plan(n, h, dtype, sms, cps)
+    G, K = tn.ln_bwd_group(h, dtype.itemsize)
+    assert (p["G"], p["K"], p["groups"]) == (G, K, 8 // G)
+    assert 1 <= p["ctas"] <= sms * cps
+    assert p["stride"] == p["ctas"] * p["groups"]
+    walks = _plan_rows(p, n)
+    rows = sorted(r for rs in walks.values() for r in rs)
+    assert rows == list(range(n))
+    assert all(any(walks[(b, q)] for q in range(p["groups"]))
+               for b in range(p["ctas"]))
+    assert p["cols"] % 4 == 0 and 2 * h <= p["cols"] < 2 * h + 4
+    _, ranges = _column_ranges(p["ctas"], p["cols"])
+    cols = sorted(c for rs in ranges for c0, c1 in rs
+                  for c in range(c0, c1))
+    assert cols == list(range(p["cols"]))
+    assert p["part_floats"] == p["ctas"] * p["cols"]
+
+
+def test_ln_bwd_scratch_is_what_the_plan_needs(monkeypatch):
+    """The wrappers' scratch (one per device and stream): at least the
+    plan's partial rows; a smaller plan reuses it, a larger one grows
+    it."""
+    monkeypatch.setattr(tn, "_ln_scratch", {})
+    dev = torch.device("cpu")
+    small = tn.ln_bwd_plan(8192, 768, torch.bfloat16, 132, 2)
+    part = tn.ln_bwd_scratch(dev, 0, small)
+    assert part.dtype == torch.float32
+    assert part.numel() == small["part_floats"]
+    again = tn.ln_bwd_scratch(dev, 0, tn.ln_bwd_plan(64, 768, torch.float32,
+                                                     132, 1))
+    assert again is part
+    big = tn.ln_bwd_plan(8192, 4096, torch.float32, 132, 2)
+    grown = tn.ln_bwd_scratch(dev, 0, big)
+    assert grown.numel() == big["part_floats"]
+    assert tn.ln_bwd_scratch(dev, 1, small) is not grown
+
+
+@pytest.mark.parametrize("n,h,sms,cps", [(300, 64, 4, 2), (7, 96, 132, 2),
+                                         (1000, 40, 3, 3),
+                                         (4000, 48, 132, 2)])
+def test_ln_bwd_sum_order_gives_the_sums(n, h, sms, cps):
+    """A model of the kernel's dw/db on its plan, in fp32: each group's
+    running sum over its rows, the CTA's groups in order, then for each
+    column its threads' running sums over every (256 / W)-th CTA, their
+    shuffle tree and the warps in order (:func:`_final_sums`). It gives
+    the plain version's sums (fp64 here) within fp32 rounding of the
+    column's sum of magnitudes."""
+    x, w, b, g = _inputs(n + h, n, h)
+    mean, rstd = (a.numpy() for a in tn.ln_stats(torch.tensor(x), 1e-5))
+    xhat = ((x - mean) * rstd).astype(np.float32)
+    p = tn.ln_bwd_plan(n, h, torch.float32, sms, cps)
+    walks = _plan_rows(p, n)
+    terms = np.zeros((n, p["cols"]), np.float32)
+    terms[:, :2 * h] = np.concatenate([g * xhat, g], axis=1)
+    part = []
+    for blk in range(p["ctas"]):
+        tot = np.zeros(p["cols"], np.float32)
+        for q in range(p["groups"]):
+            run = np.zeros(p["cols"], np.float32)
+            for r in walks[(blk, q)]:
+                run = run + terms[r]
+            tot = run if q == 0 else tot + run
+        part.append(tot)
+    got = _final_sums(np.array(part))
+    ref = terms.astype(np.float64).sum(axis=0)
+    mag = np.abs(terms.astype(np.float64)).sum(axis=0)
+    assert np.all(np.abs(got - ref) <= 1e-6 * mag + 1e-12)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -465,3 +636,100 @@ def test_kernels_read_weights_in_their_own_dtype_on_card(cuda, dtype,
     assert dw.dtype == db.dtype == mdw.dtype == wdtype
     for got, ref in ((dw, rdw), (db, rdb), (mdw, rmdw)):
         assert torch.equal(got, ref.to(wdtype))
+
+
+def _ln_bwd_inputs(cuda, n, h, dtype, wdtype=None, aligned=True, seed=5):
+    """x, g, w, b on the card (x and g offset by one element, so not
+    16-byte aligned, with ``aligned`` False), and the forward's stats."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rows():
+        flat = torch.randn(n * h + 1, generator=gen, device=cuda).to(dtype)
+        return (flat[:-1] if aligned else flat[1:]).view(n, h)
+    x, g = rows(), rows()
+    w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=cuda)).to(
+        wdtype or dtype)
+    b = torch.randn(h, generator=gen, device=cuda).to(wdtype or dtype)
+    _, mean, rstd = tn.layer_norm_fwd(x, w, b, LN_EPS)
+    return x, g, w, mean, rstd
+
+
+def _check_ln_bwd(got, x, w, mean, rstd, g, dres=None):
+    """(d, dw, db) against the plain version in fp32 on the same inputs:
+    fp32 within 1e-5 (dw, db within 1e-5 of their column's sum of
+    magnitudes), bf16 within one rounding of the largest value."""
+    d, dw, db = got
+    f32 = [t.float() for t in (x, w, g)]
+    rd, rdw, rdb = tn.layer_norm_bwd_plain(f32[0], f32[1], mean, rstd,
+                                           f32[2])
+    if dres is not None:
+        rd = rd + dres.float()
+    bf = x.dtype == torch.bfloat16
+
+    def lim(ref):
+        return 2.0 ** -8 * float(ref.abs().max()) + 1e-6 if bf else 1e-5
+    assert d.dtype == x.dtype and dw.dtype == db.dtype == w.dtype
+    assert float((d.float() - rd).abs().max()) <= lim(rd)
+    xh = (f32[0] - mean) * rstd
+    for got_, ref, terms in ((dw, rdw, f32[2] * xh), (db, rdb, f32[2])):
+        tol = (2.0 ** -8 * float(ref.abs().max()) + 1e-6
+               if w.dtype == torch.bfloat16 or bf
+               else 1e-5 * float(terms.abs().sum(0).max()))
+        assert float((got_.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 768, 1024, 4096, "largest"])
+@pytest.mark.parametrize("n", [1, 7, 8191, 8192])
+def test_layer_norm_bwd_kernel_matches_plain_on_card(cuda, n, h, dtype):
+    """The one-launch Layer backward (row 16) at every group size the
+    plan picks, ragged and tiny row counts: one launch a call, the plain
+    version's results."""
+    h = _largest_h(dtype) if h == "largest" else h
+    x, g, w, mean, rstd = _ln_bwd_inputs(cuda, n, h, dtype)
+    before = tn.layer_norm_bwd.launches
+    got = tn.layer_norm_bwd(x, w, mean, rstd, g)
+    torch.cuda.synchronize()
+    assert tn.layer_norm_bwd.launches == before + 1
+    _check_ln_bwd(got, x, w, mean, rstd, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_layer_norm_bwd_one_element_loads_and_weights_on_card(
+        cuda, aligned, wdtype):
+    """bf16 rows beside fp32 and bf16 weights, with 16-byte loads and
+    without (rows one element off alignment: the one-element path), and
+    h 203: the plain version's results, bitwise equal on a second run."""
+    for n, h in ((8191, 768), (37, 203)):
+        x, g, w, mean, rstd = _ln_bwd_inputs(cuda, n, h, torch.bfloat16,
+                                             wdtype, aligned)
+        got = tn.layer_norm_bwd(x, w, mean, rstd, g)
+        _check_ln_bwd(got, x, w, mean, rstd, g)
+        again = tn.layer_norm_bwd(x, w, mean, rstd, g)
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_backwards_of_no_rows_on_card(cuda):
+    """No rows: every norm backward returns the empty sums, dw and db
+    zero, and counts no launch (its kernels do not run)."""
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as tfr
+    x = torch.empty(0, 768, device=cuda)
+    s = torch.empty(0, 1, device=cuda)
+    w = torch.ones(768, device=cuda)
+    wrappers = (tn.rms_norm_bwd, tn.layer_norm_bwd,
+                tfr.fused_residual_rms_norm_bwd,
+                tfr.fused_residual_layer_norm_bwd)
+    before = [f.launches for f in wrappers]
+    got = [tn.rms_norm_bwd(x, w, s, x), tn.layer_norm_bwd(x, w, s, s, x),
+           tfr.fused_residual_rms_norm_bwd(x, w, s, None, x),
+           tfr.fused_residual_layer_norm_bwd(x, w, s, s, None, x)]
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+    for out in got:
+        assert out[0].shape == (0, 768)
+        for t in out[1:]:
+            assert t.shape == (768,) and not t.any()
