@@ -1,11 +1,12 @@
 """Compare checkouts of the PyTorch port on one CUDA card, in turns.
 
-    python3 chip_ab.py {flash,decode,train,glue,nbackend,rms,norm,qmm,qserve,gserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
+    python3 chip_ab.py {flash,decode,train,glue,nbackend,llama,rms,norm,qmm,qserve,gserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
     python3 chip_ab.py groups ROOT [NAME ...]
     python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
     python3 chip_ab.py stamps ROOT [decode|norm ...]
     python3 chip_ab.py gpt_plans ROOT
     python3 chip_ab.py ln_groups ROOT
+    python3 chip_ab.py norm_split ROOT [ROOT ...]
 
 Runs ``chip_smoke.py``'s flash-attention kernel cases (``flash``: kernel
 ms per case, forward and backward), THIS checkout's GPT-124M fused
@@ -14,15 +15,17 @@ B 8, 5 and 1, and a sha256 of the three fp32 kernels' outputs on fixed
 inputs) or its train phase (``train``: step
 ms, and the device busy ms and launches of the profiled step; ``glue``
 the same with ``train_glue_fusion`` on, ``nbackend`` under the norm
-backend), or THIS checkout's norm kernel cases (rows 9-16,
+backend; ``llama``: the LLaMA train phase glue off, glue on and under
+the norm backend, each one's step ms and its profiled step's device ms
+and launches), or THIS checkout's norm kernel cases (rows 9-16,
 ``chip_smoke.norm_kernel_phase``) on ROOT's kernels (``norm``: ms per
-case, and a sha256 of each norm kernel's outputs on fixed inputs, so
-that the kernels a PR leaves alone can be held bitwise equal to the
-parent's and a new one to itself), or the fused residual
-+ RMSNorm kernels on fixed inputs (``rms``: a sha256 of every output's
-bytes, so two checkouts' kernels can be held bitwise equal, and ms per
-launch), or the weight-only matmul's kernel cases (``qmm``: kernel ms
-per case), or the TP shard-local decode MLP's (row 6: ``partial``, the
+case, row 12's also without dres, and a sha256 of each norm kernel's
+outputs on fixed inputs, so that the kernels a PR leaves alone can be
+held bitwise equal to the parent's and a new one to itself), or the
+fused residual + RMSNorm kernels on fixed inputs (``rms``: a sha256 of
+the forward's outputs and one of the backward's, so two checkouts'
+kernels can be held bitwise equal, and ms per call), or the
+weight-only matmul's kernel cases (``qmm``: kernel ms per case), or the TP shard-local decode MLP's (row 6: ``partial``, the
 ``tp_partial_cases`` with the LLaMA-7B SwiGLU egress cases, row 5,
 beside them: kernel ms per case), both at THIS checkout's cases against
 ROOT's kernels, or the LLaMA-7B weight-only int8 serve phase (``qserve``:
@@ -54,18 +57,25 @@ egress ms (row 5 at B 8, 5 and 1, row 6 at a TP=2 rank's B 8 and 5).
 ``stamps`` builds a copy of ROOT's port under ``ROOT/_chipcopy/stamps/``
 whose GEMV (row 17), egress kernel (rows 5-6) and split-K ingress (row
 4) write ``%globaltimer`` stamps at their phases (x staged, slice done,
-sums done, grid barrier, exit), and so does the LayerNorm backward
-(rows 10 and 16: the first row's loads landed, rows done, partial row
+sums done, grid barrier, exit), and so does the norm backward (rows 10,
+12, 14 and 16: the first row's loads landed, rows done, partial row
 written, past the grid barrier, dw/db written), and prints for one call of
 each (``decode``: the GEMV and the LLaMA egress at the LLaMA-7B decode
 shapes, the GELU egress and the ingress at GPT-124M's; ``norm``: the
-LayerNorm backward at GPT-124M's training rows) the (min, median, max,
-count) over CTAs of each stamp, in us from the first CTA's start.
+LayerNorm backward at GPT-124M's training rows, the RMS backwards at
+LLaMA-7B's) the (min, median, max, count) over CTAs of each stamp, in
+us from the first CTA's start.
 
-``ln_groups`` times the LayerNorm backward (rows 10 and 16 at GPT-124M's
-rows) on ROOT's kernels under other plans: the most chunks a lane holds
-before a row takes more warps (``norms.LN_LANE_MOST``), in turns,
-and one CTA an SM; and after an L2 flush that reads, not writes.
+``ln_groups`` times the norm backward (rows 10 and 16 at GPT-124M's
+rows, rows 12 and 14 at LLaMA-7B's) on ROOT's kernels under other
+plans: the most chunks a lane holds before a row takes more warps
+(``norms.LN_LANE_MOST``), in turns, and every count of CTAs an SM (the
+partial rows' count too); and after an L2 flush that reads, not
+writes.
+
+``norm_split`` profiles ROOT's RMS backwards (rows 12 and 14) at
+LLaMA-7B's rows and prints each call's device time by kernel: the row
+kernel, a second sum kernel, the casts.
 
 ``gpt_plans`` times GPT-124M's split-K ingress at several K-slices a
 head, and an empty launch, in one process on ROOT's kernels.
@@ -161,14 +171,20 @@ def _one(what, root):
     elif what.startswith("stamps"):
         out = _stamps(chip_smoke, what.split(":")[1].split(","))
     elif what == "norm":
-        # this checkout's cases (no launch check: an older tree's
-        # LayerNorm backward is two launches), ROOT's kernels
-        out = {name: {r["case"]: r["ms"] for r in rs} for name, rs in
-               _cases().norm_kernel_phase(0, "", check_launches=False)
-               .items()}
+        # this checkout's cases (no launch check: an older tree's RMS
+        # backwards are several launches), ROOT's kernels
+        out = {}
+        for name, rs in _cases().norm_kernel_phase(
+                0, "", check_launches=False).items():
+            out[name] = {r["case"]: r["ms"] for r in rs}
+            out[name].update({r["case"] + "_without_dres":
+                              r["ms_without_dres"] for r in rs
+                              if "ms_without_dres" in r})
         out["sha256"] = _norm_digests()
     elif what == "ln_groups":
         out = _ln_groups(chip_smoke)
+    elif what == "norm_split":
+        out = _norm_split(chip_smoke)
     elif what in ("qmm", "partial"):
         # this checkout's cases, ROOT's kernels (ROOT is first on sys.path)
         cases = _cases()
@@ -255,6 +271,24 @@ def _one(what, root):
                        "device_ms_per_step"],
                    mixed_steps=q["stats"]["mixed_steps"],
                    decode_dispatches=q["decode_dispatches"])
+    elif what == "llama":
+        # ROOT's LLaMA train phase (4 layers at LLaMA-7B width, 2 x 2048)
+        # glue off, glue on and under the norm backend, one draw
+        from paddle_tpu_torch.models import llama_state_from_jax
+        cfg = chip_smoke.llama_train_config()
+        state = llama_state_from_jax(
+            chip_smoke.jax_layout_llama_weights(cfg, 0))
+        out = {}
+        for tag, glue, backend in (("glue_off", False, False),
+                                   ("glue_on", True, False),
+                                   ("norm_backend", False, True)):
+            tr = chip_smoke.llama_train_phase(0, glue, cfg, state=state,
+                                              norm_backend=backend)
+            out[tag] = {"step_ms": tr["step_ms"],
+                        "busy_ms": tr["profile"]["busy_ms"],
+                        "busy_share": tr["profile"]["busy_share"],
+                        "launches": tr["profile"]["launches"]}
+            del tr
     else:
         # an older checkout's train_phase may not take ``glue``
         kw = {"glue": dict(glue=True),
@@ -352,11 +386,11 @@ def _gpt_plans(chip_smoke):
 
 
 def _rms_digests(chip_smoke):
-    """sha256 of the fused residual + RMSNorm kernels' outputs (forward,
-    backward with and without dres) on inputs drawn from seed 0 at the
-    LLaMA-7B rows (bf16, fp32) and 4093 rows, and ms per launch."""
-    import hashlib
-
+    """sha256 of the fused residual + RMSNorm kernels' outputs, the
+    forward's (row 11) apart from the backward's (row 12, with and
+    without dres), on inputs drawn from seed 0 at the LLaMA-7B rows
+    (bf16, w bf16; fp32) and 4093 rows, and ms per call behind the
+    device spin."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
@@ -374,18 +408,20 @@ def _rms_digests(chip_smoke):
         d, dw = fr.fused_residual_rms_norm_bwd(res, w, rstd, dres, dn)
         d0, dw0 = fr.fused_residual_rms_norm_bwd(res, w, rstd, None, dn)
         torch.cuda.synchronize()
-        h = hashlib.sha256()
-        for t in (res, normed, rstd, d, dw, d0, dw0):
-            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes())
         out[name] = {
-            "sha256": h.hexdigest(),
+            "fwd_sha256": _digest((res, normed, rstd)),
+            "bwd_sha256": _digest((d, dw, d0, dw0)),
             "fwd_ms": chip_smoke._time_ms(
                 lambda: fr.fused_residual_rms_norm_fwd(x, y, w, 1e-6), 50,
-                flush),
+                flush, spin=True),
             "bwd_ms": chip_smoke._time_ms(
                 lambda: fr.fused_residual_rms_norm_bwd(res, w, rstd, dres,
-                                                       dn), 50, flush)}
+                                                       dn), 50, flush,
+                spin=True),
+            "bwd_ms_without_dres": chip_smoke._time_ms(
+                lambda: fr.fused_residual_rms_norm_bwd(res, w, rstd, None,
+                                                       dn), 50, flush,
+                spin=True)}
     return out
 
 
@@ -439,12 +475,68 @@ def _norm_digests():
     return {k: _digest(ts) for k, ts in sorted(outs.items())}
 
 
+def _norm_split(chip_smoke, calls=20):
+    """How a call of each RMS backward at LLaMA-7B's rows (``[4096,
+    4096]``) divides among its device kernels: row 12 bf16 (w bf16, as
+    under O2) with dres and without, row 14 fp32 and bf16. For each,
+    ``torch.profiler`` over ``calls`` calls, each after the L2 flush (its
+    fill kernel is listed too): device us a call and launches by kernel;
+    and the call's ms behind the device spin (``_time_ms``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
+    from paddle_tpu_torch.ops.cuda import norms as nm
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = h = 4096
+    out = {}
+    for name, dt, fused, with_dres in (
+            ("row12_bf16", torch.bfloat16, True, True),
+            ("row12_bf16_no_dres", torch.bfloat16, True, False),
+            ("row14_f32", torch.float32, False, False),
+            ("row14_bf16", torch.bfloat16, False, False)):
+        x, dres, g = (torch.randn(n, h, generator=gen, device="cuda")
+                      .to(dt) for _ in range(3))
+        w = (1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+             ).to(dt)
+        rstd = torch.rsqrt(x.float().square().mean(1, keepdim=True) + 1e-6)
+        if fused:
+            d = dres if with_dres else None
+            fn = (lambda x=x, w=w, r=rstd, d=d, g=g:
+                  fr.fused_residual_rms_norm_bwd(x, w, r, d, g))
+        else:
+            fn = (lambda x=x, w=w, r=rstd, g=g:
+                  nm.rms_norm_bwd(x, w, r, g))
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        by = {e.key[:120]: {"us_a_call": e.self_device_time_total / calls,
+                            "launches_a_call": e.count / calls}
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0}
+        out[name] = {"kernels": by,
+                     "ms": chip_smoke._time_ms(fn, 50, flush, spin=True)}
+        del x, dres, g
+    return out
+
+
 def _ln_groups(chip_smoke):
-    """The LayerNorm backward at GPT-124M's rows (row 10: ``[8192, 768]``
-    bf16 with dres, and fp32; row 16: fp32) under LN_LANE_MOST 3 (the
-    plan's), 6 and 1 16-byte chunks a lane, in turns (ms behind the
-    device spin, L2 flushed), with each plan's G; then at one CTA an SM,
-    and after a flush that leaves the L2 clean."""
+    """The norm backward under other plans (ms behind the device spin, L2
+    flushed), at GPT-124M's rows (row 10: ``[8192, 768]`` bf16 with dres,
+    and fp32; row 16: fp32) and LLaMA-7B's (row 12: ``[4096, 4096]`` bf16,
+    w bf16, with dres and without; row 14: fp32): LN_LANE_MOST 3 (the
+    plan's), 4, 6 and 1 16-byte chunks a lane, in turns, with each plan's
+    G; then every count of CTAs an SM from one to the most the SMs hold
+    (each CTA writes one partial row, so this is also the partial rows'
+    count), in turns; and after a flush that leaves the L2 clean."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
@@ -452,28 +544,38 @@ def _ln_groups(chip_smoke):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
-    for name, dt, fused in (("row10_bf16", torch.bfloat16, True),
-                            ("row10_f32", torch.float32, True),
-                            ("row16_f32", torch.float32, False)):
-        x, dres, g = (torch.randn(8192, 768, generator=gen, device="cuda")
+    for name, norm, n, h, dt, fused, with_dres in (
+            ("row10_bf16", nm._LAYER, 8192, 768, torch.bfloat16, True, True),
+            ("row10_f32", nm._LAYER, 8192, 768, torch.float32, True, True),
+            ("row16_f32", nm._LAYER, 8192, 768, torch.float32, False, False),
+            ("row12_bf16", nm._RMS, 4096, 4096, torch.bfloat16, True, True),
+            ("row12_bf16_no_dres", nm._RMS, 4096, 4096, torch.bfloat16, True,
+             False),
+            ("row14_f32", nm._RMS, 4096, 4096, torch.float32, False, False)):
+        x, dres, g = (torch.randn(n, h, generator=gen, device="cuda")
                       .to(dt) for _ in range(3))
-        w = (1.0 + 0.1 * torch.randn(768, generator=gen, device="cuda")
+        w = (1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
              ).to(dt)
         _, mean, rstd = nm.layer_norm_fwd(x, w, torch.zeros_like(w))
-        if fused:
-            fn = (lambda x=x, w=w, m=mean, r=rstd, d=dres, g=g:
-                  fr.fused_residual_layer_norm_bwd(x, w, m, r, d, g))
+        d = dres if with_dres else None
+        if norm == nm._RMS:
+            fn = (lambda x=x, w=w, r=rstd, d=d, g=g:
+                  fr.fused_residual_rms_norm_bwd(x, w, r, d, g)) if fused \
+                else (lambda x=x, w=w, r=rstd, g=g:
+                      nm.rms_norm_bwd(x, w, r, g))
         else:
-            fn = (lambda x=x, w=w, m=mean, r=rstd, g=g:
-                  nm.layer_norm_bwd(x, w, m, r, g))
-        cases.append((name, dt, fn))
+            fn = (lambda x=x, w=w, m=mean, r=rstd, d=d, g=g:
+                  fr.fused_residual_layer_norm_bwd(x, w, m, r, d, g)) \
+                if fused else (lambda x=x, w=w, m=mean, r=rstd, g=g:
+                               nm.layer_norm_bwd(x, w, m, r, g))
+        cases.append((name, norm, h, dt, fn))
     keep = nm.LN_LANE_MOST
     out = {}
     try:
-        for most in (3, 6, 1, 3):
+        for most in (3, 4, 6, 1, 3):
             nm.LN_LANE_MOST = most
-            for name, dt, fn in cases:
-                G, _ = nm.ln_bwd_group(768, dt.itemsize)
+            for name, norm, h, dt, fn in cases:
+                G, _ = nm.ln_bwd_group(h, dt.itemsize, norm=norm)
                 out.setdefault(f"{name}_G{G}", []).append(
                     chip_smoke._time_ms(fn, 50, flush, spin=True))
     finally:
@@ -485,13 +587,20 @@ def _ln_groups(chip_smoke):
             flush.sum()
 
     occ = dict(nm._ln_occupancy)
-    for name, dt, fn in cases:
-        # the plan's grid against one CTA an SM, and after a flush that
-        # leaves the L2 clean (``_time_ms``'s write leaves it dirty)
-        nm._ln_occupancy.update({k: 1 for k in occ})
-        out[f"{name}_1cta_per_sm"] = chip_smoke._time_ms(fn, 50, flush,
-                                                         spin=True)
-        nm._ln_occupancy.update(occ)
+    for name, norm, h, dt, fn in cases:
+        fn()  # its occupancy in the cache
+        G, _ = nm.ln_bwd_group(h, dt.itemsize, norm=norm)
+        keys = [k for k in nm._ln_occupancy
+                if k[2:] == (norm, dt, True, h, G)]
+        most = min(nm._ln_occupancy[k] for k in keys)
+        turns = list(range(most, 0, -1)) + list(range(1, most + 1))
+        try:
+            for c in turns:
+                nm._ln_occupancy.update({k: c for k in keys})
+                out.setdefault(f"{name}_{c}cta_per_sm", []).append(
+                    chip_smoke._time_ms(fn, 50, flush, spin=True))
+        finally:
+            nm._ln_occupancy.update(occ)
         out[f"{name}_clean_l2"] = chip_smoke._time_ms(fn, 50, ReadFlush(),
                                                       spin=True)
     return out
@@ -700,7 +809,7 @@ STAMPS = {
         [("  if (!is_last) return;", "  if (!is_last) {{ {} return; }}", 3),
          ("  write_head(p, os, keys, which, j);\n}\n\n// Rows the split kernel's",
           "  write_head(p, os, keys, which, j);\n  {}\n}}\n\n// Rows the split kernel's", 4)]),
-    # the LayerNorm backward: 0 entry, 1 the first row's loads landed
+    # the norm backward: 0 entry, 1 the first row's loads landed
     # (thread 0's), 2 its group's rows done, 3 the CTA's partial row
     # written, 4 past the grid barrier, 5 its slice of dw/db written
     "row_norm.cuh": (
@@ -864,32 +973,52 @@ def _stamps(chip_smoke, which=STAMP_SETS):
 
 
 def _norm_stamps(trace, rn, sms):
-    """The LayerNorm backward's stamps (``_stamps``): row 10 at
-    ``[8192, 768]`` bf16 with dres and fp32, row 16 fp32, each on its own
-    library's plan."""
+    """The norm backward's stamps (``_stamps``): row 10 at ``[8192,
+    768]`` bf16 with dres and fp32, row 16 fp32; row 12 at ``[4096,
+    4096]`` bf16 (w bf16) with dres and without, row 14 fp32; each on its
+    own library's plan."""
     import torch
 
     from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
     from paddle_tpu_torch.ops.cuda import norms as nm
     out = {}
-    n, h = 8192, 768
-    for name, lib, dt, entries in (
-            ("row10_bf16", "fused_residual_norm", torch.bfloat16,
-             fr._kernels()[6]),
-            ("row10_f32", "fused_residual_norm", torch.float32,
-             fr._kernels()[6]),
-            ("row16_f32", "norms", torch.float32, nm._kernels()[5])):
+    for name, lib, norm, dt, n, h, with_dres in (
+            ("row10_bf16", "fused_residual_norm", nm._LAYER, torch.bfloat16,
+             8192, 768, True),
+            ("row10_f32", "fused_residual_norm", nm._LAYER, torch.float32,
+             8192, 768, True),
+            ("row16_f32", "norms", nm._LAYER, torch.float32, 8192, 768,
+             False),
+            ("row12_bf16", "fused_residual_norm", nm._RMS, torch.bfloat16,
+             4096, 4096, True),
+            ("row12_bf16_no_dres", "fused_residual_norm", nm._RMS,
+             torch.bfloat16, 4096, 4096, False),
+            ("row14_f32", "norms", nm._RMS, torch.float32, 4096, 4096,
+             False)):
         x, dres, g = (rn(n, h).to(dt) for _ in range(3))
         w = (1.0 + rn(h, std=0.1)).to(dt)
-        _, mean, rstd = nm.layer_norm_fwd(x, w, torch.zeros_like(w))
-        G, _ = nm.ln_bwd_group(h, dt.itemsize)
+        mean = x.float().mean(1, keepdim=True)
+        rstd = torch.rsqrt(x.float().var(1, keepdim=True) + 1e-5)
+        if norm == nm._RMS:
+            mean = None
+            rstd = torch.rsqrt(x.float().square().mean(1, keepdim=True)
+                               + 1e-6)
+        d = dres if with_dres else None
+        entries = (nm._kernels() if lib == "norms" else fr._kernels())[-1]
+        G, _ = nm.ln_bwd_group(h, dt.itemsize, norm=norm)
         plan = nm.ln_bwd_plan(n, h, dt, sms,
-                              entries[1](nm.DTYPE_CODE[dt], 1, h, G))
-        if lib == "norms":
+                              entries[1](norm, nm.DTYPE_CODE[dt], 1, h, G),
+                              norm=norm)
+        if lib == "norms" and norm == nm._RMS:
+            fn = lambda: nm.rms_norm_bwd(x, w, rstd, g)  # noqa: E731
+        elif lib == "norms":
             fn = lambda: nm.layer_norm_bwd(x, w, mean, rstd, g)  # noqa
+        elif norm == nm._RMS:
+            fn = lambda: fr.fused_residual_rms_norm_bwd(  # noqa: E731
+                x, w, rstd, d, g)
         else:
             fn = lambda: fr.fused_residual_layer_norm_bwd(  # noqa: E731
-                x, w, mean, rstd, dres, g)
+                x, w, mean, rstd, d, g)
         out[name] = dict(trace(lib, fn, plan["ctas"], 6), plan=plan)
         del x, dres, g
     return out
@@ -938,7 +1067,8 @@ def main(argv):
                                         "qserve", "gserve", "partial",
                                         "attn", "opt", "attn_splits",
                                         "attn_probe", "gpt_plans",
-                                        "ln_groups"):
+                                        "ln_groups", "norm_split",
+                                        "llama"):
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv[1:]:

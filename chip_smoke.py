@@ -2453,7 +2453,7 @@ def rms_cases(seed, power, flush):
     """The fused residual + RMSNorm forward and backward kernels against
     their plain versions: the LLaMA train phase's rows (x, y ``[4096,
     4096]`` bf16, w bf16, as under O2), fp32, and 4093 rows (not a
-    multiple of the backward CTA's 8); bf16 ``normed`` within two bf16
+    multiple of anything); bf16 ``normed`` within two bf16
     roundings (its residual sum is rounded before the stats, as the TPU
     kernel does, and the plain version in fp32 does not round it).
     ``unfused_ms`` times the glue-off
@@ -2461,7 +2461,10 @@ def rms_cases(seed, power, flush):
     auto_cast (forward) and autograd's backward of that chain. No single
     PyTorch call computes either function (``library_ms`` null). The
     fp32 dw is held to 1e-5 of its column's sum of |dnormed * xhat|: a
-    sum over 4096 rows in another order."""
+    sum over 4096 rows in another order. The backward is timed with dres
+    and, as ``ms_without_dres`` (the final norm's call: 3 tensors read,
+    not 4), without. Every time is taken behind the device spin of
+    :func:`_time_ms`."""
     from paddle_tpu_torch import amp, ops
     from paddle_tpu_torch.nn import functional as PF
     from paddle_tpu_torch.ops.cuda import fused_residual_norm as fr
@@ -2514,43 +2517,42 @@ def rms_cases(seed, power, flush):
                 return r, PF.rms_norm(r, wg, epsilon=eps)
 
         with torch.no_grad():
-            unf_f = _time_ms(glue_off, 20, flush)
+            unf_f = _time_ms(glue_off, 20, flush, spin=True)
         r_u, h_u = glue_off()
         unf_b = _time_ms(lambda: torch.autograd.grad(
             (r_u, h_u), (xg, yg, wg), (dres.to(r_u.dtype),
                                        dn.to(h_u.dtype)),
-            retain_graph=True), 10, flush)
+            retain_graph=True), 10, flush, spin=True)
         del r_u, h_u, xg, yg, wg
         esize = x.element_size()
         rows_bytes = n * h * esize
-        specs = (
-            (fwd_rows, ferrs, unf_f,
-             lambda: fr.fused_residual_rms_norm_fwd(x, y, w, eps),
-             lambda: fr.fused_residual_rms_norm_fwd_plain(x, y, w, eps),
-             # x, y, w read; res, normed, rstd written
-             4 * rows_bytes + h * esize + 4 * n, "fwd"),
-            (bwd_rows, berrs, unf_b,
-             lambda: fr.fused_residual_rms_norm_bwd(res, w, rstd, dres, dn),
-             lambda: fr.fused_residual_rms_norm_bwd_plain(res, w, rstd, dres,
-                                                          dn),
-             # res, dres, dnormed, w, rstd read; d, dw written
-             4 * rows_bytes + 2 * h * esize + 4 * n, "bwd"))
-        for rows, errs, unf, fn, pfn, nbytes, which in specs:
-            ms = _time_ms(fn, 50, flush)
-            plain_ms = _time_ms(pfn, 10, flush)
-            bound_ms, bound_by = _fp32_bound(nbytes, 8 * n * h)
-            row = dict(case=name, max_abs_err=max(e for e, _ in errs.values()),
-                       tolerance={k: lim for k, (_, lim) in errs.items()},
-                       ms=ms, plain_ms=plain_ms, unfused_ms=unf,
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       library_ms=None, library="none: no single call",
-                       rows=[n, h], dtype=str(dt).replace("torch.", ""))
-            log(f"kernel fused_residual_rms_norm_{which} {name} [{n}, {h}] "
-                f"{row['dtype']}: max_abs_err {row['max_abs_err']:.3g}, "
-                f"{ms:.4f} ms (plain {plain_ms:.4f} ms, unfused chain "
-                f"{unf:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
-                f"{bound_ms / ms:.1%} of bound) on {power}")
-            rows.append(row)
+        # without dres: res, dnormed, w, rstd read; d, dw written
+        nodres = _time_ms(lambda: fr.fused_residual_rms_norm_bwd(
+            res, w, rstd, None, dn), 50, flush, spin=True)
+        nodres_bound, _ = _fp32_bound(3 * rows_bytes + 2 * h * esize + 4 * n,
+                                      6 * n * h)
+        for rows, errs, unf, fn, pfn, nbytes, flops, which, more in (
+                (fwd_rows, ferrs, unf_f,
+                 lambda: fr.fused_residual_rms_norm_fwd(x, y, w, eps),
+                 lambda: fr.fused_residual_rms_norm_fwd_plain(x, y, w, eps),
+                 # x, y, w read; res, normed, rstd written
+                 4 * rows_bytes + h * esize + 4 * n, 8 * n * h, "fwd", {}),
+                (bwd_rows, berrs, unf_b,
+                 lambda: fr.fused_residual_rms_norm_bwd(res, w, rstd, dres,
+                                                        dn),
+                 lambda: fr.fused_residual_rms_norm_bwd_plain(
+                     res, w, rstd, dres, dn),
+                 # res, dres, dnormed, w, rstd read; d, dw written
+                 4 * rows_bytes + 2 * h * esize + 4 * n, 8 * n * h, "bwd",
+                 dict(ms_without_dres=nodres,
+                      bound_ms_without_dres=nodres_bound))):
+            _row_case(rows, name, f"fused_residual_rms_norm_{which}", errs,
+                      _time_ms(fn, 50, flush, spin=True),
+                      _time_ms(pfn, 10, flush, spin=True), nbytes, flops,
+                      power, (n, h), dt, unfused_ms=unf, **more)
+        log(f"kernel fused_residual_rms_norm_bwd {name} without dres: "
+            f"{nodres:.4f} ms (bound {nodres_bound:.4f} ms, "
+            f"{nodres_bound / nodres:.1%} of it) on {power}")
         del x, y, w, dres, dn, res, normed, rstd, d, dw
         torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
@@ -2559,11 +2561,9 @@ def rms_cases(seed, power, flush):
 def llama_kernel_phase(seed, power):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rope_rows = rope_cases(seed, power, flush)
-    fwd, bwd = rms_cases(seed, power, flush)
     del flush
     torch.cuda.empty_cache()
-    return {"rope": rope_rows, "fused_residual_rms_norm_fwd": fwd,
-            "fused_residual_rms_norm_bwd": bwd}
+    return {"rope": rope_rows}
 
 
 # -------------------------------------------------------- norm kernels --
@@ -2703,10 +2703,12 @@ def norm_cases(seed, power, flush):
     :func:`ln_pair_cases` (bf16: one rounding). ``library_ms`` times
     ``torch.nn.functional.layer_norm`` / ``rms_norm`` forward; for the
     LayerNorm backward ``torch.ops.aten.native_layer_norm_backward``, the
-    one call that computes dx, dw and db from the same inputs and stats
-    (its largest gap to the plain version kept as
-    ``library_max_abs_err``), for the RMS backward autograd's backward of
-    ``F.rms_norm``; autograd's backward of the forward call (one
+    one call that computes dx, dw and db from the same inputs and stats,
+    for the RMS backward ``torch.ops.aten._fused_rms_norm_backward``, the
+    one that computes dx and dw from the same inputs and rstd (where this
+    torch has it; else autograd's backward of ``F.rms_norm``, and the log
+    says so); their largest gap to the plain version kept as
+    ``library_max_abs_err``; autograd's backward of the forward call (one
     ``torch.autograd.grad``) is kept as ``library_autograd_ms`` for both.
     All behind the device spin, as :func:`ln_pair_cases`."""
     import torch.nn.functional as TF
@@ -2793,19 +2795,37 @@ def norm_cases(seed, power, flush):
         del lo, xg, wg, bg
         lib_b, lib_err = lib_ag, None
         if layer:
+            bwd_lib = "torch.ops.aten.native_layer_norm_backward"
+
             def aten_bwd():
                 return torch.ops.aten.native_layer_norm_backward(
                     g, x, [h], mean, rstd, w, b, [True, True, True])
+        else:
+            # the one call where this torch has it; a yardstick only, so
+            # where it is missing or refuses these inputs the autograd
+            # time stands in and the log says why
+            bwd_lib = "torch.ops.aten._fused_rms_norm_backward"
+
+            def aten_bwd():
+                return torch.ops.aten._fused_rms_norm_backward(
+                    g, x, [h], rstd, w, [True, True])
+            try:
+                aten_bwd()
+            except (AttributeError, RuntimeError, NotImplementedError) as e:
+                aten_bwd = None
+                bwd_lib = ("torch.nn.functional.rms_norm backward "
+                           "(autograd.grad); aten._fused_rms_norm_backward: "
+                           f"{str(e).splitlines()[0][:120]}")
+                log(f"{kname}_bwd {name}: {bwd_lib}")
+        if aten_bwd is not None:
+            refs = (rdx, rdw, rdb) if layer else (rdx, rdw)
             lib_err = max(float((got.float() - ref).abs().max())
-                          for got, ref in zip(aten_bwd(), (rdx, rdw, rdb)))
+                          for got, ref in zip(aten_bwd(), refs))
             lib_b = _time_ms(aten_bwd, 20, flush, spin=True)
         esize = x.element_size()
         rows_bytes = n * h * esize
         nvec = 2 if layer else 1     # w (and b) read; dw (and db) written
         nstat = 8 * n if layer else 4 * n
-        bwd_lib = ("torch.ops.aten.native_layer_norm_backward" if layer
-                   else "torch.nn.functional.rms_norm backward "
-                   "(autograd.grad)")
         for which, errs, fn, pfn, lib_ms, nbytes, flops, more in (
                 ("fwd", ferrs, fwd, pfwd, lib_f,
                  2 * rows_bytes + nvec * h * esize + nstat, 8 * n * h,
@@ -2826,11 +2846,13 @@ def norm_cases(seed, power, flush):
 
 
 def ln_bwd_launches(seed, calls=4):
-    """The device kernels of ``calls`` calls of each LayerNorm backward
-    wrapper (rows 10 and 16) at GPT-124M's rows, from ``torch.profiler``:
-    each call is one launch of ``ln_bwd_kernel`` and nothing else (no
-    ``partial_sum_kernel``). The profiler's records can drop a kernel
-    (seen once in 256), so one fewer is let pass."""
+    """The device kernels of ``calls`` calls of each norm backward wrapper,
+    from ``torch.profiler``: rows 10 and 16 at GPT-124M's rows (``[8192,
+    768]``), rows 12 (bf16, w bf16 as under O2, with dres and without)
+    and 14 (fp32) at LLaMA-7B's (``[4096, 4096]``). Each call is one
+    launch of ``ln_bwd_kernel`` and nothing else: no second sum kernel,
+    no cast of w or dw. The profiler's records can drop a kernel (seen
+    once in 256), so one fewer is let pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2838,20 +2860,32 @@ def ln_bwd_launches(seed, calls=4):
     from paddle_tpu_torch.ops.cuda import norms as nm
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     out = {}
-    for name, dt, call in (
-            ("fused_residual_layer_norm_bwd", torch.bfloat16,
-             lambda x, w, m, r, g: fr.fused_residual_layer_norm_bwd(
-                 x, w, m, r, g, g)),
-            ("layer_norm_bwd", torch.float32, nm.layer_norm_bwd)):
-        x, g = (torch.randn(8192, 768, generator=gen, device="cuda").to(dt)
+    for name, h, dt, call in (
+            ("fused_residual_layer_norm_bwd", 768, torch.bfloat16,
+             lambda x, w, r, g: fr.fused_residual_layer_norm_bwd(
+                 x, w, r, r, g, g)),
+            ("layer_norm_bwd", 768, torch.float32,
+             lambda x, w, r, g: nm.layer_norm_bwd(x, w, r, r, g)),
+            ("fused_residual_rms_norm_bwd", 4096, torch.bfloat16,
+             lambda x, w, r, g: fr.fused_residual_rms_norm_bwd(
+                 x, w, r, g, g)),
+            ("fused_residual_rms_norm_bwd_without_dres", 4096,
+             torch.bfloat16,
+             lambda x, w, r, g: fr.fused_residual_rms_norm_bwd(
+                 x, w, r, None, g)),
+            ("rms_norm_bwd", 4096, torch.float32, nm.rms_norm_bwd)):
+        n = 8192 if h == 768 else 4096
+        x, g = (torch.randn(n, h, generator=gen, device="cuda").to(dt)
                 for _ in range(2))
-        w = torch.ones(768, device="cuda", dtype=dt)
-        _, m, r = nm.layer_norm_fwd(x, w, torch.zeros_like(w))
-        call(x, w, m, r, g)
+        w = torch.ones(h, device="cuda", dtype=dt)
+        # the stats: a row's rstd (and, for LayerNorm, a zero mean: any
+        # fp32 [n, 1] serves to count launches)
+        r = torch.rsqrt(x.float().square().mean(1, keepdim=True) + 1e-6)
+        call(x, w, r, g)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
-                call(x, w, m, r, g)
+                call(x, w, r, g)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
@@ -2862,24 +2896,27 @@ def ln_bwd_launches(seed, calls=4):
             raise AssertionError(f"{name}: {calls} calls launched {names}")
         out[name] = dict(calls=calls, device_kernels=len(names),
                          ln_bwd_kernel=ln)
-        del x, g, w, m, r
+        del x, g, w, r
     return out
 
 
 def norm_kernel_phase(seed, power, check_launches=True):
     """Rows 9-16 against their plain versions (:func:`norm_cases`,
-    :func:`ln_pair_cases`); with ``check_launches``, each LayerNorm
-    backward call one launch (:func:`ln_bwd_launches`)."""
+    :func:`ln_pair_cases`, :func:`rms_cases`); with ``check_launches``,
+    each norm backward call one launch (:func:`ln_bwd_launches`)."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     rows = norm_cases(seed, power, flush)
     rows["fused_residual_layer_norm_fwd"], \
         rows["fused_residual_layer_norm_bwd"] = ln_pair_cases(seed, power,
                                                                flush)
+    rows["fused_residual_rms_norm_fwd"], \
+        rows["fused_residual_rms_norm_bwd"] = rms_cases(seed, power, flush)
     del flush
     if check_launches:
         for name, got in ln_bwd_launches(seed).items():
-            for row in rows[name]:
-                row["device_kernels_a_call"] = got
+            key = name.replace("_without_dres", "")
+            for row in rows[key]:
+                row.setdefault("device_kernels_a_call", {})[name] = got
     torch.cuda.empty_cache()
     return rows
 
@@ -2994,6 +3031,12 @@ def llama_train_phases(seed, power):
     on["vs_glue_off"] = _compare_runs("llama train", off, on, "glue on")
     backend["vs_glue_off"] = _compare_runs("llama train", off, backend,
                                            "norm backend")
+    log("llama train: device launches and device ms a step (profiled "
+        "step): " + "; ".join(
+            f"{tag} {r['profile']['launches']}, "
+            f"{r['profile']['busy_ms']:.3f} ms"
+            for tag, r in (("glue off", off), ("glue on", on),
+                           ("norm backend", backend))))
     return off, on, backend
 
 
@@ -3770,11 +3813,11 @@ def main(argv=None):
          llama_rows["rope"], llama_on["counts"]["rope"]),
         ("fused_residual_rms_norm_fwd", "fused_residual_norm.cu",
          "paddle_tpu/ops/pallas/fused_residual_norm.py:259",
-         llama_rows["fused_residual_rms_norm_fwd"],
+         norm_rows["fused_residual_rms_norm_fwd"],
          llama_on["counts"]["fused_residual_rms_norm_fwd"]),
         ("fused_residual_rms_norm_bwd", "fused_residual_norm.cu",
          "paddle_tpu/ops/pallas/fused_residual_norm.py:297",
-         llama_rows["fused_residual_rms_norm_bwd"],
+         norm_rows["fused_residual_rms_norm_bwd"],
          llama_on["counts"]["fused_residual_rms_norm_bwd"]),
         ("weight_only_matmul", "quant_matmul.cu",
          "paddle_tpu/ops/pallas/quant_matmul.py:146", qm_rows,
@@ -3873,6 +3916,11 @@ def main(argv=None):
             out[-1]["routes"] = {r["case"]: r["route"] for r in cases}
         if kname in fused_paths:
             out[-1]["launches_by_path"] = fused_paths[kname]
+        if kname.endswith("norm_bwd"):
+            # rows 10, 12, 14, 16: one launch of the one backward kernel
+            out[-1]["device_kernel"] = "ln_bwd_kernel"
+            out[-1]["device_kernels_a_call"] = main_row[
+                "device_kernels_a_call"]
         if kname in gpt_routes:
             # GPT's launches: the split-K ingress, the GELU egress
             out[-1]["gpt_launches_on_new_kernel_by_path"] = gpt_routes[kname]

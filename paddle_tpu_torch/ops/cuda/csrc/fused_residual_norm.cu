@@ -22,57 +22,34 @@
 // Layer forward moves 25.2 MB in and 25.2 MB out (~0.015 ms). The row
 // kernels are row_norm.cuh's (design notes there): rows kept in
 // registers between their reductions and their use, sums in a fixed
-// order (no atomics). The RMS backward is a row kernel at kRows rows per
-// CTA and a one-thread-per-column sum of its dw partials; the Layer
-// backward is one launch, its dw/db summed past a grid barrier.
+// order (no atomics). Each backward is one launch (ln_bwd_kernel,
+// templated on the norm), its dw (and db) summed past a grid barrier.
 //
 // Plain C interface (bound with ctypes); the wrapper in
 // fused_residual_norm.py checks shapes, types and contiguity and
-// allocates the outputs and the partials. The RMS entries take w in
-// fp32 (the wrapper casts it); the Layer entries read w and b in their
-// own type and write dw and db in it.
+// allocates the outputs and the partials. The entries read w (and b) in
+// their own type and write dw (and db) in it.
 
 #include "row_norm.cuh"
 
 extern "C" {
 
-// Rows of the RMS backward's CTAs (the wrapper sizes the dw partials
-// [ceil(n / rows), h] with it).
-int pdt_rms_bwd_rows() { return kRows; }
-
 // dtype: 0 float32, 1 bfloat16 (x, y, res, normed, d, dres, dnormed);
-// w, mean, rstd, dw and the partials are fp32. All row-major and
-// contiguous. `vec`: the caller checked 16-byte alignment and h a
-// multiple of 16 bytes of the type. Launch on `stream` (a
-// cudaStream_t); return a cudaError_t as int.
-int pdt_rms_fwd(int dtype, const void* x, const void* y, const float* w,
-                void* res, void* normed, float* rstd, int n, int h, float eps,
-                int vec, void* stream) {
-  return row_norm_fwd<true>(kRms, dtype, 0, x, y, w, nullptr, res, normed,
-                            nullptr, rstd, n, h, eps, vec,
+// wdtype the same for w (and b), dw (and db); mean, rstd and the
+// partials are fp32. All row-major and contiguous. `vec`: the caller
+// checked 16-byte alignment and h a multiple of 16 bytes of the type.
+// Launch on `stream` (a cudaStream_t); return a cudaError_t as int.
+int pdt_rms_fwd(int dtype, int wdtype, const void* x, const void* y,
+                const void* w, void* res, void* normed, float* rstd, int n,
+                int h, float eps, int vec, void* stream) {
+  return row_norm_fwd<true>(kRms, dtype, wdtype, x, y, w, nullptr, res,
+                            normed, nullptr, rstd, n, h, eps, vec,
                             (cudaStream_t)stream);
-}
-
-// dres may be null (a zero residual cotangent).
-int pdt_rms_bwd(int dtype, const void* res, const float* w, const float* rstd,
-                const void* dres, const void* dnormed, void* d, float* dw_part,
-                float* dw, int n, int h, int vec, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int rc = rms_bwd_rows(dtype, 0, res, w, rstd, dres, dnormed, d,
-                              dw_part, n, h, vec, kRows, st);
-  if (rc != (int)cudaSuccess) return rc;
-  const int nblk = (n + kRows - 1) / kRows;
-  dw_sum_kernel<<<(h + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      dw_part, dw, nblk, h);
-  return (int)cudaGetLastError();
 }
 
 // The largest row width the kernels take for a dtype and load width.
 int pdt_rms_max_h(int dtype, int vec) { return row_norm_max_h(dtype, vec); }
 
-// wdtype: 0 float32, 1 bfloat16 (w and b, and dw and db); mean and
-// rstd are fp32.
 int pdt_rln_fwd(int dtype, int wdtype, const void* x, const void* y,
                 const void* w, const void* b, void* res, void* normed,
                 float* mean, float* rstd, int n, int h, float eps, int vec,
@@ -81,22 +58,22 @@ int pdt_rln_fwd(int dtype, int wdtype, const void* x, const void* y,
                             mean, rstd, n, h, eps, vec, (cudaStream_t)stream);
 }
 
-// The Layer backward (row 10), one launch (row_norm.cuh's
-// ln_bwd_kernel) on the plan of norms.ln_bwd_plan; dres may be null;
-// `dwdb` is [2, h] in w's type (dw, then db). The CTAs an SM holds for
-// that plan come from pdt_ln_bwd_ctas_per_sm (a negative cudaError_t on
-// failure).
-int pdt_ln_bwd_ctas_per_sm(int dtype, int vec, int h, int G) {
-  return ln_bwd_ctas_per_sm(dtype, vec, h, G);
+// The backward of `norm` (0 RMS, row 12; 1 Layer, row 10), one launch
+// (row_norm.cuh's ln_bwd_kernel) on the plan of norms.ln_bwd_plan;
+// `mean` (Layer) and dres may be null; `dwdb` is [2, h] in w's type
+// (dw, then db), RMS [h] (dw). The CTAs an SM holds for that plan come
+// from pdt_ln_bwd_ctas_per_sm (a negative cudaError_t on failure).
+int pdt_ln_bwd_ctas_per_sm(int norm, int dtype, int vec, int h, int G) {
+  return ln_bwd_ctas_per_sm(norm, dtype, vec, h, G);
 }
 
-int pdt_ln_bwd(int dtype, int wdtype, const void* res, const void* w,
-               const float* mean, const float* rstd, const void* dres,
-               const void* dnormed, void* d, void* dwdb, float* part,
-               int n, int h, int vec, int G, int ctas, int cols,
+int pdt_ln_bwd(int norm, int dtype, int wdtype, const void* res,
+               const void* w, const float* mean, const float* rstd,
+               const void* dres, const void* dnormed, void* d, void* dwdb,
+               float* part, int n, int h, int vec, int G, int ctas, int cols,
                void* stream) {
-  return ln_bwd(dtype, wdtype, res, w, mean, rstd, dres, dnormed, d, dwdb,
-                part, n, h, vec, G, ctas, cols, (cudaStream_t)stream);
+  return ln_bwd(norm, dtype, wdtype, res, w, mean, rstd, dres, dnormed, d,
+                dwdb, part, n, h, vec, G, ctas, cols, (cudaStream_t)stream);
 }
 
 const char* pdt_cuda_error_string(int err) {

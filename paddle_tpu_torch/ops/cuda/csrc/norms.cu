@@ -20,9 +20,8 @@
 //
 // Plain C interface (bound with ctypes); the wrapper in norms.py checks
 // shapes, types and contiguity and allocates the outputs and the
-// scratch. The RMS backward is a row kernel and a small kernel summing
-// its dw partials; the Layer backward is one launch (row_norm.cuh's
-// ln_bwd_kernel).
+// scratch. Each backward is one launch (row_norm.cuh's ln_bwd_kernel,
+// templated on the norm).
 
 #include "row_norm.cuh"
 
@@ -30,8 +29,7 @@ extern "C" {
 
 // norm: 0 RMS, 1 Layer. dtype: 0 float32, 1 bfloat16 (x, out, g, dx);
 // wdtype the same for w and b, and for dw and db; mean, rstd and the
-// partials are fp32. All row-major and
-// contiguous. b and mean are read and written only by the Layer norm.
+// partials are fp32. All row-major and contiguous. b and mean are read and written only by the Layer norm.
 // `vec`: the caller checked 16-byte alignment and h a multiple of 16
 // bytes of the type. Launch on `stream` (a cudaStream_t); return a
 // cudaError_t as int.
@@ -43,33 +41,22 @@ int pdt_norm_fwd(int norm, int dtype, int wdtype, const void* x,
                              (cudaStream_t)stream);
 }
 
-// The RMS backward (row 14): `part` is [this, h] fp32 partial rows of
-// dw; `dw` is [h] in w's type.
-int pdt_norm_bwd_blocks(int n) {
-  const int r = bwd_rows_per_cta(n);
-  return (n + r - 1) / r;
+// The backward of `norm` (0 RMS, row 14; 1 Layer, row 16), one launch
+// (row_norm.cuh's ln_bwd_kernel) on the plan of norms.ln_bwd_plan;
+// `mean` (Layer) and `dres` may be null (RMS reads no mean; here dres is
+// null); `dwdb` is [2, h] in w's type (dw, then db), RMS [h] (dw). The
+// CTAs an SM holds for that plan come from pdt_ln_bwd_ctas_per_sm (a
+// negative cudaError_t on failure).
+int pdt_ln_bwd_ctas_per_sm(int norm, int dtype, int vec, int h, int G) {
+  return ln_bwd_ctas_per_sm(norm, dtype, vec, h, G);
 }
 
-int pdt_rms_norm_bwd(int dtype, int wdtype, const void* x, const void* w,
-                     const float* rstd, const void* g, void* dx, float* part,
-                     void* dw, int n, int h, int vec, void* stream) {
-  return rms_norm_bwd(dtype, wdtype, x, w, rstd, g, dx, part, dw, n, h, vec,
-                      (cudaStream_t)stream);
-}
-
-// The Layer backward (row 16), one launch (row_norm.cuh's ln_bwd_kernel)
-// on the plan of norms.ln_bwd_plan; `dres` null; `dwdb` is [2, h] in w's
-// type (dw, then db). The CTAs an SM holds for that plan come from
-// pdt_ln_bwd_ctas_per_sm (a negative cudaError_t on failure).
-int pdt_ln_bwd_ctas_per_sm(int dtype, int vec, int h, int G) {
-  return ln_bwd_ctas_per_sm(dtype, vec, h, G);
-}
-
-int pdt_ln_bwd(int dtype, int wdtype, const void* x, const void* w,
-               const float* mean, const float* rstd, const void* dres,
-               const void* g, void* d, void* dwdb, float* part, int n,
-               int h, int vec, int G, int ctas, int cols, void* stream) {
-  return ln_bwd(dtype, wdtype, x, w, mean, rstd, dres, g, d, dwdb,
+int pdt_ln_bwd(int norm, int dtype, int wdtype, const void* x,
+               const void* w, const float* mean, const float* rstd,
+               const void* dres, const void* g, void* d, void* dwdb,
+               float* part, int n, int h, int vec, int G, int ctas, int cols,
+               void* stream) {
+  return ln_bwd(norm, dtype, wdtype, x, w, mean, rstd, dres, g, d, dwdb,
                 part, n, h, vec, G, ctas, cols, (cudaStream_t)stream);
 }
 

@@ -14,25 +14,22 @@
 //             from the rows' (fp32 LayerNorm weights beside bf16 rows,
 //             or bf16 weights cast for an O2 op).
 //   backward  xhat = (x - mean) * rstd (RMS: x * rstd), wg = g * w,
-//             c1 = mean(wg), c2 = mean(wg * xhat) over the row;
+//             c2 = mean(wg * xhat) and (Layer) c1 = mean(wg) over the
+//             row;
 //             RMS:   d = dres + rstd * (wg - xhat * c2);
 //             Layer: d = dres + rstd * (wg - c1 - xhat * c2);
 //             dres absent (null) is zero; dw = sum over rows of
-//             g * xhat and db = sum of g, in fp32, written in w's type.
+//             g * xhat and (Layer) db = sum of g, in fp32, written in
+//             w's type.
 //
 // What bounds it on an H100: bytes. Each element is read and written
 // once with a few flops, so the design keeps a row's values in
 // registers between its reductions and its use:
 // * forward: one CTA of kThreads per row; each thread holds K chunks of
 //   VEC columns (16-byte loads), and block reductions give the stats;
-// * RMS backward: one CTA per block of rows, walking them in turn; each
-//   thread holds its chunks' xhat and wg for the row and adds g * xhat
-//   into fp32 partials for its columns, kept in registers across the
-//   rows. The CTA writes its partial row of dw; a second, small kernel
-//   sums them over the CTAs in a fixed order;
-// * Layer backward: ln_bwd_kernel, one launch on a persistent grid, a
-//   row to a group of warps with every lane busy, dw/db summed in a
-//   fixed order past a grid barrier (design notes there).
+// * backward, both norms: ln_bwd_kernel, one launch on a persistent
+//   grid, a row to a group of warps with every lane busy, dw (and db)
+//   summed in a fixed order past a grid barrier (design notes there).
 // No float atomics: a step is bitwise repeatable, like the TPU kernels'
 // tile partials summed on the host.
 // The TPU kernels pad rows to a block of 256; here a CTA masks its own
@@ -51,8 +48,6 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;          // the RMS pair's rows per backward CTA
-constexpr int kMaxBlocks = 512;   // the RMS norm backward's CTAs, at most
 enum { kRms = 0, kLayer = 1 };
 
 template <typename T>
@@ -180,115 +175,6 @@ row_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
-// ------------------------------------------------------------ RMS bwd --
-// x is the forward's normed input (the residual sum for the fused
-// pairs); dres may be null. The CTA's dw partial row goes to
-// part[blockIdx.x]. (The Layer backward is ln_bwd_kernel below.)
-template <typename T, typename WT, int VEC, int K>
-__global__ void __launch_bounds__(kThreads)
-rms_bwd_kernel(const T* __restrict__ x, const WT* __restrict__ w,
-               const float* __restrict__ rstd, const T* __restrict__ dres,
-               const T* __restrict__ g, T* __restrict__ d,
-               float* __restrict__ part, int n, int h, int rows_per_cta) {
-  __shared__ float buf[2][kWarps];
-  using P = Pack<T, VEC>;
-  const int nchunks = h / VEC;
-  float dw[K][VEC];
-#pragma unroll
-  for (int j = 0; j < K; ++j)
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) dw[j][v] = 0.f;
-  const int row0 = blockIdx.x * rows_per_cta;
-  const int rows = min(rows_per_cta, n - row0);
-  for (int i = 0; i < rows; ++i) {
-    const long long base = (long long)(row0 + i) * h;
-    const float rs = rstd[row0 + i];
-    float xh[K][VEC], wg[K][VEC];
-    float p2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int c = threadIdx.x + j * kThreads;
-      if (c < nchunks) {
-        const P xv = *reinterpret_cast<const P*>(x + base + c * VEC);
-        const P gv = *reinterpret_cast<const P*>(g + base + c * VEC);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const float gf = to_f<T>(gv.v[v]);
-          const float xf = to_f<T>(xv.v[v]);
-          xh[j][v] = __fmul_rn(xf, rs);
-          wg[j][v] = __fmul_rn(gf, to_f<WT>(w[c * VEC + v]));
-          p2 += wg[j][v] * xh[j][v];
-          dw[j][v] = __fadd_rn(dw[j][v], __fmul_rn(gf, xh[j][v]));
-        }
-      }
-    }
-    const float c2 = __fdiv_rn(block_sum(p2, buf[i & 1]), (float)h);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int c = threadIdx.x + j * kThreads;
-      if (c < nchunks) {
-        P dr;
-        if (dres != nullptr) {
-          dr = *reinterpret_cast<const P*>(dres + base + c * VEC);
-        }
-        P o;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const float drv = dres != nullptr ? to_f<T>(dr.v[v]) : 0.f;
-          const float t = __fsub_rn(wg[j][v], __fmul_rn(xh[j][v], c2));
-          o.v[v] = from_f<T>(__fadd_rn(drv, __fmul_rn(rs, t)));
-        }
-        *reinterpret_cast<P*>(d + base + c * VEC) = o;
-      }
-    }
-  }
-  float* out = part + (long long)blockIdx.x * h;
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    if (c < nchunks) {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) out[c * VEC + v] = dw[j][v];
-    }
-  }
-}
-
-// The RMS pair's dw: a thread per column sums the partials in CTA order.
-__global__ void __launch_bounds__(kThreads)
-dw_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
-              int nblk, int h) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= h) return;
-  float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += part[(long long)b * h + col];
-  dw[col] = s;
-}
-
-// The RMS norm's dw (row 14): out[col] = the sum over the nblk partial
-// rows part[.][col], in a fixed order, written in the weights' type OT.
-// A CTA takes 32 columns; warp k sums rows k, k + kWarps, ... and warp 0
-// adds the kWarps sums in order: the many rows of a narrow h are read by
-// kWarps times more threads than one per column.
-template <typename OT>
-__global__ void __launch_bounds__(kThreads)
-partial_sum_kernel(const float* __restrict__ part, OT* __restrict__ out,
-                   int nblk, int h) {
-  __shared__ float acc[kWarps][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + lane;
-  float s = 0.f;
-  if (col < h)
-    for (int b = warp; b < nblk; b += kWarps) s += part[(long long)b * h + col];
-  acc[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && col < h) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) t += acc[i][lane];
-    out[col] = from_f<OT>(t);
-  }
-}
-
 // ---------------------------------------------------------- launches --
 // chunks per thread for a row of h columns in chunks of vec
 inline int pick_k(int h, int vec) {
@@ -302,13 +188,6 @@ inline int pick_k(int h, int vec) {
 inline int row_norm_max_h(int dtype, int vec) {
   const int v = vec ? (dtype == 0 ? 4 : 8) : 1;
   return 8 * kThreads * v;
-}
-
-// Rows per backward CTA of the RMS norm (not the pair): at least kRows,
-// and at most kMaxBlocks CTAs (fewer partial rows to sum).
-inline int bwd_rows_per_cta(int n) {
-  const int r = (n + kMaxBlocks - 1) / kMaxBlocks;
-  return r > kRows ? r : kRows;
 }
 
 template <int NORM, bool RESID, typename T, typename WT, int VEC>
@@ -381,109 +260,55 @@ int row_norm_fwd(int norm, int dtype, int wdtype, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename WT, int VEC>
-struct RmsBwdRun {
-  static int run(const void* x, const void* w, const float* rstd,
-                 const void* dres, const void* g, void* d, float* part, int n,
-                 int h, int rows_per_cta, cudaStream_t st) {
-    const int nblk = (n + rows_per_cta - 1) / rows_per_cta;
-    const T* xx = static_cast<const T*>(x);
-    const WT* ww = static_cast<const WT*>(w);
-    const T* dr = static_cast<const T*>(dres);
-    const T* gg = static_cast<const T*>(g);
-    T* dd = static_cast<T*>(d);
-#define PDT_BWD(KK)                                                   \
-  rms_bwd_kernel<T, WT, VEC, KK><<<nblk, kThreads, 0, st>>>(          \
-      xx, ww, rstd, dr, gg, dd, part, n, h, rows_per_cta)
-    switch (pick_k(h, VEC)) {
-      case 1: PDT_BWD(1); break;
-      case 2: PDT_BWD(2); break;
-      case 4: PDT_BWD(4); break;
-      case 8: PDT_BWD(8); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef PDT_BWD
-    return (int)cudaGetLastError();
-  }
-};
-
-// The RMS row kernel of the backward (dtype, wdtype and vec as for the
-// forward): `part` holds the CTAs' fp32 partial rows of dw ([ceil(n /
-// rows_per_cta), h]). The caller sums them.
-inline int rms_bwd_rows(int dtype, int wdtype, const void* x, const void* w,
-                        const float* rstd, const void* dres, const void* g,
-                        void* d, float* part, int n, int h, int vec,
-                        int rows_per_cta, cudaStream_t st) {
-  return dispatch_types<RmsBwdRun>(dtype, wdtype, vec, x, w, rstd, dres, g,
-                                  d, part, n, h, rows_per_cta, st);
-}
-
-// The RMS norm's backward (row 14): the row kernel, then
-// partial_sum_kernel into `dw` ([h]) in the weights' type.
-inline int rms_norm_bwd(int dtype, int wdtype, const void* x, const void* w,
-                        const float* rstd, const void* g, void* d, float* part,
-                        void* dw, int n, int h, int vec, cudaStream_t st) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (wdtype != 0 && wdtype != 1) return (int)cudaErrorInvalidValue;
-  const int rpc = bwd_rows_per_cta(n);
-  const int rc = rms_bwd_rows(dtype, wdtype, x, w, rstd, nullptr, g, d, part,
-                              n, h, vec, rpc, st);
-  if (rc != (int)cudaSuccess) return rc;
-  const int grid = (h + 31) / 32;
-  const int nblk = (n + rpc - 1) / rpc;
-  if (wdtype == 0)
-    partial_sum_kernel<float><<<grid, kThreads, 0, st>>>(
-        part, static_cast<float*>(dw), nblk, h);
-  else
-    partial_sum_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        part, static_cast<__nv_bfloat16*>(dw), nblk, h);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------ Layer bwd --
-// The Layer backward of both entries (rows 10 and 16) in ONE launch.
-// What held the two-kernel design back (one row at a time a CTA of 256
-// threads, 96 of them busy at h 768 bf16; two __syncthreads a row; dres
-// loaded after the reduction; w read a scalar at a time every row; the
-// dw/db partials summed by a second launch) and what this does instead:
+// ----------------------------------------------------------- bwd --
+// The backward of all four entries (rows 10 and 16, Layer; rows 12 and
+// 14, RMS) in ONE launch, templated on the norm: RMS reads no mean,
+// computes no c1 and keeps no db. What held the two-kernel designs back
+// (one row at a time a CTA of 256 threads, 96 of them busy at h 768
+// bf16; a CTA-wide sum, two __syncthreads, a row; dres loaded after the
+// reduction; w read a scalar at a time every row, cast to fp32 on the
+// host for the RMS pair; the partials summed by a second launch, at h
+// 4096 one thread a column on 16 CTAs) and what this does instead:
 // * a row to a group of G warps (ln_bwd_k: K chunks of VEC columns a
 //   lane; at h 768 every lane holds 3 chunks, one warp a row in bf16,
-//   two in fp32: norms.ln_bwd_group), so a row's sums are warp shuffles,
-//   and across a group's G > 1 warps one named barrier a row
+//   two in fp32; at h 4096 eight warps, 2 chunks a lane in bf16, 4 in
+//   fp32: norms.ln_bwd_group), so a row's sums are warp shuffles, and
+//   across a group's G > 1 warps one named barrier a row
 //   (double-buffered, as block_sum's);
 // * x, g and dres of a row are loaded together before its sums (the
 //   first row's before w is staged), and as many groups as the SMs hold
 //   resident walk the rows (a persistent grid, gridDim.x * groups rows
 //   apart), so other groups' loads are in flight while one group
 //   reduces and stores;
-// * w is read once a CTA, into shared memory as fp32; the rows are read
-//   with streaming loads (evict first: each byte is read once);
-// * each lane keeps dw/db of its columns in fp32 registers over all of
-//   its group's rows; the CTA adds its groups' in group order and writes
-//   one partial row; then, past a grid barrier (a cooperative launch:
-//   every CTA is resident), each CTA adds its slice of the columns over
-//   all the partial rows, whole 32-byte sectors a warp, and writes dw
-//   and db in w's type. The same launch, and no one CTA reads all the
-//   partial rows: a first design, in which the last CTA of each set of
-//   ~sqrt(CTAs) and then the last set added them, spent ~9.5 us on an
-//   H100 at 8192 x 768 after the rows were done (PERF.md), one L2 round
-//   trip after another.
+// * w is read once a CTA, in its own type, into shared memory as fp32;
+//   the rows are read with streaming loads (evict first: each byte is
+//   read once);
+// * each lane keeps dw (and db) of its columns in fp32 registers over
+//   all of its group's rows; the CTA adds its groups' in group order and
+//   writes one partial row; then, past a grid barrier (a cooperative
+//   launch: every CTA is resident), each CTA adds its slice of the
+//   columns over all the partial rows, whole 32-byte sectors a warp, and
+//   writes dw (and db) in w's type. The same launch, and no one CTA
+//   reads all the partial rows: a first design, in which the last CTA of
+//   each set of ~sqrt(CTAs) and then the last set added them, spent ~9.5
+//   us on an H100 at 8192 x 768 after the rows were done (PERF.md), one
+//   L2 round trip after another.
 // No float atomics: which rows a group takes, and every sum's order, are
-// fixed by (n, h, the row type, the SM count and the CTAs an SM holds),
-// so repeat runs on a card are bitwise equal.
+// fixed by (n, h, the norm, the row type, the SM count and the CTAs an
+// SM holds), so repeat runs on a card are bitwise equal.
 struct LnBwdArgs {
   const void* x;        // [n, h] the forward's normed input (T)
   const void* w;        // [h] (WT)
-  const float* mean;    // [n]
+  const float* mean;    // [n] (Layer; RMS reads none)
   const float* rstd;    // [n]
   const void* dres;     // [n, h] (T) or null: a zero residual cotangent
   const void* g;        // [n, h] the cotangent of the norm's output (T)
   void* d;              // [n, h] out (T)
-  void* dwdb;           // [2, h] out: dw, then db (WT)
+  void* dwdb;           // [2, h] out: dw, then db (WT); RMS: [h], dw
   float* part;          // [gridDim.x, cols] fp32 scratch: partial rows
   int n, h;
   int G;                // warps a row: 1, 2, 4 or 8
-  int cols;             // a partial row's floats: 2 h rounded up to 4
+  int cols;             // a partial row's floats: 2 h (RMS: h) up to 4
 };
 
 constexpr int kLnSumLoads = 16;  // partial rows a thread loads at once
@@ -614,8 +439,10 @@ __device__ inline void slice_sums(const float* src, int rows, int cols,
   }
 }
 
-template <typename T, typename WT, int VEC, int K>
+template <int NORM, typename T, typename WT, int VEC, int K>
 __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
+  constexpr bool kL = NORM == kLayer;
+  constexpr int nv = kL ? 2 : 1;  // vectors summed over the rows: dw (db)
   extern __shared__ __align__(16) float lsm[];
   __shared__ float2 gsum[2][kWarps];
   using P = Pack<T, VEC>;
@@ -634,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
   auto load = [&](int row) {
     const size_t base = (size_t)row * h;
     rs = a.rstd[row];
-    mu = a.mean[row];
+    if constexpr (kL) mu = a.mean[row];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int c = gl + j * glanes;
@@ -645,6 +472,10 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
           rv[j] = ld_stream(reinterpret_cast<const P*>(dres + base + c * VEC));
       }
     }
+  };
+  // xhat of one element: (x - mean) * rstd, RMS x * rstd
+  auto xhat = [](float xf, float m, float r) {
+    return kL ? __fmul_rn(__fsub_rn(xf, m), r) : __fmul_rn(xf, r);
   };
   const int stride = gridDim.x * groups;
   int row = blockIdx.x * groups + grp;
@@ -669,12 +500,12 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           const float gf = to_f<T>(gv[j].v[v]);
-          const float xh = __fmul_rn(__fsub_rn(to_f<T>(xv[j].v[v]), mu), rs);
+          const float xh = xhat(to_f<T>(xv[j].v[v]), mu, rs);
           const float wg = __fmul_rn(gf, wv[v]);
-          p1 += wg;
+          if constexpr (kL) p1 += wg;
           p2 += wg * xh;
           dw[j][v] = __fadd_rn(dw[j][v], __fmul_rn(gf, xh));
-          db[j][v] = __fadd_rn(db[j][v], gf);
+          if constexpr (kL) db[j][v] = __fadd_rn(db[j][v], gf);
         }
       }
     }
@@ -682,7 +513,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
     // c1, c2: the group's sums, by shuffles, then across its warps
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
-      p1 += __shfl_xor_sync(0xffffffffu, p1, o);
+      if constexpr (kL) p1 += __shfl_xor_sync(0xffffffffu, p1, o);
       p2 += __shfl_xor_sync(0xffffffffu, p2, o);
     }
     if (G > 1) {
@@ -691,7 +522,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
       p1 = p2 = 0.f;
       for (int i = 0; i < G; ++i) {
         const float2 s = gsum[it & 1][grp * G + i];
-        p1 += s.x;
+        if constexpr (kL) p1 += s.x;
         p2 += s.y;
       }
     }
@@ -700,7 +531,7 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
     // from copies the compiler cannot see are equal, so that it keeps the
     // packed row across the sums rather than the first pass's fp32
     // values (in bf16 half the registers: 128 a thread, not 164, and two
-    // CTAs an SM)
+    // CTAs an SM at h 768)
     float m2 = mu, r2 = rs;
     asm volatile("" : "+f"(m2), "+f"(r2)::"memory");
 #pragma unroll
@@ -718,10 +549,12 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) {
           const float gf = to_f<T>(gv[j].v[v]);
-          const float xh = __fmul_rn(__fsub_rn(to_f<T>(xv[j].v[v]), m2), r2);
+          const float xh = xhat(to_f<T>(xv[j].v[v]), m2, r2);
           const float wg = __fmul_rn(gf, wv[v]);
           const float drv = dres != nullptr ? to_f<T>(rv[j].v[v]) : 0.f;
-          const float t = __fsub_rn(__fsub_rn(wg, c1), __fmul_rn(xh, c2));
+          const float t =
+              kL ? __fsub_rn(__fsub_rn(wg, c1), __fmul_rn(xh, c2))
+                 : __fsub_rn(wg, __fmul_rn(xh, c2));
           o.v[v] = from_f<T>(__fadd_rn(drv, __fmul_rn(r2, t)));
         }
         *reinterpret_cast<P*>(d + base + c * VEC) = o;
@@ -739,10 +572,11 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
       const int c = gl + j * glanes;
       if (c < nchunks) {
         vec_store<VEC>(prow + c * VEC, dw[j]);
-        vec_store<VEC>(prow + h + c * VEC, db[j]);
+        if constexpr (kL) vec_store<VEC>(prow + h + c * VEC, db[j]);
       }
     }
-    for (int i = 2 * h + threadIdx.x; i < a.cols; i += kThreads) prow[i] = 0.f;
+    for (int i = nv * h + threadIdx.x; i < a.cols; i += kThreads)
+      prow[i] = 0.f;
   } else {
     float* red = lsm + (h + 3) / 4 * 4 + (size_t)grp * a.cols;
 #pragma unroll
@@ -750,10 +584,10 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
       const int c = gl + j * glanes;
       if (c < nchunks) {
         vec_store<VEC>(red + c * VEC, dw[j]);
-        vec_store<VEC>(red + h + c * VEC, db[j]);
+        if constexpr (kL) vec_store<VEC>(red + h + c * VEC, db[j]);
       }
     }
-    for (int i = 2 * h + gl; i < a.cols; i += glanes) red[i] = 0.f;
+    for (int i = nv * h + gl; i < a.cols; i += glanes) red[i] = 0.f;
     __syncthreads();
     const float4* red4 = reinterpret_cast<const float4*>(lsm + (h + 3) / 4 * 4);
     for (int i = threadIdx.x; i < a.cols / 4; i += kThreads) {
@@ -772,92 +606,115 @@ __global__ void __launch_bounds__(kThreads) ln_bwd_kernel(const LnBwdArgs a) {
   // partial row written: every CTA's is in past the grid barrier
   cg::this_grid().sync();
   // dw and db: this CTA's slice of the columns over every partial row
-  slice_sums<WT>(a.part, gridDim.x, a.cols, 2 * h, static_cast<WT*>(a.dwdb),
+  slice_sums<WT>(a.part, gridDim.x, a.cols, nv * h, static_cast<WT*>(a.dwdb),
                  lsm);
   // dw and db written
 }
 
-template <typename T, typename WT, int VEC>
+template <int NORM>
 struct LnBwdRun {
-  template <int K>
-  static int go(const LnBwdArgs* a, int ctas, int smem, int* occ,
-                cudaStream_t st) {
-    auto kernel = ln_bwd_kernel<T, WT, VEC, K>;
-    // the opt-in above 48 KB, once a device
-    static int set_to[64];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev >= 64) return (int)cudaErrorInvalidDevice;
-    if (smem > set_to[dev]) {
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  template <typename T, typename WT, int VEC>
+  struct F {
+    template <int K>
+    static int go(const LnBwdArgs* a, int ctas, int smem, int* occ,
+                  cudaStream_t st) {
+      auto kernel = ln_bwd_kernel<NORM, T, WT, VEC, K>;
+      // the opt-in above 48 KB, once a device
+      static int set_to[64];
+      int dev = 0;
+      cudaError_t e = cudaGetDevice(&dev);
       if (e != cudaSuccess) return (int)e;
-      set_to[dev] = smem;
+      if (dev >= 64) return (int)cudaErrorInvalidDevice;
+      if (smem > set_to[dev]) {
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+        set_to[dev] = smem;
+      }
+      if (occ != nullptr)
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            occ, kernel, kThreads, smem);
+      void* args[] = {(void*)a};
+      return (int)cudaLaunchCooperativeKernel((const void*)kernel, ctas,
+                                              kThreads, args, smem, st);
     }
-    if (occ != nullptr)
-      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          occ, kernel, kThreads, smem);
-    void* args[] = {(void*)a};
-    return (int)cudaLaunchCooperativeKernel((const void*)kernel, ctas,
-                                            kThreads, args, smem, st);
-  }
-  // occ null: launch ctas CTAs; else store the CTAs an SM holds in *occ
-  static int run(const LnBwdArgs* a, int ctas, int* occ, cudaStream_t st) {
-    const int k = ln_bwd_k(a->h, VEC, a->G);
-    const int smem = ln_bwd_smem(a->h, a->G, a->cols);
-    switch (k) {
-      case 1: return go<1>(a, ctas, smem, occ, st);
-      case 2: return go<2>(a, ctas, smem, occ, st);
-      case 3: return go<3>(a, ctas, smem, occ, st);
-      case 4: return go<4>(a, ctas, smem, occ, st);
-      case 6: return go<6>(a, ctas, smem, occ, st);
-      case 8: return go<8>(a, ctas, smem, occ, st);
-      default: return (int)cudaErrorInvalidValue;
+    // occ null: launch ctas CTAs; else store the CTAs an SM holds in *occ
+    static int run(const LnBwdArgs* a, int ctas, int* occ, cudaStream_t st) {
+      const int k = ln_bwd_k(a->h, VEC, a->G);
+      const int smem = ln_bwd_smem(a->h, a->G, a->cols);
+      switch (k) {
+        case 1: return go<1>(a, ctas, smem, occ, st);
+        case 2: return go<2>(a, ctas, smem, occ, st);
+        case 3: return go<3>(a, ctas, smem, occ, st);
+        case 4: return go<4>(a, ctas, smem, occ, st);
+        case 6: return go<6>(a, ctas, smem, occ, st);
+        case 8: return go<8>(a, ctas, smem, occ, st);
+        default: return (int)cudaErrorInvalidValue;
+      }
     }
-  }
+  };
 };
+
+// LnBwdRun<norm>::F<T, WT, VEC>::run(a, ctas, occ, st) for the types'
+// codes (dispatch_types); cudaErrorInvalidValue for another norm.
+inline int ln_bwd_run(int norm, int dtype, int wdtype, int vec,
+                      const LnBwdArgs* a, int ctas, int* occ,
+                      cudaStream_t st) {
+  if (norm == kRms)
+    return dispatch_types<LnBwdRun<kRms>::F>(dtype, wdtype, vec, a, ctas,
+                                            occ, st);
+  if (norm == kLayer)
+    return dispatch_types<LnBwdRun<kLayer>::F>(dtype, wdtype, vec, a, ctas,
+                                              occ, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 inline bool ln_bwd_groups_ok(int G) {
   return G == 1 || G == 2 || G == 4 || G == 8;
 }
 
-inline int ln_bwd_cols(int h) { return (2 * h + 3) / 4 * 4; }
+// A partial row's floats: dw and db (RMS: dw) of h columns, up to 4.
+inline int ln_bwd_cols(int norm, int h) {
+  return ((norm == kLayer ? 2 : 1) * h + 3) / 4 * 4;
+}
 
-// The CTAs an SM holds of the Layer backward for rows of h in `dtype` on
-// groups of G warps: the fewer of its fp32-w and bf16-w kernels (so that
-// w's type does not move the plan), or a negative cudaError_t.
-inline int ln_bwd_ctas_per_sm(int dtype, int vec, int h, int G) {
+// The CTAs an SM holds of the backward of `norm` for rows of h in
+// `dtype` on groups of G warps: the fewer of its fp32-w and bf16-w
+// kernels (so that w's type does not move the plan), or a negative
+// cudaError_t.
+inline int ln_bwd_ctas_per_sm(int norm, int dtype, int vec, int h, int G) {
   if (!ln_bwd_groups_ok(G) || h <= 0) return -(int)cudaErrorInvalidValue;
   LnBwdArgs a{};
   a.h = h;
   a.G = G;
-  a.cols = ln_bwd_cols(h);
+  a.cols = ln_bwd_cols(norm, h);
   int most = 1 << 30;
   for (int wdtype = 0; wdtype < 2; ++wdtype) {
     int occ = 0;
-    const int rc = dispatch_types<LnBwdRun>(dtype, wdtype, vec, &a, 0, &occ,
-                                           (cudaStream_t)0);
+    const int rc = ln_bwd_run(norm, dtype, wdtype, vec, &a, 0, &occ,
+                              (cudaStream_t)0);
     if (rc != (int)cudaSuccess) return -rc;
     most = occ < most ? occ : most;
   }
   return most;
 }
 
-// The Layer backward on a plan (norms.ln_bwd_plan): `ctas` CTAs (at most
-// those the SMs hold: a cooperative launch) of G-warp groups, partial
-// rows of `cols` floats in `part` ([ctas, cols]). dtype, wdtype and vec
-// as for the forward; dres may be null.
-inline int ln_bwd(int dtype, int wdtype, const void* x, const void* w,
-                  const float* mean, const float* rstd, const void* dres,
-                  const void* g, void* d, void* dwdb, float* part, int n,
-                  int h, int vec, int G, int ctas, int cols, cudaStream_t st) {
+// The backward of `norm` (0 RMS, 1 Layer) on a plan (norms.ln_bwd_plan):
+// `ctas` CTAs (at most those the SMs hold: a cooperative launch) of
+// G-warp groups, partial rows of `cols` floats in `part` ([ctas, cols]).
+// dtype, wdtype and vec as for the forward; dres may be null, and mean
+// is read by the Layer norm alone.
+inline int ln_bwd(int norm, int dtype, int wdtype, const void* x,
+                  const void* w, const float* mean, const float* rstd,
+                  const void* dres, const void* g, void* d, void* dwdb,
+                  float* part, int n, int h, int vec, int G, int ctas,
+                  int cols, cudaStream_t st) {
   if (n <= 0 || h <= 0 || !ln_bwd_groups_ok(G) || ctas <= 0 ||
-      cols != ln_bwd_cols(h))
+      (norm != kRms && norm != kLayer) || cols != ln_bwd_cols(norm, h) ||
+      (norm == kLayer && mean == nullptr))
     return (int)cudaErrorInvalidValue;
   const LnBwdArgs a{x, w, mean, rstd, dres, g, d, dwdb, part, n, h, G, cols};
-  return dispatch_types<LnBwdRun>(dtype, wdtype, vec, &a, ctas,
-                                  (int*)nullptr, st);
+  return ln_bwd_run(norm, dtype, wdtype, vec, &a, ctas, (int*)nullptr, st);
 }
 
 }  // namespace

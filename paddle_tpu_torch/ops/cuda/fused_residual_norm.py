@@ -23,11 +23,11 @@ and arithmetic:
   y.
 
 The kernels (``csrc/fused_residual_norm.cu``, the row kernels of
-``csrc/row_norm.cuh``) read each row once. CPU tensors take the plain
-versions (``*_plain``); CUDA tensors launch the kernels (counted in each
-wrapper's ``launches``, one per call: the RMS backward's call is its row
-kernel and the small kernel that sums the dw partials, the LayerNorm
-backward's one kernel, planned by ``norms.ln_bwd_plan``) or raise.
+``csrc/row_norm.cuh``) read each row once, and w (and b) in their own
+dtype. CPU tensors take the plain versions (``*_plain``); CUDA tensors
+launch the kernels (counted in each wrapper's ``launches``, one per
+call; each backward is one kernel, ``ln_bwd_kernel`` templated on the
+norm, planned by ``norms.ln_bwd_plan``) or raise.
 """
 from __future__ import annotations
 
@@ -54,16 +54,10 @@ def _kernels():
         from ._build import load
         lib = load("fused_residual_norm")
         fwd = lib.pdt_rms_fwd
-        fwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                 ctypes.c_void_p])
         fwd.restype = ctypes.c_int
-        bwd = lib.pdt_rms_bwd
-        bwd.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        bwd.restype = ctypes.c_int
-        lib.pdt_rms_bwd_rows.argtypes = []
-        lib.pdt_rms_bwd_rows.restype = ctypes.c_int
         lib.pdt_rms_max_h.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.pdt_rms_max_h.restype = ctypes.c_int
         lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -73,8 +67,8 @@ def _kernels():
                          + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                  ctypes.c_void_p])
         lfwd.restype = ctypes.c_int
-        _fns = (fwd, bwd, lib.pdt_rms_bwd_rows(), lib.pdt_rms_max_h,
-                lib.pdt_cuda_error_string, lfwd, _n.ln_bwd_entries(lib))
+        _fns = (fwd, lib.pdt_rms_max_h, lib.pdt_cuda_error_string, lfwd,
+                _n.ln_bwd_entries(lib))
     return _fns
 
 
@@ -128,19 +122,20 @@ def fused_residual_rms_norm_fwd(x, y, w, eps=1e-6):
     dev = _n.device_of(name, (x, y, w))
     if dev.type == "cpu":
         return fused_residual_rms_norm_fwd_plain(x, y, w, eps)
-    fwd, _, _, max_h, err_str = _kernels()[:5]
+    fwd, max_h, err_str, _, _ = _kernels()
     x, y = x.contiguous(), y.contiguous()
     vec = _n.vec_ok((x, y), h)
     _n.kernel_ready(name, x, h, vec, max_h)
-    w32 = w.float().contiguous()
+    wdt, w, _ = _n.weight_vectors(w)
     res = torch.empty_like(x)
     normed = torch.empty_like(x)
     rstd = torch.empty(n, 1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fwd(_n.DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-                 w32.data_ptr(), res.data_ptr(), normed.data_ptr(),
-                 rstd.data_ptr(), n, h, float(eps), int(vec), stream)
+        rc = fwd(_n.DTYPE_CODE[x.dtype], _n.DTYPE_CODE[wdt], x.data_ptr(),
+                 y.data_ptr(), w.data_ptr(), res.data_ptr(),
+                 normed.data_ptr(), rstd.data_ptr(), n, h, float(eps),
+                 int(vec), stream)
     _n.raise_rc(name, rc, err_str)
     fused_residual_rms_norm_fwd.launches += 1
     return res, normed, rstd
@@ -149,41 +144,45 @@ def fused_residual_rms_norm_fwd(x, y, w, eps=1e-6):
 fused_residual_rms_norm_fwd.launches = 0
 
 
-def fused_residual_rms_norm_bwd(res, w, rstd, dres, dnormed):
-    """The backward kernels' wrapper: ``(d, dw)`` as
-    :func:`fused_residual_rms_norm_bwd_plain` gives them; ``dres=None``
-    is zero (the kernel reads no residual cotangent then)."""
-    name = "fused_residual_rms_norm_bwd"
+def _residual_bwd(name, res, w, mean, rstd, dres, dnormed):
+    """Check and launch the backward (one kernel) of the LayerNorm pair,
+    or of the RMS pair with ``mean`` None: ``(d, dw, db)`` with ``db``
+    None for RMS; None on CPU tensors."""
     n, h = res.shape
     _n.check_rows(name, _bwd_rows(res, dres, dnormed), h, res.dtype)
     _n.check_vectors(name, (("w", w),), h)
-    _n.check_stats(name, (("rstd", rstd),), n)
-    dev = _n.device_of(name, [res, w, rstd, dnormed]
+    stats = (("rstd", rstd),) + (() if mean is None else (("mean", mean),))
+    _n.check_stats(name, stats, n)
+    dev = _n.device_of(name, [res, w, dnormed] + [s for _, s in stats]
                        + ([] if dres is None else [dres]))
     if dev.type == "cpu":
-        return fused_residual_rms_norm_bwd_plain(res, w, rstd, dres, dnormed)
-    _, bwd, brows, max_h, err_str = _kernels()[:5]
+        return None
+    _, max_h, err_str, _, entries = _kernels()
     res, dnormed = res.contiguous(), dnormed.contiguous()
     dres = None if dres is None else dres.contiguous()
     rows_t = [res, dnormed] + ([] if dres is None else [dres])
     vec = _n.vec_ok(rows_t, h)
     _n.kernel_ready(name, res, h, vec, max_h)
-    w32, rstd = w.float().contiguous(), rstd.contiguous()
-    d = torch.empty_like(res)
-    part = torch.empty(-(-n // brows), h, dtype=torch.float32, device=dev)
-    # no rows: the kernels do not run, and dw is the empty sum
-    dw = (torch.empty if n else torch.zeros)(h, dtype=torch.float32,
-                                             device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = bwd(_n.DTYPE_CODE[res.dtype], res.data_ptr(), w32.data_ptr(),
-                 rstd.data_ptr(), None if dres is None else dres.data_ptr(),
-                 dnormed.data_ptr(), d.data_ptr(), part.data_ptr(),
-                 dw.data_ptr(), n, h, int(vec), stream)
-    _n.raise_rc(name, rc, err_str)
-    if n:                     # no rows, no launch
+    _, wk, _ = _n.weight_vectors(w)
+    norm = _n._RMS if mean is None else _n._LAYER
+    d, dwdb = _n.ln_bwd_launch(name, entries, err_str, norm, res, wk,
+                               None if mean is None else mean.contiguous(),
+                               rstd.contiguous(), dres, dnormed, vec)
+    return (d, dwdb[0].to(w.dtype),
+            None if mean is None else dwdb[1].to(w.dtype))
+
+
+def fused_residual_rms_norm_bwd(res, w, rstd, dres, dnormed):
+    """The backward kernel's wrapper: ``(d, dw)`` as
+    :func:`fused_residual_rms_norm_bwd_plain` gives them; ``dres=None``
+    is zero (the kernel reads no residual cotangent then)."""
+    got = _residual_bwd("fused_residual_rms_norm_bwd", res, w, None, rstd,
+                        dres, dnormed)
+    if got is None:
+        return fused_residual_rms_norm_bwd_plain(res, w, rstd, dres, dnormed)
+    if res.shape[0]:          # no rows, no launch
         fused_residual_rms_norm_bwd.launches += 1
-    return d, dw.to(w.dtype)
+    return got[:2]
 
 
 fused_residual_rms_norm_bwd.launches = 0
@@ -200,7 +199,7 @@ def fused_residual_layer_norm_fwd(x, y, w, b, eps=1e-5):
     dev = _n.device_of(name, (x, y, w, b))
     if dev.type == "cpu":
         return fused_residual_layer_norm_fwd_plain(x, y, w, b, eps)
-    _, _, _, max_h, err_str, fwd, _ = _kernels()
+    _, max_h, err_str, fwd, _ = _kernels()
     x, y = x.contiguous(), y.contiguous()
     vec = _n.vec_ok((x, y), h)
     _n.kernel_ready(name, x, h, vec, max_h)
@@ -224,33 +223,18 @@ fused_residual_layer_norm_fwd.launches = 0
 
 
 def fused_residual_layer_norm_bwd(res, w, mean, rstd, dres, dnormed):
-    """The backward kernels' wrapper: ``(d, dw, db)`` as
+    """The backward kernel's wrapper: ``(d, dw, db)`` as
     :func:`fused_residual_layer_norm_bwd_plain` gives them;
     ``dres=None`` is zero (the kernel reads no residual cotangent
     then)."""
-    name = "fused_residual_layer_norm_bwd"
-    n, h = res.shape
-    _n.check_rows(name, _bwd_rows(res, dres, dnormed), h, res.dtype)
-    _n.check_vectors(name, (("w", w),), h)
-    _n.check_stats(name, (("mean", mean), ("rstd", rstd)), n)
-    dev = _n.device_of(name, [res, w, mean, rstd, dnormed]
-                       + ([] if dres is None else [dres]))
-    if dev.type == "cpu":
+    got = _residual_bwd("fused_residual_layer_norm_bwd", res, w, mean,
+                        rstd, dres, dnormed)
+    if got is None:
         return fused_residual_layer_norm_bwd_plain(res, w, mean, rstd, dres,
                                                    dnormed)
-    _, _, _, max_h, err_str, _, entries = _kernels()
-    res, dnormed = res.contiguous(), dnormed.contiguous()
-    dres = None if dres is None else dres.contiguous()
-    rows_t = [res, dnormed] + ([] if dres is None else [dres])
-    vec = _n.vec_ok(rows_t, h)
-    _n.kernel_ready(name, res, h, vec, max_h)
-    _, wk, _ = _n.weight_vectors(w)
-    d, dwdb = _n.ln_bwd_launch(name, entries, err_str, res, wk,
-                               mean.contiguous(), rstd.contiguous(), dres,
-                               dnormed, vec)
-    if n:                     # no rows, no launch
+    if res.shape[0]:          # no rows, no launch
         fused_residual_layer_norm_bwd.launches += 1
-    return d, dwdb[0].to(w.dtype), dwdb[1].to(w.dtype)
+    return got
 
 
 fused_residual_layer_norm_bwd.launches = 0

@@ -25,10 +25,9 @@ kernels
 (``csrc/norms.cu``, the row kernels of ``csrc/row_norm.cuh``) read each
 row once. CPU tensors take the plain versions (``*_plain``); CUDA
 tensors launch the kernels (counted in each wrapper's ``launches``, one
-per call: the RMS backward's call is its row kernel and the small kernel
-that sums the dw partials, the Layer backward's one kernel, planned by
-:func:`ln_bwd_plan`) or raise. The helpers here are shared with
-``fused_residual_norm.py``.
+per call; each backward is one kernel, ``ln_bwd_kernel`` templated on
+the norm, planned by :func:`ln_bwd_plan`) or raise. The helpers here are
+shared with ``fused_residual_norm.py``.
 """
 from __future__ import annotations
 
@@ -57,31 +56,25 @@ def _kernels():
                         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
                                                 ctypes.c_void_p])
         fwd.restype = ctypes.c_int
-        bwd = lib.pdt_rms_norm_bwd
-        bwd.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        bwd.restype = ctypes.c_int
-        lib.pdt_norm_bwd_blocks.argtypes = [ctypes.c_int]
-        lib.pdt_norm_bwd_blocks.restype = ctypes.c_int
         lib.pdt_norm_max_h.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.pdt_norm_max_h.restype = ctypes.c_int
         lib.pdt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
-        _fns = (fwd, bwd, lib.pdt_norm_bwd_blocks, lib.pdt_norm_max_h,
-                lib.pdt_cuda_error_string, ln_bwd_entries(lib))
+        _fns = (fwd, lib.pdt_norm_max_h, lib.pdt_cuda_error_string,
+                ln_bwd_entries(lib))
     return _fns
 
 
 def ln_bwd_entries(lib):
-    """``(launch, ctas_per_sm)``: the Layer backward's C entries of a
-    library built over ``csrc/row_norm.cuh`` (``norms`` or
+    """``(launch, ctas_per_sm)``: the backward's C entries (both norms)
+    of a library built over ``csrc/row_norm.cuh`` (``norms`` or
     ``fused_residual_norm``), their argument types set."""
     launch = lib.pdt_ln_bwd
-    launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+    launch.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     launch.restype = ctypes.c_int
     occ = lib.pdt_ln_bwd_ctas_per_sm
-    occ.argtypes = [ctypes.c_int] * 4
+    occ.argtypes = [ctypes.c_int] * 5
     occ.restype = ctypes.c_int
     return launch, occ
 
@@ -143,14 +136,14 @@ def layer_norm_bwd_plain(x, w, mean, rstd, g):
     return d.to(x.dtype), dw.to(w.dtype), db.to(w.dtype)
 
 
-# ------------------------------------------------ Layer backward plan --
-# The Layer backward is one launch (``csrc/row_norm.cuh``,
+# ------------------------------------------------------ backward plan --
+# Each backward (both norms) is one launch (``csrc/row_norm.cuh``,
 # ``ln_bwd_kernel``): a row to a group of G warps of a 256-thread CTA,
 # every group walking rows ``stride`` apart on a grid of as many CTAs as
 # the SMs hold (a cooperative launch); each CTA writes one fp32 partial
-# row of dw and db, and past a grid barrier sums a slice of the columns
-# over all of them. The plan is a plain function of (n, h, dtype, SMs,
-# CTAs an SM), so a card repeats its sums bit for bit.
+# row of dw and db (RMS: dw), and past a grid barrier sums a slice of
+# the columns over all of them. The plan is a plain function of (n, h,
+# dtype, SMs, CTAs an SM, norm), so a card repeats its sums bit for bit.
 LN_GROUPS = (1, 2, 4, 8)           # warps a row (a CTA has 8)
 LN_LANE_CHUNKS = (1, 2, 3, 4, 6, 8)  # the kernel's chunks a lane
 LN_LANE_MOST = 3                   # 16-byte chunks a lane holds, at most,
@@ -159,12 +152,17 @@ LN_LANE_MOST = 3                   # 16-byte chunks a lane holds, at most,
 # warp, 6 a lane, measured 1-2% slower on an H100: PERF.md)
 
 
-def ln_bwd_group(h, esize, vec=True):
+def ln_bwd_group(h, esize, vec=True, norm=_LAYER):
     """``(G, K)`` for a row of ``h`` elements of ``esize`` bytes: the
     fewest warps G (1, 2, 4 or 8) that hold the row with at most
     LN_LANE_MOST 16-byte chunks a lane (one-element loads, ``vec``
     False: at most 8 elements), and K, the chunks (elements) a lane
-    takes, rounded up to the kernel's LN_LANE_CHUNKS."""
+    takes, rounded up to the kernel's LN_LANE_CHUNKS. The same rule for
+    both norms (``norm``: RMS keeps no db, so it holds fewer registers
+    a lane)."""
+    if norm not in (_RMS, _LAYER):
+        raise ValueError(f"ln_bwd_group: norm {norm} is neither RMS (0) "
+                         f"nor Layer (1)")
     per = 16 // esize if vec else 1
     chunks = -(-h // per)
     most = LN_LANE_MOST if vec else LN_LANE_CHUNKS[-1]
@@ -175,32 +173,33 @@ def ln_bwd_group(h, esize, vec=True):
     for K in LN_LANE_CHUNKS:
         if k <= K:
             return G, K
-    raise ValueError(f"layer_norm_bwd: row width {h} exceeds the kernel's "
+    raise ValueError(f"norm backward: row width {h} exceeds the kernel's "
                      f"{LN_LANE_CHUNKS[-1]} chunks a lane of 8 warps")
 
 
-def ln_bwd_plan(n, h, dtype, sms, ctas_per_sm, vec=True):
-    """The Layer backward's launch for ``n`` rows of ``h`` in ``dtype`` on
-    a card of ``sms`` SMs that holds ``ctas_per_sm`` of its CTAs: ``G``
-    and ``K`` (:func:`ln_bwd_group`), ``groups`` a CTA, ``ctas``, the
-    rows' ``stride`` (group q of CTA b takes rows ``b * groups + q``,
-    then every ``stride``-th), ``cols`` floats a partial row (dw, db,
-    padded to 4) and the scratch, ``part_floats`` (a row a CTA)."""
-    G, K = ln_bwd_group(h, dtype.itemsize, vec)
+def ln_bwd_plan(n, h, dtype, sms, ctas_per_sm, vec=True, norm=_LAYER):
+    """The backward's launch for ``n`` rows of ``h`` in ``dtype`` on a
+    card of ``sms`` SMs that holds ``ctas_per_sm`` of its CTAs: ``G`` and
+    ``K`` (:func:`ln_bwd_group`), ``groups`` a CTA, ``ctas``, the rows'
+    ``stride`` (group q of CTA b takes rows ``b * groups + q``, then
+    every ``stride``-th), ``cols`` floats a partial row (dw and db, RMS
+    dw alone, padded to 4) and the scratch, ``part_floats`` (a row a
+    CTA)."""
+    G, K = ln_bwd_group(h, dtype.itemsize, vec, norm)
     groups = 8 // G
     ctas = max(1, min(sms * ctas_per_sm, -(-n // groups)))
-    cols = -(-2 * h // 4) * 4
+    cols = -(-(2 if norm == _LAYER else 1) * h // 4) * 4
     return dict(G=G, K=K, groups=groups, ctas=ctas, stride=ctas * groups,
                 cols=cols, part_floats=ctas * cols)
 
 
-_ln_occupancy: dict = {}   # (entry, device, dtype, vec, h, G) -> CTAs an SM
+_ln_occupancy: dict = {}   # (entry, device, norm, dtype, vec, h, G) -> CTAs
 _ln_scratch: dict = {}     # (device, stream) -> partial rows
 _sms: dict = {}            # device index -> SM count
 
 
 def ln_bwd_scratch(dev, stream, plan):
-    """The Layer backward's fp32 partial rows on one stream, reused by its
+    """The backward's fp32 partial rows on one stream, reused by its
     launches (they run in stream order), grown to ``plan``."""
     key = (dev, stream)
     part = _ln_scratch.get(key)
@@ -210,25 +209,28 @@ def ln_bwd_scratch(dev, stream, plan):
     return part
 
 
-def ln_bwd_launch(name, entries, err_str, x, wk, mean, rstd, dres, g, vec):
-    """Launch the Layer backward kernel (one launch) on checked,
+def ln_bwd_launch(name, entries, err_str, norm, x, wk, mean, rstd, dres, g,
+                  vec):
+    """Launch the backward kernel of ``norm`` (one launch) on checked,
     contiguous CUDA rows ``x`` and ``g`` (and ``dres``, or None), w
-    ``wk`` as the kernel reads it, fp32 stats: ``(d, dwdb)``, dwdb
-    ``[2, h]`` in wk's dtype (dw, then db)."""
+    ``wk`` as the kernel reads it, fp32 stats (``mean`` None for RMS):
+    ``(d, dwdb)``, dwdb ``[2, h]`` (dw, then db; RMS ``[1, h]``, dw) in
+    wk's dtype."""
     launch, occupancy = entries
     n, h = x.shape
     dev = x.device
     d = torch.empty_like(x)
-    dwdb = torch.empty(2, h, dtype=wk.dtype, device=dev)
+    dwdb = torch.empty(2 if norm == _LAYER else 1, h, dtype=wk.dtype,
+                       device=dev)
     if n == 0:
         return d, dwdb.zero_()
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    G, _ = ln_bwd_group(h, x.element_size(), vec)
-    key = (id(occupancy), idx, x.dtype, vec, h, G)
+    G, _ = ln_bwd_group(h, x.element_size(), vec, norm)
+    key = (id(occupancy), idx, norm, x.dtype, vec, h, G)
     with torch.cuda.device(dev):
         cps = _ln_occupancy.get(key)
         if cps is None:
-            cps = occupancy(DTYPE_CODE[x.dtype], int(vec), h, G)
+            cps = occupancy(norm, DTYPE_CODE[x.dtype], int(vec), h, G)
             raise_rc(name, -min(cps, 0), err_str)
             if cps == 0:
                 raise RuntimeError(f"{name}: the kernel fits no CTA on an SM")
@@ -237,11 +239,13 @@ def ln_bwd_launch(name, entries, err_str, x, wk, mean, rstd, dres, g, vec):
         if sms is None:
             sms = _sms[idx] = torch.cuda.get_device_properties(
                 idx).multi_processor_count
-        p = ln_bwd_plan(n, h, x.dtype, sms, cps, vec)
+        p = ln_bwd_plan(n, h, x.dtype, sms, cps, vec, norm)
         stream = torch.cuda.current_stream(dev).cuda_stream
         part = ln_bwd_scratch(dev, stream, p)
-        rc = launch(DTYPE_CODE[x.dtype], DTYPE_CODE[wk.dtype], x.data_ptr(),
-                    wk.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        rc = launch(norm, DTYPE_CODE[x.dtype], DTYPE_CODE[wk.dtype],
+                    x.data_ptr(), wk.data_ptr(),
+                    None if mean is None else mean.data_ptr(),
+                    rstd.data_ptr(),
                     None if dres is None else dres.data_ptr(), g.data_ptr(),
                     d.data_ptr(), dwdb.data_ptr(), part.data_ptr(), n, h,
                     int(vec), p["G"], p["ctas"], p["cols"], stream)
@@ -327,7 +331,7 @@ def _fwd(name, norm, x, w, b, eps):
     dev = device_of(name, [x, w] + ([] if b is None else [b]))
     if dev.type == "cpu":
         return None
-    fwd, _, _, max_h, err_str, _ = _kernels()
+    fwd, max_h, err_str, _ = _kernels()
     x = x.contiguous()
     vec = vec_ok((x,), h)
     kernel_ready(name, x, h, vec, max_h)
@@ -347,8 +351,8 @@ def _fwd(name, norm, x, w, b, eps):
 
 
 def _bwd(name, norm, x, w, mean, rstd, g):
-    """Check and launch the backward: ``(dx, dw, db)`` with ``db`` None
-    for RMS; None on CPU tensors."""
+    """Check and launch the backward (one kernel): ``(dx, dw, db)`` with
+    ``db`` None for RMS; None on CPU tensors."""
     n, h = x.shape
     check_rows(name, (("x", x), ("g", g)), h, x.dtype)
     check_vectors(name, (("w", w),), h)
@@ -357,27 +361,16 @@ def _bwd(name, norm, x, w, mean, rstd, g):
     dev = device_of(name, [x, w, g] + [s for _, s in stats])
     if dev.type == "cpu":
         return None
-    _, bwd, blocks, max_h, err_str, ln_entries = _kernels()
+    _, max_h, err_str, entries = _kernels()
     x, g = x.contiguous(), g.contiguous()
     vec = vec_ok((x, g), h)
     kernel_ready(name, x, h, vec, max_h)
-    wdt, wk, _ = weight_vectors(w)
-    rstd = rstd.contiguous()
-    if norm == _LAYER:
-        dx, dwdb = ln_bwd_launch(name, ln_entries, err_str, x, wk,
-                                 mean.contiguous(), rstd, None, g, vec)
-        return dx, dwdb[0].to(w.dtype), dwdb[1].to(w.dtype)
-    dx = torch.empty_like(x)
-    part = torch.empty(blocks(n), h, dtype=torch.float32, device=dev)
-    # no rows: the kernels do not run, and dw is the empty sum
-    dw = (torch.empty if n else torch.zeros)(h, dtype=wdt, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = bwd(DTYPE_CODE[x.dtype], DTYPE_CODE[wdt], x.data_ptr(),
-                 wk.data_ptr(), rstd.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 part.data_ptr(), dw.data_ptr(), n, h, int(vec), stream)
-    raise_rc(name, rc, err_str)
-    return dx, dw.to(w.dtype), None
+    _, wk, _ = weight_vectors(w)
+    dx, dwdb = ln_bwd_launch(name, entries, err_str, norm, x, wk,
+                             None if mean is None else mean.contiguous(),
+                             rstd.contiguous(), None, g, vec)
+    return (dx, dwdb[0].to(w.dtype),
+            None if norm == _RMS else dwdb[1].to(w.dtype))
 
 
 def rms_norm_fwd(x, w, eps=1e-6):
@@ -391,7 +384,7 @@ def rms_norm_fwd(x, w, eps=1e-6):
 
 
 def rms_norm_bwd(x, w, rstd, g):
-    """The backward kernels' wrapper: ``(dx, dw)`` as
+    """The backward kernel's wrapper: ``(dx, dw)`` as
     :func:`rms_norm_bwd_plain` gives them."""
     got = _bwd("rms_norm_bwd", _RMS, x, w, None, rstd, g)
     if got is None:
@@ -412,7 +405,7 @@ def layer_norm_fwd(x, w, b, eps=1e-5):
 
 
 def layer_norm_bwd(x, w, mean, rstd, g):
-    """The backward kernels' wrapper: ``(dx, dw, db)`` as
+    """The backward kernel's wrapper: ``(dx, dw, db)`` as
     :func:`layer_norm_bwd_plain` gives them."""
     got = _bwd("layer_norm_bwd", _LAYER, x, w, mean, rstd, g)
     if got is None:

@@ -489,3 +489,84 @@ def test_layer_bwd_one_element_loads_on_card(cuda, wdtype):
     for got, ref in ((d, rd), (dw, rdw), (db, rdb)):
         assert float((got.float() - ref).abs().max()) <= (
             2.0 ** -8 * float(ref.abs().max()) + 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [64, 768, 1024, 4096, "largest"])
+@pytest.mark.parametrize("n", [1, 7, 8191, 8192])
+def test_rms_bwd_kernel_matches_plain_on_card(cuda, n, h, dtype):
+    """The one-launch RMS backward (row 12) at every group size its plan
+    picks, with dres and without (``None``: zero), against the plain
+    version on the kernel's own res and rstd (tolerances as above); one
+    launch a call; a second run bitwise equal."""
+    if h == "largest":
+        h = 8 * 256 * (16 // dtype.itemsize)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=cuda)
+    x, y, dres, dn = (rn(n, h).to(dtype) for _ in range(4))
+    w = (1.0 + 0.1 * rn(h)).to(dtype)
+    res, _, rstd = tfr.fused_residual_rms_norm_fwd(x, y, w, EPS)
+    before = tfr.fused_residual_rms_norm_bwd.launches
+    got = tfr.fused_residual_rms_norm_bwd(res, w, rstd, dres, dn)
+    got0 = tfr.fused_residual_rms_norm_bwd(res, w, rstd, None, dn)
+    torch.cuda.synchronize()
+    assert tfr.fused_residual_rms_norm_bwd.launches == before + 2
+    f32 = [t.float() for t in (res, w, dres, dn)]
+    bf = dtype == torch.bfloat16
+
+    def lim(ref):
+        return 2.0 ** -8 * float(ref.abs().max()) + 1e-6 if bf else 1e-5
+    colsum = float((f32[3] * f32[0] * rstd).abs().sum(0).max())
+    for (d, dw), r in ((got, f32[2]), (got0, None)):
+        assert d.dtype == dtype and dw.dtype == w.dtype
+        rd, rdw = tfr.fused_residual_rms_norm_bwd_plain(
+            f32[0], f32[1], rstd, r, f32[3])
+        assert float((d.float() - rd).abs().max()) <= lim(rd)
+        tol = lim(rdw) if bf else 1e-5 * colsum
+        assert float((dw.float() - rdw).abs().max()) <= tol
+    again = tfr.fused_residual_rms_norm_bwd(res, w, rstd, dres, dn)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_rms_kernels_read_weights_in_their_own_dtype_on_card(cuda, wdtype,
+                                                             aligned):
+    """The fused RMS pair with fp32 and bf16 weights beside bf16 rows,
+    with 16-byte loads and without (rows one element off alignment: the
+    one-element path): the forward and d bitwise the kernels' on the
+    weights widened to fp32, dw that sum rounded once to the weights'
+    dtype, and the backward within one bf16 rounding of the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for n, h in ((4093, 4096), (4093, 2048), (37, 200)):
+        if not aligned and h > 2048:
+            continue          # one-element loads take rows of 2048 at most
+
+        def rows():
+            flat = torch.randn(n * h + 1, generator=gen, device=cuda)
+            flat = flat.to(torch.bfloat16)
+            return (flat[:-1] if aligned else flat[1:]).view(n, h)
+        x, y, dres, dn = rows(), rows(), rows(), rows()
+        w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=cuda)).to(
+            wdtype)
+        got = tfr.fused_residual_rms_norm_fwd(x, y, w, EPS)
+        ref = tfr.fused_residual_rms_norm_fwd(x, y, w.float(), EPS)
+        assert all(torch.equal(p, q) for p, q in zip(got, ref))
+        res, _, rstd = got
+        for dr in (dres, None):
+            d, dw = tfr.fused_residual_rms_norm_bwd(res, w, rstd, dr, dn)
+            rd, rdw = tfr.fused_residual_rms_norm_bwd(res, w.float(), rstd,
+                                                      dr, dn)
+            assert dw.dtype == wdtype
+            assert torch.equal(d, rd) and torch.equal(dw, rdw.to(wdtype))
+            pd, pdw = tfr.fused_residual_rms_norm_bwd_plain(
+                res.float(), w.float(), rstd,
+                None if dr is None else dr.float(), dn.float())
+            for g_, r_ in ((d, pd), (dw, pdw)):
+                assert float((g_.float() - r_).abs().max()) <= (
+                    2.0 ** -8 * float(r_.abs().max()) + 1e-6)

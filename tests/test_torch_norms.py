@@ -380,6 +380,7 @@ def _largest_h(dtype):
     return 8 * 256 * (16 // dtype.itemsize)
 
 
+@pytest.mark.parametrize("norm", [tn._RMS, tn._LAYER])
 @pytest.mark.parametrize("dtype,h,want", [
     (torch.float32, 64, (1, 1)), (torch.float32, 768, (2, 3)),
     (torch.float32, 1024, (4, 2)), (torch.float32, 4096, (8, 4)),
@@ -387,13 +388,15 @@ def _largest_h(dtype):
     (torch.bfloat16, 64, (1, 1)), (torch.bfloat16, 768, (1, 3)),
     (torch.bfloat16, 1024, (2, 2)), (torch.bfloat16, 4096, (8, 2)),
     (torch.bfloat16, _largest_h(torch.bfloat16), (8, 8))])
-def test_ln_bwd_group_picks_the_fewest_warps(dtype, h, want):
+def test_ln_bwd_group_picks_the_fewest_warps(dtype, h, want, norm):
     """G is the fewest warps (1, 2, 4, 8) that hold a row with at most 3
     16-byte chunks a lane (24 bf16 or 12 fp32 elements); K the chunks a
-    lane then takes. At GPT-124M's 768 every lane is busy with 3 chunks:
-    one warp a row in bf16, two in fp32."""
+    lane then takes; the same rule for both norms. At GPT-124M's 768
+    every lane is busy with 3 chunks: one warp a row in bf16, two in
+    fp32; at LLaMA-7B's 4096 a row takes all 8 warps, 2 chunks a lane in
+    bf16, 4 in fp32."""
     esize = dtype.itemsize
-    G, K = tn.ln_bwd_group(h, esize)
+    G, K = tn.ln_bwd_group(h, esize, norm=norm)
     assert (G, K) == want
     chunks = h * esize // 16
     assert chunks <= 32 * G * K                       # the row fits
@@ -414,6 +417,8 @@ def test_ln_bwd_group_one_element_loads_and_the_limit():
         tn.ln_bwd_group(2049, 4, vec=False)
     with pytest.raises(ValueError, match="exceeds"):
         tn.ln_bwd_group(_largest_h(torch.bfloat16) + 8, 2)
+    with pytest.raises(ValueError, match="neither RMS"):
+        tn.ln_bwd_group(768, 2, norm=2)
 
 
 def _plan_rows(p, n):
@@ -465,18 +470,22 @@ def _final_sums(part, threads=256):
     return out
 
 
+@pytest.mark.parametrize("norm", [tn._RMS, tn._LAYER])
 @pytest.mark.parametrize("n,h,dtype,sms,cps", [
     (1, 768, torch.bfloat16, 132, 2), (7, 64, torch.float32, 132, 3),
     (8191, 768, torch.bfloat16, 132, 2), (8192, 768, torch.float32, 132, 1),
     (8192, 4096, torch.bfloat16, 132, 2), (300, 1024, torch.float32, 4, 2),
-    (100000, 768, torch.bfloat16, 132, 2)])
-def test_ln_bwd_plan_covers_every_row_once(n, h, dtype, sms, cps):
+    (100000, 768, torch.bfloat16, 132, 2), (4096, 4096, torch.bfloat16, 132, 3),
+    (4096, 4096, torch.float32, 132, 2), (4093, 4096, torch.bfloat16, 132, 4),
+    (37, 203, torch.float32, 132, 2)])
+def test_ln_bwd_plan_covers_every_row_once(n, h, dtype, sms, cps, norm):
     """Every row is taken by exactly one group; no more CTAs than the
     card holds resident (a cooperative launch), and none without a row;
     the CTAs' column slices of the final sums cover every column once;
-    the scratch holds a partial row a CTA."""
-    p = tn.ln_bwd_plan(n, h, dtype, sms, cps)
-    G, K = tn.ln_bwd_group(h, dtype.itemsize)
+    the scratch holds a partial row a CTA: dw and db (2 h floats) for
+    LayerNorm, dw alone (h) for RMS, padded to 4."""
+    p = tn.ln_bwd_plan(n, h, dtype, sms, cps, norm=norm)
+    G, K = tn.ln_bwd_group(h, dtype.itemsize, norm=norm)
     assert (p["G"], p["K"], p["groups"]) == (G, K, 8 // G)
     assert 1 <= p["ctas"] <= sms * cps
     assert p["stride"] == p["ctas"] * p["groups"]
@@ -485,7 +494,8 @@ def test_ln_bwd_plan_covers_every_row_once(n, h, dtype, sms, cps):
     assert rows == list(range(n))
     assert all(any(walks[(b, q)] for q in range(p["groups"]))
                for b in range(p["ctas"]))
-    assert p["cols"] % 4 == 0 and 2 * h <= p["cols"] < 2 * h + 4
+    nv = 2 if norm == tn._LAYER else 1
+    assert p["cols"] % 4 == 0 and nv * h <= p["cols"] < nv * h + 4
     _, ranges = _column_ranges(p["ctas"], p["cols"])
     cols = sorted(c for rs in ranges for c0, c1 in rs
                   for c in range(c0, c1))
@@ -512,23 +522,30 @@ def test_ln_bwd_scratch_is_what_the_plan_needs(monkeypatch):
     assert tn.ln_bwd_scratch(dev, 1, small) is not grown
 
 
+@pytest.mark.parametrize("norm", [tn._RMS, tn._LAYER])
 @pytest.mark.parametrize("n,h,sms,cps", [(300, 64, 4, 2), (7, 96, 132, 2),
                                          (1000, 40, 3, 3),
                                          (4000, 48, 132, 2)])
-def test_ln_bwd_sum_order_gives_the_sums(n, h, sms, cps):
-    """A model of the kernel's dw/db on its plan, in fp32: each group's
-    running sum over its rows, the CTA's groups in order, then for each
-    column its threads' running sums over every (256 / W)-th CTA, their
-    shuffle tree and the warps in order (:func:`_final_sums`). It gives
-    the plain version's sums (fp64 here) within fp32 rounding of the
-    column's sum of magnitudes."""
+def test_ln_bwd_sum_order_gives_the_sums(n, h, sms, cps, norm):
+    """A model of the kernel's dw/db (RMS: dw) on its plan, in fp32: each
+    group's running sum over its rows, the CTA's groups in order, then
+    for each column its threads' running sums over every (256 / W)-th
+    CTA, their shuffle tree and the warps in order (:func:`_final_sums`).
+    It gives the plain version's sums (fp64 here) within fp32 rounding of
+    the column's sum of magnitudes."""
     x, w, b, g = _inputs(n + h, n, h)
-    mean, rstd = (a.numpy() for a in tn.ln_stats(torch.tensor(x), 1e-5))
-    xhat = ((x - mean) * rstd).astype(np.float32)
-    p = tn.ln_bwd_plan(n, h, torch.float32, sms, cps)
+    if norm == tn._LAYER:
+        mean, rstd = (a.numpy() for a in tn.ln_stats(torch.tensor(x), 1e-5))
+        xhat = ((x - mean) * rstd).astype(np.float32)
+        sums = np.concatenate([g * xhat, g], axis=1)
+    else:
+        rstd = tn.rms_stats(torch.tensor(x), 1e-6).numpy()
+        xhat = (x * rstd).astype(np.float32)
+        sums = g * xhat
+    p = tn.ln_bwd_plan(n, h, torch.float32, sms, cps, norm=norm)
     walks = _plan_rows(p, n)
     terms = np.zeros((n, p["cols"]), np.float32)
-    terms[:, :2 * h] = np.concatenate([g * xhat, g], axis=1)
+    terms[:, :sums.shape[1]] = sums
     part = []
     for blk in range(p["ctas"]):
         tot = np.zeros(p["cols"], np.float32)
@@ -596,15 +613,31 @@ def test_kernels_match_plain_on_card(cuda, n, h, dtype):
 
 @pytest.mark.gpu
 def test_repeat_runs_are_bitwise_equal_on_card(cuda):
-    """No float atomics: the dw/db sums are in a fixed order."""
+    """No float atomics: the dw/db sums are in a fixed order. Both
+    norms' backwards at GPT-124M's rows (fp32), and at LLaMA-7B's (bf16,
+    w bf16) the RMS norm's and the fused residual RMS pair's, with dres
+    and without."""
+    from paddle_tpu_torch.ops.cuda import fused_residual_norm as tfr
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(8192, 768, generator=gen, device=cuda)
     g = torch.randn(8192, 768, generator=gen, device=cuda)
     w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
     _, mean, rstd = tn.layer_norm_fwd(x, w, b)
-    a = tn.layer_norm_bwd(x, w, mean, rstd, g)
-    c = tn.layer_norm_bwd(x, w, mean, rstd, g)
-    assert all(torch.equal(p, q) for p, q in zip(a, c))
+    _, rrstd = tn.rms_norm_fwd(x, w)
+    xl, gl, dl = (torch.randn(4096, 4096, generator=gen, device=cuda)
+                  .to(torch.bfloat16) for _ in range(3))
+    wl = (1.0 + 0.1 * torch.randn(4096, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    _, lrstd = tn.rms_norm_fwd(xl, wl)
+    for call in (lambda: tn.layer_norm_bwd(x, w, mean, rstd, g),
+                 lambda: tn.rms_norm_bwd(x, w, rrstd, g),
+                 lambda: tn.rms_norm_bwd(xl, wl, lrstd, gl),
+                 lambda: tfr.fused_residual_rms_norm_bwd(xl, wl, lrstd, dl,
+                                                         gl),
+                 lambda: tfr.fused_residual_rms_norm_bwd(xl, wl, lrstd,
+                                                         None, gl)):
+        a, c = call(), call()
+        assert all(torch.equal(p, q) for p, q in zip(a, c))
 
 
 @pytest.mark.gpu
@@ -638,9 +671,11 @@ def test_kernels_read_weights_in_their_own_dtype_on_card(cuda, dtype,
         assert torch.equal(got, ref.to(wdtype))
 
 
-def _ln_bwd_inputs(cuda, n, h, dtype, wdtype=None, aligned=True, seed=5):
+def _ln_bwd_inputs(cuda, n, h, dtype, wdtype=None, aligned=True, seed=5,
+                   norm=tn._LAYER):
     """x, g, w, b on the card (x and g offset by one element, so not
-    16-byte aligned, with ``aligned`` False), and the forward's stats."""
+    16-byte aligned, with ``aligned`` False), and the forward's stats
+    (mean None for RMS)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rows():
@@ -650,28 +685,48 @@ def _ln_bwd_inputs(cuda, n, h, dtype, wdtype=None, aligned=True, seed=5):
     w = (1.0 + 0.1 * torch.randn(h, generator=gen, device=cuda)).to(
         wdtype or dtype)
     b = torch.randn(h, generator=gen, device=cuda).to(wdtype or dtype)
+    if norm == tn._RMS:
+        _, rstd = tn.rms_norm_fwd(x, w, RMS_EPS)
+        return x, g, w, None, rstd
     _, mean, rstd = tn.layer_norm_fwd(x, w, b, LN_EPS)
     return x, g, w, mean, rstd
 
 
+def _norm_bwd(x, w, mean, rstd, g):
+    """The backward of the norm whose stats these are (mean None: RMS)."""
+    if mean is None:
+        return tn.rms_norm_bwd(x, w, rstd, g)
+    return tn.layer_norm_bwd(x, w, mean, rstd, g)
+
+
 def _check_ln_bwd(got, x, w, mean, rstd, g, dres=None):
-    """(d, dw, db) against the plain version in fp32 on the same inputs:
-    fp32 within 1e-5 (dw, db within 1e-5 of their column's sum of
-    magnitudes), bf16 within one rounding of the largest value."""
-    d, dw, db = got
+    """(d, dw, db) (RMS, mean None: (d, dw)) against the plain version in
+    fp32 on the same inputs: fp32 within 1e-5 (dw, db within 1e-5 of
+    their column's sum of magnitudes), bf16 within one rounding of the
+    largest value."""
     f32 = [t.float() for t in (x, w, g)]
-    rd, rdw, rdb = tn.layer_norm_bwd_plain(f32[0], f32[1], mean, rstd,
-                                           f32[2])
+    if mean is None:
+        (d, dw), db = got, None
+        rd, rdw = tn.rms_norm_bwd_plain(f32[0], f32[1], rstd, f32[2])
+        rdb = None
+        xh = f32[0] * rstd
+    else:
+        d, dw, db = got
+        rd, rdw, rdb = tn.layer_norm_bwd_plain(f32[0], f32[1], mean, rstd,
+                                               f32[2])
+        xh = (f32[0] - mean) * rstd
     if dres is not None:
         rd = rd + dres.float()
     bf = x.dtype == torch.bfloat16
 
     def lim(ref):
         return 2.0 ** -8 * float(ref.abs().max()) + 1e-6 if bf else 1e-5
-    assert d.dtype == x.dtype and dw.dtype == db.dtype == w.dtype
+    assert d.dtype == x.dtype and dw.dtype == w.dtype
+    assert db is None or db.dtype == w.dtype
     assert float((d.float() - rd).abs().max()) <= lim(rd)
-    xh = (f32[0] - mean) * rstd
-    for got_, ref, terms in ((dw, rdw, f32[2] * xh), (db, rdb, f32[2])):
+    sums = ((dw, rdw, f32[2] * xh),) + (
+        () if db is None else ((db, rdb, f32[2]),))
+    for got_, ref, terms in sums:
         tol = (2.0 ** -8 * float(ref.abs().max()) + 1e-6
                if w.dtype == torch.bfloat16 or bf
                else 1e-5 * float(terms.abs().sum(0).max()))
@@ -679,36 +734,43 @@ def _check_ln_bwd(got, x, w, mean, rstd, g, dres=None):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("norm", [tn._LAYER, tn._RMS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h", [64, 768, 1024, 4096, "largest"])
 @pytest.mark.parametrize("n", [1, 7, 8191, 8192])
-def test_layer_norm_bwd_kernel_matches_plain_on_card(cuda, n, h, dtype):
-    """The one-launch Layer backward (row 16) at every group size the
-    plan picks, ragged and tiny row counts: one launch a call, the plain
-    version's results."""
+def test_layer_norm_bwd_kernel_matches_plain_on_card(cuda, n, h, dtype,
+                                                     norm):
+    """The one-launch backward of both norms (rows 16 and 14) at every
+    group size the plan picks, ragged and tiny row counts: one launch a
+    call, the plain version's results, a second run bitwise equal."""
     h = _largest_h(dtype) if h == "largest" else h
-    x, g, w, mean, rstd = _ln_bwd_inputs(cuda, n, h, dtype)
-    before = tn.layer_norm_bwd.launches
-    got = tn.layer_norm_bwd(x, w, mean, rstd, g)
+    x, g, w, mean, rstd = _ln_bwd_inputs(cuda, n, h, dtype, norm=norm)
+    wrapper = tn.rms_norm_bwd if mean is None else tn.layer_norm_bwd
+    before = wrapper.launches
+    got = _norm_bwd(x, w, mean, rstd, g)
     torch.cuda.synchronize()
-    assert tn.layer_norm_bwd.launches == before + 1
+    assert wrapper.launches == before + 1
     _check_ln_bwd(got, x, w, mean, rstd, g)
+    again = _norm_bwd(x, w, mean, rstd, g)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("norm", [tn._LAYER, tn._RMS])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_layer_norm_bwd_one_element_loads_and_weights_on_card(
-        cuda, aligned, wdtype):
+        cuda, aligned, wdtype, norm):
     """bf16 rows beside fp32 and bf16 weights, with 16-byte loads and
     without (rows one element off alignment: the one-element path), and
-    h 203: the plain version's results, bitwise equal on a second run."""
-    for n, h in ((8191, 768), (37, 203)):
+    h 203, for both norms: the plain version's results, bitwise equal on
+    a second run."""
+    for n, h in ((8191, 768), (37, 203), (4093, 2048)):
         x, g, w, mean, rstd = _ln_bwd_inputs(cuda, n, h, torch.bfloat16,
-                                             wdtype, aligned)
-        got = tn.layer_norm_bwd(x, w, mean, rstd, g)
+                                             wdtype, aligned, norm=norm)
+        got = _norm_bwd(x, w, mean, rstd, g)
         _check_ln_bwd(got, x, w, mean, rstd, g)
-        again = tn.layer_norm_bwd(x, w, mean, rstd, g)
+        again = _norm_bwd(x, w, mean, rstd, g)
         assert all(torch.equal(p, q) for p, q in zip(got, again))
 
 
