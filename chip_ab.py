@@ -3,7 +3,8 @@
     python3 chip_ab.py {flash,decode,train,glue,nbackend,llama,rms,norm,qmm,qserve,gserve,partial,attn,opt,attn_splits,attn_probe} ROOT [ROOT ...]
     python3 chip_ab.py groups ROOT [NAME ...]
     python3 chip_ab.py ptxas ROOT SOURCE [SOURCE ...]
-    python3 chip_ab.py stamps ROOT [decode|norm ...]
+    python3 chip_ab.py stamps ROOT [decode|norm|epilogue ...]
+    python3 chip_ab.py row7 ROOT [ROOT ...]
     python3 chip_ab.py gpt_plans ROOT
     python3 chip_ab.py ln_groups ROOT
     python3 chip_ab.py norm_split ROOT [ROOT ...]
@@ -46,8 +47,13 @@ in each ROOT.
 ``groups`` builds copies of ROOT's port under ``ROOT/_chipcopy/groups/``
 that differ only in one line (``GROUPS``, or the NAMEs given): how
 many weight rows a warp dots at once in the per-head ingress and the
-epilogue, for which it prints that kernel's ms at the
-LLaMA-7B decode shapes (B = 8 and 1; the epilogue also at GPT-124M's)
+epilogue with how many stages the epilogue's rings hold
+(``epilogue``), with an L2 prefetch-size hint on its weight copies
+(``epi_l2hint``), and without its products (``epi_nodot``: the stream
+alone), for which it prints that
+kernel's ms at the
+LLaMA-7B decode shapes (B = 8 and 1; the epilogue also at B 16 and
+at GPT-124M's)
 and a sha256 of its outputs; how many resident CTAs the paged
 attention's mixed route plans a unit for (``attn_units``), for which it
 prints the mixed cases' ms and max abs error; and the most CTAs the
@@ -63,8 +69,19 @@ written, past the grid barrier, dw/db written), and prints for one call of
 each (``decode``: the GEMV and the LLaMA egress at the LLaMA-7B decode
 shapes, the GELU egress and the ingress at GPT-124M's; ``norm``: the
 LayerNorm backward at GPT-124M's training rows, the RMS backwards at
-LLaMA-7B's) the (min, median, max, count) over CTAs of each stamp, in
-us from the first CTA's start.
+LLaMA-7B's; ``epilogue``: row 7 at LLaMA-7B's B 8, 1 and 16 and
+GPT-124M's B 8, on whichever of the designs in ``EPI_STAMPS`` ROOT
+holds: entry, x staged, rows normalised, the first weights landed, the
+columns done, the partial written, the last CTA's reduce done, with
+the SMs used and the most CTAs that ran on one SM at once) the (min,
+median, max, count) over CTAs of each stamp, in us from the first
+CTA's start.
+
+``row7`` times ROOT's sampling epilogue (row 7) at LLaMA-7B's B 1, 5,
+8 and 16 and GPT-124M's B 8, 5 and 1 (ms behind the device spin, L2
+flushed) and prints a sha256 of each case's outputs over two calls and
+whether the two agree (a B that ROOT's wrapper refuses is printed as
+refused), and ``torch.sum`` over each head as a yardstick.
 
 ``ln_groups`` times the norm backward (rows 10 and 16 at GPT-124M's
 rows, rows 12 and 14 at LLaMA-7B's) on ROOT's kernels under other
@@ -100,11 +117,28 @@ import sys
 from pathlib import Path
 
 # kernel: (source, the line that sets the group (a regex), that line with
-# the size in its place, the sizes tried)
+# the size in its place, the sizes tried; or a tuple of lines, of lines
+# with their sizes, and of size tuples)
 GROUPS = {"qkv": ("fused_decode_qkv.cu", r"constexpr int kHeadCols = \d+;",
                   "constexpr int kHeadCols = {};", (1, 2, 4)),
-          "epilogue": ("fused_decode_mlp.cu", r"constexpr int kEpiGroup = \d+;",
-                       "constexpr int kEpiGroup = {};", (1, 2, 4)),
+          # the epilogue's (columns a warp dots at once, ring stages)
+          "epilogue": ("fused_decode_mlp.cu",
+                       (r"constexpr int kEpiGroup = \d+;",
+                        r"constexpr int kEpiStages = \d+;"),
+                       ("constexpr int kEpiGroup = {};",
+                        "constexpr int kEpiStages = {};"),
+                       ((8, 2), (8, 3), (4, 4), (8, 2))),
+          # the epilogue's weight copies with an L2 prefetch-size hint
+          "epi_l2hint": ("fused_decode_mlp.cu",
+                         r'cp\.async\.cg\.shared\.global(\.L2::\d+B)? \[%0\], \[%1\], 16;" ::"r"\(dst\), "l"\(src\)\);\n\}\n\n__device__ __forceinline__ void cp_async_commit',
+                         'cp.async.cg.shared.global{} [%0], [%1], 16;" ::"r"(dst), "l"(src));\n}}\n\n__device__ __forceinline__ void cp_async_commit',
+                         ("", ".L2::128B", ".L2::256B", "")),
+          # the epilogue without its products (the stream alone: wrong
+          # logits, a diagnostic)
+          "epi_nodot": ("fused_decode_mlp.cu",
+                        r"        if \(q >= kc4( \|\| true)?\) continue;\n",
+                        "        if (q >= kc4{}) continue;\n",
+                        ("", " || true", "")),
           # the paged attention's mixed route: resident CTAs a unit
           "attn_units": ("paged_attention.cu",
                          r"constexpr int kCtasPerUnit = \d+;",
@@ -166,6 +200,8 @@ def _one(what, root):
         out = _gpt_egress(chip_smoke)
     elif what in GROUPS:
         out = _group_times(chip_smoke, what)
+    elif what == "row7":
+        out = _epilogue(chip_smoke)
     elif what == "rms":
         out = _rms_digests(chip_smoke)
     elif what.startswith("stamps"):
@@ -659,7 +695,8 @@ def _decode_digests():
 def _group_times(chip_smoke, what):
     """ms (behind the device spin, L2 flushed) and a sha256 of the outputs
     of one fused decode kernel at the LLaMA-7B decode shapes, B = 8 and
-    1, fp32 (the epilogue also at GPT-124M's LayerNorm and tied head)."""
+    1, fp32 (the epilogue, ``epilogue`` and ``epi_nodot``, also at B 16
+    and at GPT-124M's LayerNorm and tied head)."""
     import torch
 
     from paddle_tpu_torch.models.generation import _rope_tables
@@ -680,7 +717,7 @@ def _group_times(chip_smoke, what):
     else:
         w_lm = rn(V, H, std=0.02)
     out = {}
-    for B in (8, 1):
+    for B in (8, 1) if what == "qkv" else (8, 1, 16):
         x = rn(B, H)
         if what == "qkv":
             pos = torch.randint(0, 2048, (B,), generator=gen, device="cuda")
@@ -703,7 +740,7 @@ def _group_times(chip_smoke, what):
         out[f"llama7b_b{B}"] = {
             "ms": chip_smoke._time_ms(fn, 30, flush, spin=True),
             "sha256": _digest(res)}
-    if what == "epilogue":
+    if what.startswith("epi"):
         del w_lm
         Hg, B = 768, 8
         x, wte = rn(B, Hg), rn(50304, Hg, std=0.02)
@@ -721,6 +758,75 @@ def _group_times(chip_smoke, what):
     return out
 
 
+# Row 7's cases (``row7``): (name, hidden, vocab, norm, the B tried)
+EPI_CASES = (("llama7b", 4096, 32000, "rms", (1, 5, 8, 16)),
+             ("gpt124m", 768, 50304, "layer", (8, 5, 1)))
+
+
+def _epilogue_case(gen, hid, vocab, norm, rows):
+    """Inputs of row 7 at one model's decode shapes for ``rows`` rows
+    (drawn at the most rows and cut, so every B of a model reads the
+    same weights): ``(args, kwargs)`` of ``fused_decode_epilogue``, the
+    poison lane zero."""
+    import torch
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    x, nw = rn(max(rows), hid), 1.0 + rn(hid, std=0.1)
+    if norm == "rms":    # LLaMA: RMSNorm, an untied head without bias
+        nb, kw = None, dict(norm="rms", eps=1e-6)
+    else:                # GPT: LayerNorm with bias, the tied embedding
+        nb, kw = rn(hid, std=0.1), dict(eps=1e-5, transpose_lm=True)
+    w_lm = rn(vocab, hid, std=0.02)
+    return x, nw, nb, w_lm, kw
+
+
+def _epilogue(chip_smoke, calls=30):
+    """Row 7 on ROOT's kernel (``EPI_CASES``): LLaMA-7B's RMSNorm and
+    untied head ``[32000, 4096]`` at B 1, 5, 8 and 16, GPT-124M's
+    LayerNorm and tied ``[50304, 768]`` at B 8, 5 and 1. Per case the
+    ms behind the device spin, L2 flushed (``calls`` calls), and the
+    sha256 of the outputs (logits, nxt, bad; row B // 2 NaN-poisoned)
+    of two calls, with whether they agree; ``"refused: ..."`` where
+    ROOT's wrapper raises at that B; and, as a yardstick of how fast the
+    card streams the head, the ms of ``torch.sum`` over it."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for model, hid, vocab, norm, rows in EPI_CASES:
+        x, nw, nb, w_lm, kw = _epilogue_case(gen, hid, vocab, norm, rows)
+        out[f"{model}_head_sum_ms"] = chip_smoke._time_ms(
+            lambda: torch.sum(w_lm), calls, flush, spin=True)
+        for B in rows:
+            zero = torch.zeros(B, device="cuda")
+            poison = zero.clone()
+            poison[B // 2] = float("nan")
+            xb = x[:B].contiguous()
+            try:
+                digests = []
+                for _ in range(2):
+                    res = fm.fused_decode_epilogue(xb, nw, nb, w_lm, None,
+                                                   poison, **kw)
+                    torch.cuda.synchronize()
+                    digests.append(_digest(res))
+            except ValueError as e:
+                out[f"{model}_b{B}"] = f"refused: {e}"
+                continue
+            out[f"{model}_b{B}"] = {
+                "ms": chip_smoke._time_ms(
+                    lambda: fm.fused_decode_epilogue(xb, nw, nb, w_lm, None,
+                                                     zero, **kw),
+                    calls, flush, spin=True),
+                "sha256": digests[0], "repeat_equal": digests[0] == digests[1]}
+        del x, w_lm
+        torch.cuda.empty_cache()
+    return out
+
+
 def _group_copies(root, names=()):
     """One copy of ROOT's port a group size, under ROOT/_chipcopy/groups,
     for each of GROUPS (or of ``names``): [(kernel, size, copy root)]."""
@@ -730,16 +836,23 @@ def _group_copies(root, names=()):
         if names and what not in names:
             continue
         for i, n in enumerate(sizes):
-            dst = base / "_chipcopy" / "groups" / f"{what}{n}_{i}"
+            tag = re.sub(r"\W+", "", "x".join(map(str, n))
+                         if isinstance(n, tuple) else str(n))
+            dst = base / "_chipcopy" / "groups" / f"{what}{tag}_{i}"
             shutil.rmtree(dst, ignore_errors=True)
             shutil.copytree(base / "paddle_tpu_torch", dst / "paddle_tpu_torch",
                             ignore=shutil.ignore_patterns("build",
                                                           "__pycache__"))
             shutil.copy(base / "chip_smoke.py", dst / "chip_smoke.py")
             cu = dst / "paddle_tpu_torch" / "ops" / "cuda" / "csrc" / src
-            text, k = re.subn(line, fmt.format(n), cu.read_text())
-            if k != 1:
-                raise RuntimeError(f"{src}: {k} lines match {line!r}")
+            text = cu.read_text()
+            many = isinstance(line, tuple)
+            for ln, ft, v in zip(line if many else (line,),
+                                 fmt if many else (fmt,),
+                                 n if many else (n,)):
+                text, k = re.subn(ln, ft.format(v), text)
+                if k != 1:
+                    raise RuntimeError(f"{src}: {k} lines match {ln!r}")
             cu.write_text(text)
             out.append((what, n, str(dst)))
     return out
@@ -757,6 +870,11 @@ __device__ __forceinline__ unsigned long long stamp_now() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
   return t;
+}
+__device__ __forceinline__ unsigned long long stamp_smid() {
+  unsigned s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  return s + 1ull;
 }
 extern "C" int pdt_read_stamps(unsigned long long* host, int n) {
   return (int)cudaMemcpyFromSymbol(host, g_stamps, (size_t)n * 8);
@@ -822,7 +940,45 @@ STAMPS = {
         [("    // first loads landed\n",
           "    // first loads landed\n    if (it == 0) {{ {} }}\n", 1)]),
 }
-STAMP_SETS = ("decode", "norm")
+# The epilogue (row 7, ``stamps ROOT epilogue``), one anchor set a design,
+# the first of which the source holds every anchor once (the earlier design
+# of 64 columns a CTA, "cta64", so that a parent tree can be stamped too): 0 entry, 1 x staged
+# (thread 0's loads), 2 rows normalised, 3 the first weights landed (cta64:
+# warp 0's first column group done), 4 the CTA's columns done, 5 its
+# partial written and the ticket taken (its exit, but for the last CTA's),
+# 6 the last CTA's reduce done; persistent: 7 the first rows' statistics
+# read; 15 the SM (stamp_smid), at entry.
+_SMID = "if (threadIdx.x == 0) g_stamps[blockIdx.x * 16 + 15] = stamp_smid();"
+EPI_STAMPS = {
+    "cta64": (
+        [("  __shared__ int is_last;\n", 0),
+         ("  decode::load_rows<1>(hs, p.x, p.B, p.H);\n", 1),
+         ("    decode::layer_norm_rows(hs, p.nw, p.nb, p.B, p.H, p.eps);\n", 2),
+         ("  // this CTA's partial per row, then the ticket\n", 4),
+         ("  if (threadIdx.x == 0) is_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;\n",
+          5)],
+        [("      decode::warp_dot_multi<kEpiGroup>(rows, hs + (size_t)r0 * p.H, p.H, nr, acc);\n",
+          "      decode::warp_dot_multi<kEpiGroup>(rows, hs + (size_t)r0 * p.H, p.H, nr, acc);\n"
+          "      if (threadIdx.x == 0 && g_stamps[blockIdx.x * 16 + 3] == 0) {{ {} }}\n",
+          3),
+         ("  if (threadIdx.x == 0) *p.ticket = 0u;\n}",
+          "  if (threadIdx.x == 0) *p.ticket = 0u;\n  {}\n}}", 6)]),
+}
+EPI_STAMPS["persistent"] = (
+    [("  __shared__ int is_last;\n", 0),
+     ("  cp_async_wait<kEpiStages - 1>();\n  __syncthreads();\n", 1),
+     ("  if (NC == 1) decode::row_norm_stats(stat, xs, rows_of(0), p.H, kRms, p.eps);\n",
+      7),
+     ("  float acc[kG][RT];\n", 2),
+     ("  // and puts the ticket back to 0\n", 4),
+     ("  if (threadIdx.x == 0) is_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;\n",
+      5)],
+    [("        cp_async_wait<kEpiStages - 1>();\n        const int q =",
+      "        cp_async_wait<kEpiStages - 1>();\n        if (t == 0) {{ {} }}\n"
+      "        const int q =", 3),
+     ("  if (threadIdx.x == 0) *p.ticket = 0u;\n}",
+      "  if (threadIdx.x == 0) *p.ticket = 0u;\n  {}\n}}", 6)])
+STAMP_SETS = ("decode", "norm", "epilogue")
 
 
 def _stamp_copy(root):
@@ -839,6 +995,8 @@ def _stamp_copy(root):
         edits = [(head, head + _STAMP_HEAD)]
         edits += [(a, a + "  " + _STAMP.format(i) + "\n") for a, i in after]
         edits += [(a, b.format(_STAMP.format(i))) for a, b, i in replace]
+        if src == "fused_decode_mlp.cu":
+            edits += _epi_edits(text)
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"{src}: stamp anchor found "
@@ -846,6 +1004,21 @@ def _stamp_copy(root):
             text = text.replace(old, new)
         cu.write_text(text)
     return str(dst)
+
+
+def _epi_edits(text):
+    """The edits of the first EPI_STAMPS design whose anchors ``text``
+    holds once each, the SM stamp after the entry stamp's anchor."""
+    for after, replace in EPI_STAMPS.values():
+        anchors = [a for a, _ in after] + [a for a, _, _ in replace]
+        if all(text.count(a) == 1 for a in anchors):
+            edits = [(a, a + "  " + _STAMP.format(i) + "\n"
+                      + ("  " + _SMID + "\n" if i == 0 else ""))
+                     for a, i in after]
+            return edits + [(a, b.format(_STAMP.format(i)))
+                            for a, b, i in replace]
+    raise RuntimeError("fused_decode_mlp.cu: no epilogue stamp design "
+                       "matches")
 
 
 def _stamps(chip_smoke, which=STAMP_SETS):
@@ -875,7 +1048,7 @@ def _stamps(chip_smoke, which=STAMP_SETS):
     def rn(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * std
 
-    def trace(lib_name, fn, grid, points):
+    def trace(lib_name, fn, grid, points, exit_slot=None):
         lib = _build.load(lib_name)
         lib.pdt_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
         for _ in range(3):
@@ -893,20 +1066,27 @@ def _stamps(chip_smoke, which=STAMP_SETS):
         buf = (ctypes.c_ulonglong * (4096 * 16))()
         if lib.pdt_read_stamps(buf, 4096 * 16) != 0:
             raise RuntimeError("reading the stamps failed")
-        ts = np.array(buf, dtype=np.float64).reshape(4096, 16)[:grid, :points]
+        full = np.array(buf, dtype=np.float64).reshape(4096, 16)[:grid]
+        ts = full[:, :points].copy()
         ts[ts == 0] = np.nan
         rel = (ts - np.nanmin(ts[:, 0])) / 1e3
-        return {"event_ms": s.elapsed_time(e), "grid": grid, "us": {
+        got = {"event_ms": s.elapsed_time(e), "grid": grid, "us": {
             i: [round(float(f(rel[:, i])), 2) for f in (np.nanmin,
                                                          np.nanmedian,
                                                          np.nanmax)]
             + [int(np.isfinite(rel[:, i]).sum())]
             for i in range(points) if np.isfinite(rel[:, i]).any()}}
+        if exit_slot is not None:
+            got["resident"] = _resident(full[:, 15], ts[:, 0],
+                                        ts[:, exit_slot])
+        return got
 
     out = {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if "norm" in which:
         out.update(_norm_stamps(trace, rn, sms))
+    if "epilogue" in which:
+        out.update(_epi_stamps(trace, chip_smoke))
     if "decode" not in which:
         return out
     for k, n in ((4096, 4096), (4096, 11008), (4096, 32000)):
@@ -969,6 +1149,55 @@ def _stamps(chip_smoke, which=STAMP_SETS):
                                             eps=1e-5, n_heads=nh,
                                             n_kv_heads=nh, head_dim=hd),
                 grid, 5)
+    return out
+
+
+def _resident(smid, t0, t1):
+    """From each CTA's SM (+1, 0 unset), entry and exit stamps: the SMs
+    used and the most CTAs that ran on one SM at once."""
+    import numpy as np
+    most, sms = 0, set()
+    for sm in set(int(v) for v in smid if v > 0):
+        sms.add(sm)
+        sel = (smid == sm) & np.isfinite(t0) & np.isfinite(t1)
+        ev = sorted([(a, 1) for a in t0[sel]] + [(b, -1) for b in t1[sel]],
+                    key=lambda e: (e[0], e[1]))
+        run = 0
+        for _, d in ev:
+            run += d
+            most = max(most, run)
+    return {"sms": len(sms), "most_ctas_an_sm": most}
+
+
+def _epi_stamps(trace, chip_smoke):
+    """The epilogue's stamps (``_stamps``, EPI_STAMPS) on ROOT's design:
+    LLaMA-7B (RMSNorm, untied head) at B 8, 1 and 16 and GPT-124M
+    (LayerNorm, tied head) at B 8, with the CTAs' residency an SM; a B
+    ROOT's wrapper refuses is reported as such."""
+    import torch
+
+    from paddle_tpu_torch.ops.cuda import fused_decode_mlp as fm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for model, hid, vocab, norm, _ in EPI_CASES:
+        rows = (8, 1, 16) if model == "llama7b" else (8,)
+        x, nw, nb, w_lm, kw = _epilogue_case(gen, hid, vocab, norm, rows)
+        for B in rows:
+            xb, zero = x[:B].contiguous(), torch.zeros(B, device="cuda")
+            if hasattr(fm, "epilogue_plan"):
+                grid = fm.epilogue_plan(B, hid, vocab, norm)["grid"]
+            else:       # the earlier design: 64 vocab columns a CTA
+                grid = -(-vocab // 64)
+            try:
+                out[f"{model}_b{B}"] = trace(
+                    "fused_decode_mlp",
+                    lambda: fm.fused_decode_epilogue(xb, nw, nb, w_lm, None,
+                                                     zero, **kw),
+                    grid, 8, exit_slot=5)
+            except ValueError as e:
+                out[f"{model}_b{B}"] = f"refused: {e}"
+        del x, w_lm
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1063,6 +1292,7 @@ def main(argv):
                            check=True, timeout=900)
         return 0
     if len(argv) < 2 or argv[0] not in ("flash", "decode", "train", "glue",
+                                        "row7",
                                         "nbackend", "rms", "norm", "qmm",
                                         "qserve", "gserve", "partial",
                                         "attn", "opt", "attn_splits",

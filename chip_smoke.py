@@ -955,8 +955,9 @@ def llama_decode_kernel_cases(seed, power, flush):
     4096, 32 heads of 128, intermediate 11008, vocab 32000, pools
     ``[32, 1025, 16, 128]`` fp32 or int8 with scale pools, tables ``[B,
     128]``): B = 8 (the engine's slots; the first row of each kernel, its
-    main case), 1 and 5, both pool types, and GQA (32 q heads on 8 kv
-    heads). Values within TOL of the plain version's largest; int8 pool
+    main case), 1 and 5, both pool types, GQA (32 q heads on 8 kv
+    heads), and B = 16 (a 16-slot step: fp32 pools of ``[32, 2049, 16,
+    128]``; the epilogue's x by K-chunks). Values within TOL of the plain version's largest; int8 pool
     bytes within one step (the count reported), scales within 1e-6
     relative; tokens and bad flags equal except on near ties, a
     NaN-poisoned row bad with token 0. Each case is timed behind the
@@ -993,10 +994,10 @@ def llama_decode_kernel_cases(seed, power, flush):
     # ingress: RMSNorm + q/k/v + rope + paged append (+ int8 quantize)
     for B, hk, int8 in ((8, 32, False), (8, 32, True), (8, 8, True),
                         (1, 32, False), (1, 32, True), (5, 32, False),
-                        (5, 32, True)):
+                        (5, 32, True), (16, 32, False)):
         name = (f"llama7b_{'gqa_' if hk < nh else ''}decode_b{B}_"
                 f"{'int8' if int8 else 'fp32'}")
-        P = 1 + GEO["max_slots"] * NP
+        P = 1 + max(GEO["max_slots"], B) * NP
         x = rn(B, H)
         wk, wv = rn(hk * hd, H, std=0.02), rn(hk * hd, H, std=0.02)
         ws = [wq, wk, wv]
@@ -1068,7 +1069,7 @@ def llama_decode_kernel_cases(seed, power, flush):
     wo = rn(H, H, std=resid)
     wg, wu = rn(inter, H, std=0.02), rn(inter, H, std=0.02)
     wd = rn(H, inter, std=resid)
-    for B in (8, 1, 5):
+    for B in (8, 1, 5, 16):
         x, att = rn(B, H), rn(B, H)
         margs = (x, att, wo, None, norm_w, None, wg, None, wd, None, wu)
         mkw = dict(arch="llama", norm="rms", eps=eps)
@@ -1102,7 +1103,7 @@ def llama_decode_kernel_cases(seed, power, flush):
 
     # epilogue: final RMSNorm + untied head + guarded argmax
     w_lm = rn(V, H, std=0.02)
-    for B in (8, 1, 5):
+    for B in (8, 1, 5, 16):
         x = rn(B, H)
         zero = torch.zeros(B, device=dev)
         ekw = dict(norm="rms", eps=eps)
@@ -1821,15 +1822,17 @@ def _serve_run(model, seed, device, tag, teacher, margin=MARGIN,
 
 
 # device kernels (by name) a profiled decode window counts
-WINDOW_KERNELS = ("gemv_tc_kernel", "egress_kernel", "qkv_split_kernel")
+WINDOW_KERNELS = ("gemv_tc_kernel", "egress_kernel", "qkv_split_kernel",
+                  "fused_decode_epilogue_kernel")
 
 
 def _check_window_kernels(model, window, megakernel):
     """In a profiled decode window of k steps (every slot decoding, fp32
     activations): row 17's GEMV runs once per weight-only projection a
     step, the egress kernel (rows 5 and 6) once per layer a step of a
-    megakernel serve, with or without TP, and the split-K ingress (row 4)
-    once per layer a step of a megakernel serve of GPT, on the device,
+    megakernel serve, with or without TP, the split-K ingress (row 4)
+    once per layer a step of a megakernel serve of GPT, and the sampling
+    epilogue (row 7) once a step of a megakernel serve, on the device,
     and none runs anywhere else: no launch beyond those (the wrappers'
     counts, checked exactly per dispatch by :func:`_drive`, show each
     call is one launch). The profiler's activity records can drop a
@@ -1841,7 +1844,8 @@ def _check_window_kernels(model, window, megakernel):
     llama = type(model).__name__.startswith("Llama")
     want = {"gemv_tc_kernel": n_mm * k,
             "egress_kernel": L * k if megakernel else 0,
-            "qkv_split_kernel": L * k if megakernel and not llama else 0}
+            "qkv_split_kernel": L * k if megakernel and not llama else 0,
+            "fused_decode_epilogue_kernel": k if megakernel else 0}
     got = window["kernel_launches"]
     log(f"decode window: device launches {got} (want {want}, at most one "
         f"a step fewer)")
@@ -1945,7 +1949,7 @@ def profile_window(model, prompts, new_tokens, geo):
     dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
     # the device launches of the decode kernels whose count per step the
     # serve checks (row 17's GEMV, rows 5-6's egress, row 4's split-K
-    # ingress)
+    # ingress, row 7's epilogue)
     named = {key: sum(e.count for e in evs if key in e.key)
              for key in WINDOW_KERNELS}
     path = "megakernel" if geo.get("megakernel") else "unfused"
@@ -2382,7 +2386,8 @@ def rope_cases(seed, power, flush):
     per-batch ``[2, 2048, 128]`` tables and fp32. ``unfused_ms`` times the
     eager chain a model would run without the kernel: ``x * cos +
     rotate(x) * sin`` in x's dtype (tables cast once, outside the clock).
-    No single PyTorch call computes rope (``library_ms`` null)."""
+    Every time behind the device spin. No single PyTorch call computes
+    rope (``library_ms`` null)."""
     from paddle_tpu_torch.models import rope_angles
     from paddle_tpu_torch.ops.cuda import rope as rp
     dev = torch.device("cuda")
@@ -2421,14 +2426,14 @@ def rope_cases(seed, power, flush):
         esize = x.element_size()
         nbytes = 2 * x.numel() * esize + 2 * c.numel() * 4
         bound_ms, bound_by = _fp32_bound(nbytes, 6 * x.numel())
-        unf = _time_ms(unfused, 20, flush)
+        unf = _time_ms(unfused, 20, flush, spin=True)
         for rows, which, fn, pfn in (
                 (fwd_rows, "out", lambda: rp.rope(x, c, s, neox),
                  lambda: rp.rope_plain(x, c, s, neox)),
                 (bwd_rows, "dx", lambda: rp.rope(g, c, s, neox, neg_sin=True),
                  lambda: rp.rope_plain(g, c, -s, neox))):
-            ms = _time_ms(fn, 50, flush)
-            plain_ms = _time_ms(pfn, 10, flush)
+            ms = _time_ms(fn, 50, flush, spin=True)
+            plain_ms = _time_ms(pfn, 10, flush, spin=True)
             row = dict(case=name + ("" if which == "out" else "_bwd_neg_sin"),
                        max_abs_err=errs[which][0], tolerance=errs[which][1],
                        ms=ms, plain_ms=plain_ms, unfused_ms=unf,

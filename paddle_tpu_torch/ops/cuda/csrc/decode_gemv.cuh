@@ -29,89 +29,15 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// Copy rows [B, K] from global memory into shared memory `s` (every
-// thread of the block takes part), kLoads 16-byte loads per thread in
-// flight before they are stored (more loads in flight, more registers:
-// the epilogue, whose occupancy they would cut, takes one). `src` may
-// have been written earlier in the same launch by other blocks (after a
-// grid barrier), so it is read with plain loads, never through the
-// read-only path. K % 4 == 0.
-template <int kLoads = 8>
-__device__ inline void load_rows(float* s, const float* src, int B, int K) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(s);
-  const int n4 = B * K / 4, step = blockDim.x;
-  for (int base = threadIdx.x; base < n4; base += kLoads * step) {
-    float4 v[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u)
-      if (base + u * step < n4) v[u] = s4[base + u * step];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u)
-      if (base + u * step < n4) d4[base + u * step] = v[u];
-  }
-}
-
-// LayerNorm of every row of s [B, H] in place, as the JAX package's
-// `_norm_block` with norm="layer": var = E[x^2] - mean^2,
-// ((x - mean) * rsqrt(var + eps)) * w, then + b only where b is given.
-// One warp per row. Ends with a block barrier.
-__device__ inline void layer_norm_rows(float* s, const float* __restrict__ w,
-                                       const float* __restrict__ b, int B, int H,
-                                       float eps) {
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < B; r += blockDim.x / 32) {
-    float* row = s + (size_t)r * H;
-    float sum = 0.f, sq = 0.f;
-    for (int k = lane; k < H; k += 32) {
-      const float v = row[k];
-      sum += v;
-      sq = fmaf(v, v, sq);
-    }
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
-    const float mean = sum / H;
-    const float var = sq / H - mean * mean;
-    const float rstd = rsqrtf(var + eps);
-    for (int k = lane; k < H; k += 32) {
-      float v = ((row[k] - mean) * rstd) * __ldg(w + k);
-      if (b != nullptr) v += __ldg(b + k);
-      row[k] = v;
-    }
-  }
-  __syncthreads();
-}
-
-// RMSNorm of every row of s [B, H] in place, as `_norm_block` with
-// norm="rms": ms = E[x^2], (x * rsqrt(ms + eps)) * w, then + b only where
-// b is given. One warp per row. Ends with a block barrier.
-__device__ inline void rms_norm_rows(float* s, const float* __restrict__ w,
-                                     const float* __restrict__ b, int B, int H,
-                                     float eps) {
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < B; r += blockDim.x / 32) {
-    float* row = s + (size_t)r * H;
-    float sq = 0.f;
-    for (int k = lane; k < H; k += 32) sq = fmaf(row[k], row[k], sq);
-    const float rstd = rsqrtf(warp_sum(sq) / H + eps);
-    for (int k = lane; k < H; k += 32) {
-      float v = (row[k] * rstd) * __ldg(w + k);
-      if (b != nullptr) v += __ldg(b + k);
-      row[k] = v;
-    }
-  }
-  __syncthreads();
-}
-
 // The norm's statistics of rows x [B, K] (device or shared memory), for
 // rows that stream through shared memory in K-chunks (load_chunk) or by
 // K-slices: stat[2 r] = the row's mean (0 for rms), stat[2 r + 1] = its
 // rsqrt(var + eps) (layer: var = E[x^2] - mean^2) or rsqrt(E[x^2] + eps)
 // (rms). 16-byte loads, kStatLoads in flight a lane (one round trip for a
 // row of up to 32 kStatLoads float4s: GPT-124M's 768 floats); plain
-// loads, as load_rows. One warp per row; x 16-byte aligned, K % 4 == 0.
+// loads, never through the read-only path (x may have been written
+// earlier in the same launch). One warp per row; x 16-byte aligned, K % 4
+// == 0.
 // Ends with a block barrier.
 constexpr int kStatLoads = 8;
 
@@ -183,8 +109,8 @@ __device__ inline float4 norm4(float4 v, float mean, float rstd, bool rms, float
 // the way with weight w [ld] and bias b [ld] or null. A row too wide for
 // shared memory (LLaMA-7B's MLP: 8 rows of 11008 floats are 352 KB) then
 // takes several chunks, the caller carrying each output's partial sum
-// from one chunk to the next. Plain loads, as load_rows. ld, k0, kc % 4
-// == 0.
+// from one chunk to the next. Plain loads, as row_norm_stats. ld, k0, kc %
+// 4 == 0.
 template <int kLoads = 4>
 __device__ inline void load_chunk(float* s, const float* src, int B, int ld,
                                   int k0, int kc, const float* stat, bool rms,

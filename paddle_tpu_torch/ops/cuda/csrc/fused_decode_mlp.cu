@@ -18,7 +18,9 @@
 //   `_epilogue_block` (same file): logits = norm(x) @ w_lm^T (+ b_lm),
 //   then with lg = logits + poison, bad = any non-finite lg in the row,
 //   nxt = bad ? 0 : the FIRST index of the row's maximum
-//   (generation.guarded_argmax).
+//   (generation.guarded_argmax). One persistent wave of CTAs streaming
+//   the head through rings in shared memory, for any number of rows; its
+//   design is written above it.
 //
 // What bounds them on an H100: the weight bytes. At decode the batch is a
 // few rows, so each product is a GEMV over a weight read once: 21.2 MB a
@@ -27,9 +29,7 @@
 // epilogue (~46 us). The TPU kernels walk row blocks of one grid with the
 // weights resident in VMEM; one SM pulling those bytes would take hundreds
 // of microseconds, so here the work of every product is spread over all
-// SMs. The epilogue spreads its vocab columns (decode_gemv.cuh: a warp per
-// few neighbouring columns, whole [out, in] weight rows with 16-byte loads,
-// the normalised rows in shared memory).
+// SMs.
 //
 // The egress's products depend on each other across columns (fc1 needs
 // every column of y1, fc2 every column of the activation), so it is a
@@ -39,12 +39,6 @@
 // [B, I] pass through a global scratch that stays in L2. A refused
 // cooperative launch returns its error and the wrapper raises: there is
 // no fallback.
-//
-// The epilogue's argmax reduces across CTAs: each CTA writes its logits
-// and, per row, the (max, first index, all-finite) of its columns; the
-// last CTA to finish (a __threadfence, then an atomic ticket) reduces
-// those partials, ties going to the lower index, and resets the ticket
-// for the next launch. One launch, on one stream at a time per ticket.
 //
 // fp32 FMAs on the CUDA cores (at 8 rows they are not the limit). Plain C
 // interface (bound with ctypes); the wrappers in fused_decode_mlp.py check
@@ -57,143 +51,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using decode::kRowTile;
-using decode::kThreads;
-using decode::kWarps;
-
-constexpr int kEpiColsPerCta = 64;   // vocab columns of one epilogue CTA
-constexpr int kEpiGroup = 4;         // columns a warp dots at once
-
-struct EpiParams {
-  const float* x;        // [B, H]
-  const float* nw;       // [H]
-  const float* nb;       // [H] or null
-  const float* w;        // [V, H]
-  const float* bias;     // [V] or null
-  const float* poison;   // [B]
-  float* logits;         // [B, V], pre-poison
-  float* part_val;       // [grid, B] scratch
-  int* part_idx;         // [grid, B]
-  int* part_fin;         // [grid, B]
-  unsigned* ticket;      // zero between launches
-  long long* nxt;        // [B]
-  unsigned char* bad;    // [B] (torch.bool)
-  int B, H, V;
-  float eps;
-};
-
-// (value, index, finite) merge: the larger value wins, a tie goes to the
-// lower index; finite is the AND of both.
-__device__ inline void merge(float& v, int& i, int& fin, float v2, int i2, int fin2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-  fin = fin && fin2;
-}
-
-template <bool kRms>
-__global__ void __launch_bounds__(kThreads)
-fused_decode_epilogue_kernel(EpiParams p) {
-  extern __shared__ __align__(16) float hs[];   // [B, H], then partials
-  float* wval = hs + (size_t)p.B * p.H;         // [kWarps, B]
-  int* widx = reinterpret_cast<int*>(wval + kWarps * p.B);
-  int* wfin = widx + kWarps * p.B;
-  __shared__ int is_last;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = (int)blockIdx.x * kEpiColsPerCta;
-  const int n_end = min(p.V, n0 + kEpiColsPerCta);
-  // the first row of each warp only: all resident CTAs' whole slabs
-  // would overflow the L2 before they are read
-  decode::prefetch_rows_l2(p.w, p.H, n0, min(n_end, n0 + kWarps));
-  for (int e = threadIdx.x; e < kWarps * p.B; e += blockDim.x) {
-    wval[e] = -INFINITY;
-    widx[e] = 0x7fffffff;
-    wfin[e] = 1;
-  }
-  decode::load_rows<1>(hs, p.x, p.B, p.H);
-  if constexpr (kRms)
-    decode::rms_norm_rows(hs, p.nw, p.nb, p.B, p.H, p.eps);
-  else
-    decode::layer_norm_rows(hs, p.nw, p.nb, p.B, p.H, p.eps);
-
-  // this CTA's columns: logits out, and each warp's running (max, index,
-  // finite) per row, kept by the lane that owns the row. A warp dots
-  // kEpiGroup neighbouring columns at once (decode::warp_dot_multi), which
-  // cuts the shared-memory reads per weight byte kEpiGroup-fold: at
-  // LLaMA-7B's 8 rows of 4096 the CTA's 128 KB of rows leave one CTA an
-  // SM, whose shared memory would otherwise bound it.
-  for (int c0 = n0 + warp * kEpiGroup; c0 < n_end; c0 += kWarps * kEpiGroup) {
-    const float* rows[kEpiGroup];
-#pragma unroll
-    for (int i = 0; i < kEpiGroup; ++i)
-      rows[i] = p.w + (size_t)min(c0 + i, n_end - 1) * p.H;
-    for (int r0 = 0; r0 < p.B; r0 += kRowTile) {
-      const int nr = min(kRowTile, p.B - r0);
-      float acc[kEpiGroup][kRowTile];
-      decode::warp_dot_multi<kEpiGroup>(rows, hs + (size_t)r0 * p.H, p.H, nr, acc);
-#pragma unroll
-      for (int r = 0; r < kRowTile; ++r) {
-        if (r >= nr || lane != r) continue;
-        const int b = r0 + r;
-#pragma unroll
-        for (int i = 0; i < kEpiGroup; ++i) {
-          const int n = c0 + i;
-          if (n >= n_end) break;
-          const float lg0 = p.bias != nullptr ? acc[i][r] + __ldg(p.bias + n)
-                                              : acc[i][r];
-          p.logits[(size_t)b * p.V + n] = lg0;
-          const float lg = lg0 + __ldg(p.poison + b);
-          const int e = warp * p.B + b;
-          merge(wval[e], widx[e], wfin[e], lg, n, isfinite(lg) ? 1 : 0);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // this CTA's partial per row, then the ticket
-  for (int b = threadIdx.x; b < p.B; b += blockDim.x) {
-    float v = wval[b];
-    int i = widx[b], fin = wfin[b];
-    for (int w = 1; w < kWarps; ++w)
-      merge(v, i, fin, wval[w * p.B + b], widx[w * p.B + b], wfin[w * p.B + b]);
-    const size_t o = (size_t)blockIdx.x * p.B + b;
-    p.part_val[o] = v;
-    p.part_idx[o] = i;
-    p.part_fin[o] = fin;
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-
-  // the last CTA: reduce every CTA's partial, a warp per row
-  __threadfence();
-  for (int b = warp; b < p.B; b += kWarps) {
-    float v = -INFINITY;
-    int i = 0x7fffffff, fin = 1;
-    for (int c = lane; c < (int)gridDim.x; c += 32) {
-      const size_t o = (size_t)c * p.B + b;
-      merge(v, i, fin, __ldcg(p.part_val + o), __ldcg(p.part_idx + o),
-            __ldcg(p.part_fin + o));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
-      const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
-      const int f2 = __shfl_xor_sync(0xffffffffu, fin, off);
-      merge(v, i, fin, v2, i2, f2);
-    }
-    if (lane == 0) {
-      p.nxt[b] = fin ? (long long)i : 0;
-      p.bad[b] = fin ? 0 : 1;
-    }
-  }
-  if (threadIdx.x == 0) *p.ticket = 0u;
-}
 
 // ---------------------------------------------------------------------------
 // egress_kernel: row 5, y1 = x + (att @ wo^T + bo), then out = y1 +
@@ -748,6 +605,419 @@ cudaError_t egress_plan(int B, int H, int A, int I, int gelu, int rms, int has_n
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// fused_decode_epilogue_kernel: row 7, logits = norm(x) @ w^T (+ bias), then
+// the guarded greedy pick of each row. A call reads the head once: 524.3 MB
+// at LLaMA-7B (0.157 ms at 3.35 TB/s), 154.5 MB for GPT-124M's tied
+// embedding (46 us); at 8 rows the fp32 FMAs are 2 a weight byte, ~20% of
+// the CUDA cores' rate. So the design is of the memory pipeline:
+//
+// * One persistent wave. The grid is every CTA the occupancy API lets be
+//   resident (capped by the work); CTA c takes vocab columns [c V / grid,
+//   (c + 1) V / grid), the same bytes +-1 column, and normalises x once for
+//   all of them (the earlier design ran 500-786 CTAs of 64 columns, each
+//   normalising all rows again: 3.79 waves at LLaMA-7B). Warp w takes a
+//   range of the CTA's columns, kG neighbouring ones at a time (a unit).
+// * The weight stream starts before the norm and never waits for it. Each
+//   warp streams its units through a ring of kEpiStages stages in shared
+//   memory filled by 16-byte cp.async copies (a stage: 128 floats of each
+//   of the unit's weight rows, lane l copying and later reading float4 l
+//   of each, so no lane waits for another). The first kEpiStages - 1
+//   stages go out right after x's copy, before the statistics, and each
+//   stage consumed puts the next one in flight, across units, K-chunks and
+//   row groups alike.
+// * Any number of rows. Rows go in groups of RT (at most kEpiRowsMost,
+//   whose sums a lane holds in registers); x's rows of a group sit in
+//   shared memory, normalised there from full-row statistics
+//   (decode::row_norm_stats). Where RT rows of H do not fit beside the
+//   rings, x goes by K-chunks of `kc` floats, each staged once a CTA; the
+//   CTA's columns' sums wait in shared memory for the next chunk and are
+//   added in chunk order (LLaMA-7B at 16 rows: two chunks of 2048). More
+//   rows than RT take more row groups, each streaming the head again. No
+//   shared-memory ceiling on B.
+// * Fixed orders. A lane adds its stages in order, a warp its lanes by a
+//   fixed transposed butterfly (warp_sum_transposed), the chunks in order:
+//   every logit has the same bits on every call. The pick (max, first
+//   index, all finite) of each row is a lexicographic maximum, the same in
+//   any order of merges: per unit by shuffles, per warp in registers, per
+//   CTA over its warps, then by the last CTA (a __threadfence, then an
+//   atomic ticket, reset for the next launch) over every CTA's partial,
+//   ties to the lower index.
+//
+// A refused launch returns its error and the wrapper raises.
+
+constexpr int kEpiThreads = 256;
+constexpr int kEpiWarps = kEpiThreads / 32;
+constexpr int kEpiGroup = 8;       // columns a warp dots at once (at most)
+constexpr int kEpiStages = 2;      // stages of a warp's ring
+constexpr int kEpiStageQ = 32;     // float4s of a weight row a stage, one a lane
+constexpr int kEpiRowsMost = 16;   // rows a group holds (RT, at most)
+constexpr int kEpiNormQ = 4;       // float4 columns a thread normalises at once
+
+// Columns a warp dots at once with RT rows: kEpiGroup, fewer where a
+// lane's sums (columns x RT) would pass 64.
+__host__ __device__ constexpr int epi_group(int RT) {
+  return kEpiGroup * RT > 64 ? 64 / RT : kEpiGroup;
+}
+
+struct EpiParams {
+  const float* x;        // [B, H]
+  const float* nw;       // [H]
+  const float* nb;       // [H] or null
+  const float* w;        // [V, H]
+  const float* bias;     // [V] or null
+  const float* poison;   // [B]
+  float* logits;         // [B, V], pre-poison
+  float* part_val;       // [grid, B] scratch
+  int* part_idx;         // [grid, B]
+  int* part_fin;         // [grid, B]
+  unsigned* ticket;      // zero between launches
+  long long* nxt;        // [B]
+  unsigned char* bad;    // [B] (torch.bool)
+  int B, H, V, kc;       // kc: floats of x's K-chunk (H: x held whole)
+  float eps;
+};
+
+// (value, index, finite) merge: the larger value wins, a tie goes to the
+// lower index; finite is the AND of both.
+__device__ inline void merge(float& v, int& i, int& fin, float v2, int i2, int fin2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+  fin = fin && fin2;
+}
+
+__device__ inline void merge_xor(float& v, int& i, int& fin, int m) {
+  merge(v, i, fin, __shfl_xor_sync(0xffffffffu, v, m), __shfl_xor_sync(0xffffffffu, i, m),
+        __shfl_xor_sync(0xffffffffu, fin, m));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* src) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int RT, bool kRms>
+__global__ void __launch_bounds__(kEpiThreads) fused_decode_epilogue_kernel(EpiParams p) {
+  constexpr int kG = epi_group(RT);
+  constexpr int kV = kG * RT;                        // sums a lane holds
+  constexpr int kTotals = kV > 32 ? kV / 32 : 1;     // totals a lane ends with
+  constexpr int kSpan = kV < 32 ? 32 / kV : 1;       // lanes sharing a total
+  static_assert(kV <= 32 || kV % 32 == 0, "a lane's sums: 1-32, or 32 a total");
+  // ring [warp][stage][column][kEpiStageQ] float4s, x's chunk [rows][kc],
+  // the chunks' running sums [columns][RT] (several chunks only), the
+  // statistics [RT][2], the warps' picks [3][warp][RT]
+  extern __shared__ __align__(16) float4 ring[];
+  float* xs = reinterpret_cast<float*>(ring + kEpiWarps * kEpiStages * kG * kEpiStageQ);
+  const int G = gridDim.x, cta = blockIdx.x;
+  const int NC = (p.H + p.kc - 1) / p.kc, NG = (p.B + RT - 1) / RT;
+  float* psum = xs + (size_t)min(p.B, RT) * p.kc;
+  float* stat = psum + (NC > 1 ? (size_t)((p.V + G - 1) / G) * RT : 0);
+  float* wval = stat + 2 * RT;
+  int* widx = reinterpret_cast<int*>(wval + kEpiWarps * RT);
+  int* wfin = widx + kEpiWarps * RT;
+  __shared__ int is_last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // CTA c takes vocab columns [n0, n1), warp w the range [wn0, wn1) of
+  // them, kG at a time: NR units, each through every K-chunk of every row
+  // group (a phase: row group g, chunk c)
+  const int n0 = decode::cut(cta, p.V, G), n1 = decode::cut(cta + 1, p.V, G);
+  const int wn0 = n0 + decode::cut(warp, n1 - n0, kEpiWarps);
+  const int wn1 = n0 + decode::cut(warp + 1, n1 - n0, kEpiWarps);
+  const int NR = (wn1 - wn0 + kG - 1) / kG;
+  auto chunk_len = [&](int c) { return min(p.kc, p.H - c * p.kc); };
+  auto stages = [&](int c) { return (chunk_len(c) + 4 * kEpiStageQ - 1) / (4 * kEpiStageQ); };
+  auto rows_of = [&](int g) { return min(RT, p.B - g * RT); };
+
+  // the producer: the next stage to put in flight, stage ps of unit pj of
+  // phase pph, into ring slot `slot`: float4 `lane` of each of the unit's
+  // rows' stage, one 16-byte copy each, a group a stage (empty past the end)
+  int pph = 0, pj = 0, ps = 0;
+  auto produce = [&](int slot) {
+    if (pph < NG * NC && NR > 0) {
+      const int c = pph % NC, col0 = wn0 + pj * kG, q = ps * kEpiStageQ + lane;
+      float4* dst = ring + ((size_t)(warp * kEpiStages + slot) * kG) * kEpiStageQ + lane;
+      const float* src = p.w + (size_t)col0 * p.H + (size_t)c * p.kc + 4 * q;
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+        if (col0 + i < wn1 && 4 * q < chunk_len(c))
+          cp_async16(dst + i * kEpiStageQ, src + (size_t)i * p.H);
+      if (++ps == stages(c)) {
+        ps = 0;
+        if (++pj == NR) {
+          pj = 0;
+          ++pph;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // the chunk of nr rows in xs [nr][kc4] float4s, normalised in place;
+  // k4: its first float4 column
+  auto normalise = [&](int nr, int kc4, int k4) {
+    float4* x4 = reinterpret_cast<float4*>(xs);
+    const float4* w4 = reinterpret_cast<const float4*>(p.nw) + k4;
+    const float4* b4 = reinterpret_cast<const float4*>(p.nb) + k4;
+    for (int q0 = threadIdx.x; q0 < kc4; q0 += kEpiThreads * kEpiNormQ) {
+      float4 wv[kEpiNormQ], bv[kEpiNormQ];
+#pragma unroll
+      for (int e = 0; e < kEpiNormQ; ++e) {
+        const int q = q0 + e * kEpiThreads;
+        if (q < kc4) {
+          wv[e] = __ldg(w4 + q);
+          bv[e] = p.nb != nullptr ? __ldg(b4 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kEpiNormQ; ++e) {
+        const int q = q0 + e * kEpiThreads;
+        if (q >= kc4) break;
+        for (int r = 0; r < nr; ++r)
+          x4[(size_t)r * kc4 + q] = decode::norm4(x4[(size_t)r * kc4 + q], stat[2 * r],
+                                                  stat[2 * r + 1], kRms, wv[e],
+                                                  p.nb != nullptr ? &bv[e] : nullptr);
+      }
+    }
+  };
+
+  // x's first chunk goes out first, then the first weight stages; the
+  // statistics come from the rows in shared memory (x whole) or from x
+  // while both land (K-chunks), and the chunk is normalised in place
+  for (int r = 0; r < rows_of(0); ++r)
+    decode::copy_async(xs + (size_t)r * chunk_len(0), p.x + (size_t)r * p.H, chunk_len(0));
+  cp_async_commit();
+#pragma unroll
+  for (int k = 0; k < kEpiStages - 1; ++k) produce(k);
+  if (NC > 1) decode::row_norm_stats(stat, p.x, rows_of(0), p.H, kRms, p.eps);
+  cp_async_wait<kEpiStages - 1>();
+  __syncthreads();
+  if (NC == 1) decode::row_norm_stats(stat, xs, rows_of(0), p.H, kRms, p.eps);
+  normalise(rows_of(0), chunk_len(0) / 4, 0);
+  __syncthreads();
+
+  float acc[kG][RT];
+  // this lane's running pick of row (lane / kSpan) % RT of the group
+  float pv = -INFINITY;
+  int pi = 0x7fffffff, pfin = 1;
+  int t = 0;   // stages consumed
+  for (int ph = 0; ph < NG * NC; ++ph) {
+    const int g = ph / NC, c = ph % NC, nr = rows_of(g), kc4 = chunk_len(c) / 4;
+    if (ph > 0) {   // a later chunk or row group
+      if (c == 0)
+        decode::row_norm_stats(stat, p.x + (size_t)g * RT * p.H, nr, p.H, kRms, p.eps);
+      __syncthreads();
+      decode::load_chunk<8>(xs, p.x + (size_t)g * RT * p.H, nr, p.H, c * p.kc, 4 * kc4, stat,
+                            kRms, p.nw, p.nb);
+      __syncthreads();
+    }
+    if (c == 0) {   // a row group begins
+      pv = -INFINITY;
+      pi = 0x7fffffff;
+      pfin = 1;
+    }
+    for (int j = 0; j < NR; ++j) {
+      const int col0 = wn0 + j * kG;
+#pragma unroll
+      for (int i = 0; i < kG; ++i)
+#pragma unroll
+        for (int r = 0; r < RT; ++r) acc[i][r] = 0.f;
+      for (int s = 0; s < stages(c); ++s, ++t) {
+        produce((t + kEpiStages - 1) % kEpiStages);
+        cp_async_wait<kEpiStages - 1>();
+        const int q = s * kEpiStageQ + lane;
+        if (q >= kc4) continue;
+        const float4* ws =
+            ring + ((size_t)(warp * kEpiStages + t % kEpiStages) * kG) * kEpiStageQ + lane;
+        float4 wv[kG];
+#pragma unroll
+        for (int i = 0; i < kG; ++i) wv[i] = ws[i * kEpiStageQ];
+        const float4* x4 = reinterpret_cast<const float4*>(xs) + q;
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          if (r < nr) {
+            const float4 a = x4[(size_t)r * kc4];
+#pragma unroll
+            for (int i = 0; i < kG; ++i) acc[i][r] = decode::dot4(a, wv[i], acc[i][r]);
+          }
+        }
+      }
+
+      // the unit's sums over this chunk
+      float tot[kTotals];
+#pragma unroll
+      for (int h = 0; h < kTotals; ++h) {
+        float v[kV / kTotals];
+#pragma unroll
+        for (int e = 0; e < kV / kTotals; ++e) {
+          const int k = h * (kV / kTotals) + e;
+          v[e] = acc[k / RT][k % RT];
+        }
+        tot[h] = warp_sum_transposed<kV / kTotals>(v);
+      }
+      // total h of this lane: column i, row r of the group
+      float cv = -INFINITY;
+      int ci = 0x7fffffff, cfin = 1;
+#pragma unroll
+      for (int h = 0; h < kTotals; ++h) {
+        const int k = h * 32 + lane / kSpan, i = k / RT, r = k % RT, n = col0 + i;
+        if (n >= wn1 || r >= nr) continue;
+        float sum = tot[h];
+        if (NC > 1) {   // the chunks' running sums, added in chunk order
+          float* run = psum + (size_t)(n - n0) * RT + r;
+          if (c > 0) sum = *run + sum;
+          if (c < NC - 1) {
+            if (lane % kSpan == 0) *run = sum;
+            continue;
+          }
+        }
+        const int b = g * RT + r;
+        const float lg0 = p.bias != nullptr ? sum + __ldg(p.bias + n) : sum;
+        if (lane % kSpan == 0) p.logits[(size_t)b * p.V + n] = lg0;
+        const float lg = lg0 + __ldg(p.poison + b);
+        merge(cv, ci, cfin, lg, n, isfinite(lg) ? 1 : 0);
+      }
+      // the unit's columns of each row, then the running pick
+      for (int m = max(RT, 32 / kG); m < 32; m <<= 1) merge_xor(cv, ci, cfin, m);
+      merge(pv, pi, pfin, cv, ci, cfin);
+    }
+
+    if (c == NC - 1) {   // each warp's picks, then the CTA's, in warp order
+      const int r = (lane / kSpan) % RT;
+      if (lane == r * kSpan) {
+        wval[warp * RT + r] = pv;
+        widx[warp * RT + r] = pi;
+        wfin[warp * RT + r] = pfin;
+      }
+      __syncthreads();
+      for (int r2 = threadIdx.x; r2 < nr; r2 += kEpiThreads) {
+        float v = wval[r2];
+        int i = widx[r2], fin = wfin[r2];
+        for (int w2 = 1; w2 < kEpiWarps; ++w2)
+          merge(v, i, fin, wval[w2 * RT + r2], widx[w2 * RT + r2], wfin[w2 * RT + r2]);
+        const size_t o = (size_t)cta * p.B + g * RT + r2;
+        p.part_val[o] = v;
+        p.part_idx[o] = i;
+        p.part_fin[o] = fin;
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the ticket: the last CTA reduces every CTA's partial, a warp a row,
+  // and puts the ticket back to 0
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int b = warp; b < p.B; b += kEpiWarps) {
+    float v = -INFINITY;
+    int i = 0x7fffffff, fin = 1;
+    for (int c = lane; c < G; c += 32) {
+      const size_t o = (size_t)c * p.B + b;
+      merge(v, i, fin, __ldcg(p.part_val + o), __ldcg(p.part_idx + o), __ldcg(p.part_fin + o));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) merge_xor(v, i, fin, off);
+    if (lane == 0) {
+      p.nxt[b] = fin ? (long long)i : 0;
+      p.bad[b] = fin ? 0 : 1;
+    }
+  }
+  if (threadIdx.x == 0) *p.ticket = 0u;
+}
+
+// Rows of one group for B rows: B rounded up to a power of two, at most
+// kEpiRowsMost.
+int epilogue_row_tile(int B) {
+  int rt = 1;
+  while (rt < B && rt < kEpiRowsMost) rt *= 2;
+  return rt;
+}
+
+template <int RT>
+const void* epilogue_kernel_for(int rms) {
+  return rms ? (const void*)fused_decode_epilogue_kernel<RT, true>
+             : (const void*)fused_decode_epilogue_kernel<RT, false>;
+}
+
+const void* epilogue_kernel_for(int RT, int rms) {
+  switch (RT) {
+    case 1: return epilogue_kernel_for<1>(rms);
+    case 2: return epilogue_kernel_for<2>(rms);
+    case 4: return epilogue_kernel_for<4>(rms);
+    case 8: return epilogue_kernel_for<8>(rms);
+    default: return epilogue_kernel_for<16>(rms);
+  }
+}
+
+// Dynamic shared memory of one epilogue CTA: the rings, x's chunk of
+// min(B, RT) rows, the chunks' running sums of `cols` columns (several
+// chunks only), the statistics and the warps' picks.
+size_t epilogue_smem(int B, int H, int RT, int kc, int cols) {
+  const size_t sums = kc < H ? (size_t)cols * RT : 0;
+  return (size_t)kEpiWarps * kEpiStages * epi_group(RT) * kEpiStageQ * sizeof(float4) +
+         ((size_t)min(B, RT) * kc + sums + 2 * (size_t)RT + 3 * (size_t)kEpiWarps * RT) *
+             sizeof(float);
+}
+
+cudaError_t epilogue_plan(int B, int H, int V, int rms, int* plan) {
+  const int RT = epilogue_row_tile(B);
+  const void* kernel = epilogue_kernel_for(RT, rms);
+  int dev = 0, sms = 0, most = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) return err;
+  most -= (int)fa.sharedSizeBytes;   // the dynamic shared memory a CTA may have
+  const int groups = (V + kEpiWarps * epi_group(RT) - 1) / (kEpiWarps * epi_group(RT));
+  int kc = H, grid = 0;
+  size_t smem = epilogue_smem(B, H, RT, H, 0);
+  const long long rows_bytes = (long long)sizeof(float) * min(B, RT);
+  if (smem > (size_t)most) {
+    // K-chunks, one CTA an SM: the fewest chunks of whole stages that fit
+    grid = min(sms, groups);
+    const int cols = (V + grid - 1) / grid;
+    const long long room = (long long)most - (long long)epilogue_smem(B, H, RT, 0, 0) -
+                           (long long)cols * RT * (long long)sizeof(float);
+    const int step = 4 * kEpiStageQ;
+    const long long kc_most = room / rows_bytes / step * step;
+    if (kc_most < step) return cudaErrorInvalidValue;
+    const int chunks = (int)((H + kc_most - 1) / kc_most);
+    kc = ((H + chunks - 1) / chunks + step - 1) / step * step;
+    smem = epilogue_smem(B, H, RT, kc, cols);
+  }
+  // the card's most, not this plan's: plans of other B share the kernel
+  // (one RT), and a later plan's smaller limit would refuse this one's
+  // launches
+  if ((err = decode::allow_smem(kernel, most)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kEpiThreads,
+                                                           smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (grid == 0) grid = min(per_sm * sms, groups);
+  const int vals[6] = {grid, RT, kc, (int)smem, per_sm, (H + kc - 1) / kc};
+  for (int i = 0; i < 6; ++i) plan[i] = vals[i];
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -805,33 +1075,40 @@ int pdt_fused_decode_egress_f32(const float* x, const float* att, const float* w
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of one epilogue CTA, in bytes.
-size_t pdt_fused_decode_epilogue_smem_bytes(int B, int H) {
-  return ((size_t)B * H + 3 * (size_t)kWarps * B) * sizeof(float);
+// The plan of one epilogue launch for B rows of H over a vocab of V on the
+// current card (rms: RMSNorm, else LayerNorm), into plan[6]: grid (every
+// resident CTA, at most one a column group of the warps; with K-chunks one
+// CTA an SM); RT (rows of a group); kc (floats of x's K-chunk, H where x's
+// rows fit whole beside the ring); shared memory bytes; resident CTAs an
+// SM; chunks (fused_decode_mlp.epilogue_plan_for is the same rule). Its
+// scratch: part_val, part_idx, part_fin [grid, B]; the ticket, zero at
+// first. Returns a cudaError_t as int.
+int pdt_fused_decode_epilogue_plan(int B, int H, int V, int rms, int* plan) {
+  if (B <= 0 || H <= 0 || V <= 0 || H % 4) return (int)cudaErrorInvalidValue;
+  return (int)epilogue_plan(B, H, V, rms, plan);
 }
 
-// CTAs of one epilogue launch (the length of its partial scratch).
-int pdt_fused_decode_epilogue_grid(int V) {
-  return (V + kEpiColsPerCta - 1) / kEpiColsPerCta;
-}
-
-// Launch on `stream`; returns a cudaError_t as int. `ticket` must be 0.
-// `rms`: RMSNorm, else LayerNorm.
+// Launch by the plan[6] of pdt_fused_decode_epilogue_plan for these widths
+// and this norm on this card, on `stream`; returns a cudaError_t as int.
+// `ticket` must be 0. `rms`: RMSNorm, else LayerNorm.
 int pdt_fused_decode_epilogue_f32(const float* x, const float* nw, const float* nb,
                                   const float* w, const float* bias,
                                   const float* poison, float* logits, float* part_val,
                                   int* part_idx, int* part_fin, unsigned* ticket,
                                   long long* nxt, unsigned char* bad, int B, int H,
-                                  int V, float eps, int rms, void* stream) {
+                                  int V, float eps, int rms, const int* plan, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
+  const int grid = plan[0], RT = plan[1], kc = plan[2];
+  if (RT != epilogue_row_tile(B) || kc <= 0 ||
+      (size_t)plan[3] != epilogue_smem(B, H, RT, kc, (V + grid - 1) / grid))
+    return (int)cudaErrorInvalidValue;
   EpiParams p{x, nw, nb, w, bias, poison, logits, part_val, part_idx, part_fin,
-              ticket, nxt, bad, B, H, V, eps};
-  const size_t smem = pdt_fused_decode_epilogue_smem_bytes(B, H);
-  auto kernel = rms ? fused_decode_epilogue_kernel<true>
-                    : fused_decode_epilogue_kernel<false>;
-  cudaError_t err = decode::allow_smem(kernel, smem);
+              ticket, nxt, bad, B, H, V, kc, eps};
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchKernel(epilogue_kernel_for(RT, rms), dim3(grid),
+                                     dim3(kEpiThreads), args, (size_t)plan[3],
+                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<pdt_fused_decode_epilogue_grid(V), kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

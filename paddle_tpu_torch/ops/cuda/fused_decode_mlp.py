@@ -27,7 +27,12 @@ its plain version :func:`egress_plan_for` and :func:`egress_work`).
   exactly ``models.generation.guarded_argmax``'s on the same logits
   (the first maximal index; a row with any non-finite value after the
   poison lane is added is bad and picks 0). ``nxt`` is int64, as
-  ``guarded_argmax`` returns it.
+  ``guarded_argmax`` returns it. One persistent wave of CTAs, each a
+  span of vocab columns streamed through rings in shared memory, x
+  normalised once a CTA; rows in groups of at most 16, x by K-chunks
+  where a group's rows do not fit whole, so any B runs
+  (:func:`epilogue_plan`; its plain version :func:`epilogue_plan_for`
+  and :func:`epilogue_work`).
 
 The norms are ``fused_decode_qkv._norm_block`` (``norm="layer"``: ``var
 = E[x^2] - mean^2``; ``norm="rms"``: ``x * rsqrt(E[x^2] + eps)``).
@@ -57,6 +62,7 @@ __all__ = ["fused_decode_mlp", "fused_decode_mlp_plain",
 
 _lib = None
 _tickets: dict = {}   # device -> the epilogue's int32 ticket (kept at 0)
+_epilogue_plans: dict = {}   # (device, B, H, V, rms) -> a launch's plan
 _egress_plans: dict = {}   # (device, B, H, A, I, gelu, rms, norm bias) ->
 #                            a launch's plan and its buffers per stream
 
@@ -68,17 +74,15 @@ def _kernels():
         lib = load("fused_decode_mlp")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pdt_fused_decode_epilogue_f32.argtypes = ([P] * 13 + [I] * 3
-                                                      + [F, I, P])
+                                                      + [F, I, P, P])
         lib.pdt_fused_decode_epilogue_f32.restype = I
-        lib.pdt_fused_decode_epilogue_grid.argtypes = [I]
-        lib.pdt_fused_decode_epilogue_grid.restype = I
+        lib.pdt_fused_decode_epilogue_plan.argtypes = [I] * 4 + [P]
+        lib.pdt_fused_decode_epilogue_plan.restype = I
         lib.pdt_fused_decode_egress_f32.argtypes = ([P] * 15 + [I] * 6
                                                     + [F, P, P])
         lib.pdt_fused_decode_egress_f32.restype = I
         lib.pdt_fused_decode_egress_plan.argtypes = [I] * 7 + [P]
         lib.pdt_fused_decode_egress_plan.restype = I
-        lib.pdt_fused_decode_epilogue_smem_bytes.argtypes = [I] * 2
-        lib.pdt_fused_decode_epilogue_smem_bytes.restype = ctypes.c_size_t
         lib.pdt_cuda_error_string.argtypes = [I]
         lib.pdt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -477,14 +481,14 @@ def fused_decode_epilogue(x, norm_w, norm_b, w_lm, b_lm, poison, *,
     pz = poison.reshape(-1)
     _check_card(name, (("x", x), ("norm_w", norm_w), ("norm_b", norm_b),
                        ("w_lm", w_lm), ("b_lm", bias), ("poison", pz)))
+    for what, t in (("norm_w", norm_w), ("norm_b", norm_b)):
+        if t is not None and (tuple(t.shape) != (hid,) or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {what} must be [{hid}] and 16-byte "
+                             f"aligned")
     lib = _kernels()
-    smem = lib.pdt_fused_decode_epilogue_smem_bytes(bsz, hid)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: {bsz} rows of {hid} need {smem} B of "
-                         f"shared memory > {SMEM_LIMIT}")
-    grid = lib.pdt_fused_decode_epilogue_grid(vocab)
+    plan = _epilogue_plan(bsz, hid, vocab, norm, dev)
     logits = torch.empty(bsz, vocab, dtype=x.dtype, device=dev)
-    part = torch.empty(3, grid, bsz, dtype=torch.int32, device=dev)
+    part = torch.empty(3, plan[0], bsz, dtype=torch.int32, device=dev)
     nxt = torch.empty(bsz, dtype=torch.int64, device=dev)
     bad = torch.empty(bsz, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
@@ -494,7 +498,7 @@ def fused_decode_epilogue(x, norm_w, norm_b, w_lm, b_lm, poison, *,
             _ptr(bias), pz.data_ptr(), logits.data_ptr(), part[0].data_ptr(),
             part[1].data_ptr(), part[2].data_ptr(), _ticket(dev).data_ptr(),
             nxt.data_ptr(), bad.data_ptr(), bsz, hid, vocab, float(eps),
-            int(norm == "rms"), stream)
+            int(norm == "rms"), plan, stream)
     if rc != 0:
         _raise(name, rc)
     fused_decode_epilogue.launches += 1
@@ -502,3 +506,107 @@ def fused_decode_epilogue(x, norm_w, norm_b, w_lm, b_lm, poison, *,
 
 
 fused_decode_epilogue.launches = 0
+
+
+EPILOGUE_KEYS = ("grid", "RT", "kc", "smem", "per_sm", "chunks")
+# the kernel's warps, columns a warp dots at once, stages of a warp's ring,
+# float4s of a weight row a stage, rows a group at most; its static shared
+# memory (the last-CTA flag, as ptxas allots it)
+EPI_WARPS, EPI_GROUP, EPI_STAGES, EPI_STAGE_Q, EPI_ROWS_MOST = 8, 8, 2, 32, 16
+EPI_STATIC_SMEM = 16
+
+
+def _epilogue_plan(bsz, hid, vocab, norm, dev):
+    """The library's plan of one epilogue launch, made once per card,
+    widths and norm: a ctypes int array in ``EPILOGUE_KEYS`` order."""
+    key = (dev.index if dev.index is not None else
+           torch.cuda.current_device(), bsz, hid, vocab, norm == "rms")
+    plan = _epilogue_plans.get(key)
+    if plan is None:
+        plan = (ctypes.c_int * len(EPILOGUE_KEYS))()
+        with torch.cuda.device(key[0]):
+            rc = _kernels().pdt_fused_decode_epilogue_plan(
+                bsz, hid, vocab, int(norm == "rms"), plan)
+        if rc != 0:
+            _raise("fused_decode_epilogue", rc)
+        plan = _epilogue_plans[key] = plan
+    return plan
+
+
+def epilogue_plan(bsz, hid, vocab, norm="layer", device=None):
+    """The plan of one epilogue launch (row 7) on the card at these widths:
+    ``grid`` CTAs (one persistent wave); ``RT`` rows a group; ``kc``
+    floats of x's K-chunk (``hid`` where the group's rows fit whole);
+    ``smem`` bytes a CTA; ``per_sm`` resident CTAs an SM; ``chunks``."""
+    dev = torch.device("cuda" if device is None else device)
+    return dict(zip(EPILOGUE_KEYS,
+                    _epilogue_plan(bsz, hid, vocab, norm, dev)))
+
+
+def epilogue_plan_for(bsz, hid, vocab, sms, per_sm,
+                      smem_most=SMEM_LIMIT - EPI_STATIC_SMEM):
+    """Plain version of the library's epilogue plan (:func:`epilogue_plan`)
+    on a card of ``sms`` SMs where ``per_sm`` CTAs of this plan's shared
+    memory are resident and a CTA may have ``smem_most`` bytes of dynamic
+    shared memory: rows in groups of ``RT`` (B rounded up to a power
+    of two, at most 16), ``EPI_GROUP`` columns a warp's unit (fewer where
+    a lane's sums, columns x RT, would pass 64); x's rows of a group whole
+    in shared memory beside the weight rings where they fit (``kc`` =
+    ``hid``), every resident CTA, at most one a unit of each of its warps;
+    else one CTA an SM and x by the fewest K-chunks of whole stages that
+    fit beside the rings and the chunks' running sums of the CTA's
+    columns."""
+    rt = 1
+    while rt < bsz and rt < EPI_ROWS_MOST:
+        rt *= 2
+    rows, group = min(bsz, rt), epilogue_group(rt)
+    units = -(-vocab // (EPI_WARPS * group))
+
+    def smem(kc, cols):
+        return (EPI_WARPS * EPI_STAGES * group * EPI_STAGE_Q * 16
+                + 4 * (rows * kc + (cols * rt if kc < hid else 0) + 2 * rt
+                       + 3 * EPI_WARPS * rt))
+
+    if smem(hid, 0) <= smem_most:
+        kc, grid = hid, min(per_sm * sms, units)
+    else:
+        grid = min(sms, units)
+        cols = -(-vocab // grid)
+        step = 4 * EPI_STAGE_Q
+        kc_most = (smem_most - smem(0, 0) - 4 * cols * rt) // (4 * rows) \
+            // step * step
+        if kc_most < step:
+            raise ValueError(f"fused_decode_epilogue: {bsz} rows of {hid} "
+                             f"leave no K-chunk")
+        chunks = -(-hid // kc_most)
+        kc = -(-hid // (chunks * step)) * step   # whole stages, even
+    return dict(grid=grid, RT=rt, kc=kc,
+                smem=smem(kc, -(-vocab // grid)), per_sm=per_sm,
+                chunks=-(-hid // kc))
+
+
+def epilogue_group(rt):
+    """Columns of a warp's unit with ``rt`` rows a group (the kernel's
+    ``epi_group``)."""
+    return EPI_GROUP if EPI_GROUP * rt <= 64 else 64 // rt
+
+
+def epilogue_work(plan, bsz, hid, vocab):
+    """The kernel's walk under ``plan``: ``{"cols": [(cta, n0, n1)],
+    "units": [(cta, warp, n0, n1)], "chunks": [(k0, k1)], "groups": [(b0,
+    b1)]}``: CTA c takes vocab columns ``[c V / grid, (c + 1) V / grid)``,
+    its warp w the w-th eighth of them, ``epilogue_group(RT)`` at a time
+    (a unit), each through every chunk of every row group."""
+    g, kc, rt = plan["grid"], plan["kc"], plan["RT"]
+    w = epilogue_group(rt)
+    cols, units = [], []
+    for c in range(g):
+        n0, n1 = c * vocab // g, (c + 1) * vocab // g
+        cols.append((c, n0, n1))
+        for wp in range(EPI_WARPS):
+            a = n0 + wp * (n1 - n0) // EPI_WARPS
+            b = n0 + (wp + 1) * (n1 - n0) // EPI_WARPS
+            units += [(c, wp, u, min(b, u + w)) for u in range(a, b, w)]
+    return {"cols": cols, "units": units,
+            "chunks": [(k, min(hid, k + kc)) for k in range(0, hid, kc)],
+            "groups": [(b, min(bsz, b + rt)) for b in range(0, bsz, rt)]}

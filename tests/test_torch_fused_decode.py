@@ -564,6 +564,188 @@ def test_epilogue_plain_matches_twin_and_poison_drill(jx, tied):
     assert torch.equal(gn, nxt) and torch.equal(gb, bad)
 
 
+# Row 7 past the earlier kernel's shared-memory ceiling: B 16 and 17 rows
+# (17: a second row group of one), an odd vocab, both norms, tied and
+# untied with a bias, row B // 2 NaN-poisoned
+_EPI_MANY = [(B, norm, tied) for B in (16, 17) for norm in ("layer", "rms")
+             for tied in (True, False)]
+
+
+def _epilogue_inputs(B, norm, tied, H=48, V=37, seed=60):
+    rng = np.random.default_rng(seed + B)
+    pz = np.zeros(B, np.float32)
+    pz[B // 2] = np.nan
+    return dict(x=_n(rng, B, H), nw=1.0 + 0.1 * _n(rng, H),
+                nb=None if norm == "rms" else 0.1 * _n(rng, H),
+                wlm=_n(rng, V, H) * 0.05,
+                blm=None if tied else 0.1 * _n(rng, V), pz=pz,
+                eps=1e-6 if norm == "rms" else 1e-5)
+
+
+def _epilogue_twin(FM, d, norm, tied):
+    import jax.numpy as jnp
+    out = FM.fused_decode_epilogue_twin(
+        jnp.asarray(d["x"]), jnp.asarray(d["nw"]),
+        None if d["nb"] is None else jnp.asarray(d["nb"]),
+        jnp.asarray(d["wlm"] if tied else d["wlm"].T),
+        None if tied else jnp.asarray(d["blm"]), jnp.asarray(d["pz"]),
+        norm=norm, eps=d["eps"], transpose_lm=tied)
+    return tuple(np.asarray(o) for o in out)
+
+
+# the emulation's geometry: V 37 over two CTAs, B 17 in row groups of 16
+# and 1, H 512 in two K-chunks of 256 (a card whose CTAs hold 200 floats a
+# row fewer than x's rows whole)
+_EMU = dict(B=17, H=512, V=37, sms=4, per_sm=1)
+
+
+def _emu_plan():
+    whole = tm_.epilogue_plan_for(_EMU["B"], _EMU["H"], _EMU["V"],
+                                  _EMU["sms"], _EMU["per_sm"])
+    return tm_.epilogue_plan_for(_EMU["B"], _EMU["H"], _EMU["V"],
+                                 _EMU["sms"], _EMU["per_sm"],
+                                 smem_most=whole["smem"] - 4 * 16 * 200)
+
+
+@pytest.fixture(scope="module")
+def epilogue_refs(jx):
+    """The JAX ``fused_decode_epilogue_twin`` on each ``_EPI_MANY`` case
+    and on the emulation's (``_EMU``, both norms, tied and untied), built
+    once."""
+    _, FM = jx
+    refs = {}
+    for B, norm, tied in _EPI_MANY:
+        d = _epilogue_inputs(B, norm, tied)
+        refs[B, norm, tied] = (d, _epilogue_twin(FM, d, norm, tied))
+    for norm in ("layer", "rms"):
+        for tied in (True, False):
+            d = _epilogue_inputs(_EMU["B"], norm, tied, H=_EMU["H"],
+                                 V=_EMU["V"], seed=70)
+            refs["emu", norm, tied] = (d, _epilogue_twin(FM, d, norm, tied))
+    return refs
+
+
+@pytest.mark.parametrize("B,norm,tied", _EPI_MANY)
+def test_epilogue_many_rows_plain_matches_twin(epilogue_refs, B, norm, tied):
+    """Row 7 at 16 and 17 rows (more than the earlier kernel's shared memory
+    held at LLaMA-7B's width): the port's epilogue on the CPU against the
+    JAX twin, values within 1e-5, tokens and bad flags equal, the
+    poisoned row bad with token 0."""
+    d, (jl, jn, jb) = epilogue_refs[B, norm, tied]
+    lg, nxt, bad = tm_.fused_decode_epilogue(
+        _t(d["x"]), _t(d["nw"]), None if d["nb"] is None else _t(d["nb"]),
+        _t(d["wlm"]), None if tied else _t(d["blm"]), _t(d["pz"]),
+        norm=norm, eps=d["eps"], transpose_lm=tied)
+    np.testing.assert_allclose(lg.numpy(), jl, **TOL)
+    np.testing.assert_array_equal(nxt.numpy(), jn)
+    np.testing.assert_array_equal(bad.numpy(), jb)
+    assert bad.tolist() == [r == B // 2 for r in range(B)]
+    assert int(nxt[B // 2]) == 0
+
+
+def _epilogue_emulate(d, norm, tied, fault=None):
+    """Row 7's arithmetic on the CPU by the kernel's walk (``_EMU``'s
+    plan): x normalised from full-row statistics; each CTA's span, each
+    row group, each K-chunk's sums added in chunk order, then the bias;
+    each CTA's pick (max, first index, all finite) of every row, merged
+    over the CTAs in order, ties to the lower index. ``fault``:
+    "lost_chunk" (the second K-chunk never added) or "no_bias" (the
+    head's bias never added)."""
+    x, nw = torch.tensor(d["x"]), torch.tensor(d["nw"])
+    B, H = x.shape
+    w = torch.tensor(d["wlm"])
+    V = w.shape[0]
+    if norm == "rms":
+        h = x * torch.rsqrt((x * x).mean(1, keepdim=True) + d["eps"]) * nw
+    else:
+        mean = x.mean(1, keepdim=True)
+        var = (x * x).mean(1, keepdim=True) - mean * mean
+        h = (x - mean) * torch.rsqrt(var + d["eps"]) * nw \
+            + torch.tensor(d["nb"])
+    plan = _emu_plan()
+    work = tm_.epilogue_work(plan, B, H, V)
+    logits = torch.empty(B, V)
+    val = torch.full((B,), -float("inf"))
+    idx = torch.full((B,), 2**31 - 1)
+    fin = torch.ones(B, dtype=torch.bool)
+    pz = torch.tensor(d["pz"]).reshape(-1, 1)
+    for _, n0, n1 in work["cols"]:
+        for b0, b1 in work["groups"]:
+            s = torch.zeros(b1 - b0, n1 - n0)
+            for i, (k0, k1) in enumerate(work["chunks"]):
+                if not (fault == "lost_chunk" and i == 1):
+                    s = s + h[b0:b1, k0:k1] @ w[n0:n1, k0:k1].t()
+            if not tied and fault != "no_bias":
+                s = s + torch.tensor(d["blm"])[n0:n1]
+            logits[b0:b1, n0:n1] = s
+        lg = logits[:, n0:n1] + pz
+        v, j = lg.max(1)
+        better = (v > val) | ((v == val) & (n0 + j < idx))
+        val, idx = torch.where(better, v, val), torch.where(better, n0 + j,
+                                                             idx)
+        fin &= torch.isfinite(lg).all(1)
+    return logits, torch.where(fin, idx, 0), ~fin, plan
+
+
+_EMU_CASES = [(n, t, f) for n in ("layer", "rms") for t in (True, False)
+              for f in (None, "lost_chunk")] + [("layer", False, "no_bias")]
+
+
+@pytest.mark.parametrize(
+    "norm,tied,fault", _EMU_CASES,
+    ids=[f"{n}-{'tied' if t else 'untied'}-{f}" for n, t, f in _EMU_CASES])
+def test_epilogue_emulation_matches_twin(epilogue_refs, norm, tied, fault):
+    """Row 7's arithmetic, emulated by the kernel's walk over two K-chunks
+    and two row groups, against the JAX twin: logits within TOL (2e-5 of
+    the twin's largest value, the card's limit), tokens and bad flags
+    equal; a lost K-chunk and a forgotten bias are refused."""
+    d, (jl, jn, jb) = epilogue_refs["emu", norm, tied]
+    lg, nxt, bad, plan = _epilogue_emulate(d, norm, tied, fault)
+    assert plan["chunks"] == 2 and plan["grid"] == 2 and plan["RT"] == 16
+    err = float(np.abs(lg.numpy() - jl).max())
+    ok = err <= 2e-5 * float(np.abs(jl).max())
+    assert ok == (fault is None), err
+    if fault is None:
+        np.testing.assert_array_equal(nxt.numpy(), jn)
+        np.testing.assert_array_equal(bad.numpy(), jb)
+
+
+@pytest.mark.parametrize("B", [1, 5, 8, 16, 17, 32, 64])
+@pytest.mark.parametrize("H,V", [(768, 50304), (4096, 32000),
+                                 (8192, 128256)])
+def test_epilogue_plan_covers_every_column_row_and_k_once(B, H, V):
+    """Row 7's plan on an H100 (132 SMs, as many CTAs an SM as their
+    shared memory lets be resident, at most 2): every vocab column in
+    exactly one CTA's span (spans of equal columns +-1) and one warp's
+    unit, every row in one group, K cut into chunks of whole 128-float
+    stages, a CTA's shared memory within 227 KB at any B; x's rows held
+    whole at the serving widths up to 8 rows of LLaMA-7B and 16 of
+    GPT-124M."""
+    plan = tm_.epilogue_plan_for(B, H, V, 132, 1)
+    per_sm = min(2, 228 * 1024 // (plan["smem"] + 1024))
+    if per_sm > 1:
+        plan = tm_.epilogue_plan_for(B, H, V, 132, per_sm)
+    assert plan["smem"] <= 227 * 1024
+    work = tm_.epilogue_work(plan, B, H, V)
+    for key in ("cols", "units"):
+        spans = [(u[-2], u[-1]) for u in work[key]]
+        assert [a for a, _ in spans][1:] == [b for _, b in spans][:-1]
+        assert spans[0][0] == 0 and spans[-1][1] == V
+    sizes = [n1 - n0 for _, n0, n1 in work["cols"]]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    assert max(b - a for *_, a, b in work["units"]) == \
+        tm_.epilogue_group(plan["RT"]) <= 64 // plan["RT"]
+    assert len(work["cols"]) == plan["grid"] <= 132 * plan["per_sm"]
+    for key, n in (("groups", B), ("chunks", H)):
+        parts = work[key]
+        assert parts[0][0] == 0 and parts[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+    assert len(work["groups"]) == -(-B // plan["RT"]) and plan["RT"] <= 16
+    assert all((k1 - k0) % 128 == 0 or k1 == H for k0, k1 in work["chunks"])
+    if (H == 4096 and B <= 8) or (H == 768 and B <= 16):
+        assert plan["chunks"] == 1
+
+
 def _step_inputs(seed=3, P=14, ps=8, NP=4):
     """One decode step over 3 slots of random pools: slot 0 at position
     6, slot 1 idle (position 0, its table row the null page), slot 2 at
@@ -872,6 +1054,124 @@ def test_epilogue_rms_kernel_matches_plain_on_card(cuda):
     torch.testing.assert_close(lg, rl, **TOL)
     assert torch.equal(nxt, rn) and torch.equal(bad, rb)
     assert bad.tolist() == [False, False, True, False, False]
+
+
+def _epilogue_card(dev, B, H, V, norm, seed=0):
+    """Row 7's inputs at a model's widths on the card: LLaMA-7B's RMSNorm
+    and untied head, or GPT-124M's LayerNorm with bias and tied head."""
+    g = torch.Generator(device=dev).manual_seed(seed + B)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    x, nw = rn(B, H), 1.0 + rn(H, std=0.1)
+    nb = None if norm == "rms" else rn(H, std=0.1)
+    kw = (dict(norm="rms", eps=1e-6) if norm == "rms"
+          else dict(eps=1e-5, transpose_lm=True))
+    return [x, nw, nb, rn(V, H, std=0.02)], kw
+
+
+def _plain_epilogue(args, pz, kw):
+    kw = dict(kw)
+    kw.setdefault("transpose_lm", False)
+    return tm_.fused_decode_epilogue_plain(*args, None, pz, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,V,norm", [(16, 4096, 32000, "rms"),
+                                        (32, 4096, 32000, "rms"),
+                                        (8, 768, 50304, "layer")])
+def test_epilogue_many_rows_matches_plain_on_card(cuda, B, H, V, norm):
+    """Row 7 by the library's plan (the plain rule's at its resident CTAs)
+    at LLaMA-7B's width with 16 and 32 rows (K-chunks; 32 in two row
+    groups) and at GPT-124M's: one launch a call, logits within 2e-5 of
+    the plain version's largest value, tokens and bad flags equal but on
+    near ties (plain logits within 1e-4), the same bits on a second
+    call."""
+    args, kw = _epilogue_card(cuda, B, H, V, norm)
+    plan = tm_.epilogue_plan(B, H, V, norm, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan == tm_.epilogue_plan_for(B, H, V, sms, plan["per_sm"])
+    pz = torch.zeros(B, device=cuda)
+    pz[B // 2] = float("nan")
+    before = tm_.fused_decode_epilogue.launches
+    lg, nxt, bad = tm_.fused_decode_epilogue(*args, None, pz, **kw)
+    torch.cuda.synchronize()
+    assert tm_.fused_decode_epilogue.launches == before + 1
+    rl, rn, rb = _plain_epilogue(args, pz, kw)
+    assert float((lg - rl).abs().max()) <= 2e-5 * float(rl.abs().max())
+    assert torch.equal(bad, rb) and bad.tolist() == [r == B // 2
+                                                     for r in range(B)]
+    for r in torch.nonzero(nxt != rn).flatten().tolist():
+        assert float((rl[r, rn[r]] - rl[r, nxt[r]]).abs()) < 1e-4, r
+    again = tm_.fused_decode_epilogue(*args, None, pz, **kw)
+    assert all(torch.equal(a, b) for a, b in zip((lg, nxt, bad), again))
+
+
+@pytest.mark.gpu
+def test_epilogue_plans_sharing_a_kernel_keep_launching_on_card(cuda):
+    """B 8 and B 5 at LLaMA-7B's width run one kernel (8 rows a group)
+    with different shared memory: after B 5's plan is made, B 8's launch
+    still runs and still matches the plain version."""
+    H, V = 4096, 4099
+    before = tm_.fused_decode_epilogue.launches
+    for B in (8, 5, 8):
+        args, kw = _epilogue_card(cuda, B, H, V, "rms", seed=11)
+        pz = torch.zeros(B, device=cuda)
+        lg, nxt, bad = tm_.fused_decode_epilogue(*args, None, pz, **kw)
+        rl, rn, rb = _plain_epilogue(args, pz, kw)
+        torch.cuda.synchronize()
+        assert float((lg - rl).abs().max()) <= 2e-5 * float(rl.abs().max())
+        assert torch.equal(bad, rb) and not bad.any()
+    assert tm_.fused_decode_epilogue.launches == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 16])
+def test_epilogue_tie_across_ctas_picks_lower_index_on_card(cuda, B):
+    """Two equal weight rows in the spans of two CTAs (the first and the
+    last), larger than any other logit of every row: the kernel's logits
+    of the two are equal bits and every row picks the lower index."""
+    H, V = 4096, 32000
+    args, kw = _epilogue_card(cuda, B, H, V, "rms", seed=3)
+    x, nw, _, w = args
+    x.copy_(x[:1] + 0.1 * x)          # rows near one direction
+    plan = tm_.epilogue_plan(B, H, V, "rms", cuda)
+    cols = tm_.epilogue_work(plan, B, H, V)["cols"]
+    lo, hi = cols[0][1] + 5, cols[-1][1] + 3
+    h = x[0] * torch.rsqrt(x[0].square().mean() + 1e-6) * nw
+    w[lo] = w[hi] = 0.5 * h / h.norm()
+    lg, nxt, bad = tm_.fused_decode_epilogue(*args, None,
+                                             torch.zeros(B, device=cuda),
+                                             **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(lg[:, lo], lg[:, hi])
+    assert bool((lg[:, lo][:, None] > lg).sum(1).eq(V - 2).all())
+    assert nxt.tolist() == [lo] * B and not bad.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 16])
+def test_epilogue_nonfinite_last_column_flags_row_on_card(cuda, B):
+    """A logit that overflows to inf in the last vocab column of one row
+    only: that row is bad with token 0, the others pick as the plain
+    version does."""
+    H, V = 4096, 32000
+    args, kw = _epilogue_card(cuda, B, H, V, "rms", seed=5)
+    x, nw, _, w = args
+    nw.fill_(1.0)
+    x[:, 0] = 0.1
+    x[B // 3, 0] = 5.0                 # its normalised value ~5
+    w[V - 1].zero_()
+    w[V - 1, 0] = 3e38                 # 1.5e39 there, finite elsewhere
+    pz = torch.zeros(B, device=cuda)
+    lg, nxt, bad = tm_.fused_decode_epilogue(*args, None, pz, **kw)
+    rl, rn, rb = _plain_epilogue(args, pz, kw)
+    torch.cuda.synchronize()
+    assert bad.tolist() == [r == B // 3 for r in range(B)]
+    assert torch.equal(bad, rb) and int(nxt[B // 3]) == 0
+    assert torch.equal(nxt, rn)
+    assert torch.isinf(lg[B // 3, V - 1])
 
 
 # LLaMA-7B TP=2 (one rank's MLP slices) and the unsharded egress: fp32,
